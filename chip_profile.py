@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where the time of ``TreeNSearch.run()`` goes on the card.
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_profile.py
+
+At the 1M-point configuration of ``chip_smoke.py`` (uniform, r = 0.02,
+cell 1.15 r), after two settling runs, it prints:
+
+- ``run()``'s host time, synchronised, median over 10 runs;
+- ``torch.profiler``'s device time over 5 ``run()`` calls, by kernel
+  name and per run, the device's busy time in that window and its idle
+  share;
+- the pairs kernel's work: live tiles and distance tests (128 lanes times
+  the windowed candidates of each live tile), from the main path's
+  descriptors;
+- the peak device memory.
+
+Every time is the engine's own ``run()``; nothing re-sequences its steps.
+It exits non-zero without CUDA.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+
+N = 1_000_000
+RADIUS = 0.02
+N_TIMED = 10
+N_PROFILED = 5
+TOP = 15
+
+
+def busy_ms(events) -> tuple[float, float]:
+    """(busy ms, window ms) of the union of device event intervals."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (cs, ce) = 0.0, iv[0]
+    for s, e in iv[1:]:
+        if s > ce:
+            busy += ce - cs
+            cs, ce = s, e
+        else:
+            ce = max(ce, e)
+    busy += ce - cs
+    return busy / 1e3, (iv[-1][1] - iv[0][0]) / 1e3
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import card_line, main_path_structures, make_engine
+    from treensearch_tpu_torch.ops.pairs import FAT_COL, LENS_OFF, TILE
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (N, 3))
+                           .astype(np.float32)).to(dev)
+    eng = make_engine(pts, RADIUS)
+    eng.run()
+    eng.run()
+    print(f"caps: {eng._knobs()}, nbr_cap {eng._nbr_cap}", flush=True)
+
+    times = []
+    for _ in range(N_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"run() host ms, median of {N_TIMED}: {statistics.median(times):.4f}"
+          f" (min {min(times):.4f}) ({card})", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(N_PROFILED):
+            eng.run()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev_events:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    busy, window = busy_ms(dev_events)
+    print(f"device ms per run by kernel (top {TOP} of {len(by_name)}):")
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:TOP]:
+        print(f"  {ms / N_PROFILED:9.4f} ms  {k // N_PROFILED:4d}x  "
+              f"{name[:90]}")
+    ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
+            / N_PROFILED
+            for k in ("expand_query_tiles_kernel", "pairs_nbrs_fixed_kernel")}
+    print(f"per run: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K2a "
+          f"{ours['pairs_nbrs_fixed_kernel']:.4f} ms, all device work "
+          f"{busy / N_PROFILED:.4f} ms, {len(dev_events) / N_PROFILED:.0f} "
+          f"device events")
+    print(f"{N_PROFILED} runs: device busy {busy:.3f} ms in a {window:.3f} "
+          f"ms window, idle share {1 - busy / window:.3f} ({card})")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB")
+
+    _, a = main_path_structures(pts, RADIUS)
+    live = a.desc[:a.tiles_cap, FAT_COL] != 2
+    cand = a.desc[:a.tiles_cap, LENS_OFF:LENS_OFF + a.n_win][live] \
+        .sum(dim=1, dtype=torch.int64)
+    print(f"K2a work: {int(live.sum())} live tiles of {a.tiles_cap}, "
+          f"{float(cand.double().mean()):.1f} candidates per tile, "
+          f"{TILE * int(cand.sum())} distance tests per run")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""Guards of the port's boundaries: no JAX in the package, no CPU carry-on
+when CUDA is asked for, and no plain-version substitute when the kernels
+cannot be built."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from treensearch_tpu_torch import TreeNSearch
+from treensearch_tpu_torch.ops import pairs
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "treensearch_tpu_torch"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, treensearch_tpu_torch, treensearch_tpu_torch.interop,"
+            " treensearch_tpu_torch.ops.fastpath; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "'jax.') or m == 'treensearch_tpu' or m.startswith("
+            "'treensearch_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_package_source_never_imports_jax():
+    pattern = re.compile(r"import jax|from jax|treensearch_tpu(?!_torch)\b"
+                         r"(?=\s+import|\.)")
+    hits = []
+    for path in sorted(PKG.rglob("*")):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            for k, line in enumerate(path.read_text().splitlines(), 1):
+                if re.search(r"import jax", line) or (
+                        re.match(r"\s*(from|import)\s", line)
+                        and pattern.search(line)):
+                    hits.append(f"{path.relative_to(ROOT)}:{k}: {line}")
+    assert hits == []
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"device": "cuda"}])
+def test_cuda_engine_raises_without_cuda(kwargs):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TreeNSearch(**kwargs)
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(pairs, "CUDA_HOME_DEFAULT", str(empty))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    _no_nvcc(monkeypatch, tmp_path)
+    build = tmp_path / "build"
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        pairs.load_library(build)
+    assert not build.exists() or not any(build.iterdir())
+
+
+def test_kernel_route_does_not_fall_back(monkeypatch, tmp_path):
+    # a tensor that is not on the CPU takes the kernel route; with no
+    # toolchain that raises instead of running the plain version
+    _no_nvcc(monkeypatch, tmp_path)
+    monkeypatch.setattr(pairs, "BUILD_DIR", tmp_path / "build")
+    desc = torch.zeros((8, pairs.DESC_W), dtype=torch.int32, device="meta")
+    recs = torch.zeros((pairs.N_FIELDS, 4), dtype=torch.int32,
+                       device="meta")
+    before = pairs.expand_query_tiles.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pairs.expand_query_tiles(desc, recs, 1, 4)
+    q = torch.zeros((pairs.N_FIELDS, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pairs.pairs_nbrs_fixed(desc, q, recs, 0.01, 9, 8, 1)
+    assert pairs.expand_query_tiles.launches == before

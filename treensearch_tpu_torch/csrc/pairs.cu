@@ -1,0 +1,177 @@
+// Kernels of the fixed-radius, single-set neighbor-list path, for Hopper
+// (sm_90a).  Plain C launchers, loaded with ctypes by
+// treensearch_tpu_torch/ops/pairs.py; each returns cudaGetLastError().
+//
+// Build flags (ops/pairs.py NVCC_FLAGS) never include --use_fast_math or
+// -ftz: the query padding carries NaN coordinates that must fail every
+// d^2 <= r^2 compare, and d^2 is rounded exactly as eager PyTorch and
+// numpy round it (explicit _rn intrinsics, so no FMA contraction).
+//
+// Layouts (all int32; float fields travel as their bit patterns):
+//   desc   (>= tiles_cap, 128): window starts in columns [0, n_win), window
+//          lengths in [64, 64 + n_win), the tile's first sorted point in 62,
+//          its real point count in 63, and 2 in column 127 for a dead tile.
+//   recs_t (8, n_rec): sorted records, field-major: x, y, z, r, orig, set,
+//          p0, p1.
+//   q_t    (8, tiles_cap * 128): query tiles, field-major.
+// Both kernels clip every record range to [0, n_rec), so no descriptor can
+// make them read outside recs_t; the plain versions clip the same way.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 128;
+constexpr int DESC_W = 128;
+constexpr int LENS_OFF = 64;
+constexpr int A_COL = 62;
+constexpr int CNT_COL = 63;
+constexpr int FAT_COL = 127;
+constexpr int N_FIELDS = 8;
+constexpr int F_ORIG = 4;
+constexpr int F_SET = 5;
+constexpr int SENTINEL_BITS = 0x7FC00000;  // quiet NaN
+constexpr int CHUNK = 256;                 // candidates staged per pass
+
+// K1 -- replaces make_expand_call(build_rec=False)
+// (treensearch_tpu/ops/pallas_pairs.py:276).  Slot 128 t + l of the query
+// tiles gets sorted record a_t + l when l < cnt_t and the sentinel record
+// otherwise.  One thread per padded slot.  Bound: memory, 2 * 8 * 4 bytes
+// per slot (read one record, write one); the TPU kernel's DMA banks and
+// lane rotations exist to make unaligned tile starts cheap there, which
+// on this card is what coalesced per-thread loads of consecutive records
+// already are.
+__global__ void expand_query_tiles_kernel(const int* __restrict__ desc,
+                                          const int* __restrict__ recs_t,
+                                          int n_rec, int n_slots,
+                                          int sentinel_orig,
+                                          int* __restrict__ q_t) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= n_slots) return;
+  const int t = slot / TILE;
+  const int l = slot % TILE;
+  const int a = desc[(size_t)t * DESC_W + A_COL];
+  const int cnt = desc[(size_t)t * DESC_W + CNT_COL];
+  if (l < cnt && a >= 0 && (long long)a + l < n_rec) {
+    const size_t src = (size_t)a + l;
+#pragma unroll
+    for (int f = 0; f < N_FIELDS; ++f)
+      q_t[(size_t)f * n_slots + slot] = recs_t[(size_t)f * n_rec + src];
+  } else {
+#pragma unroll
+    for (int f = 0; f < N_FIELDS; ++f) {
+      int v = 0;
+      if (f < 3) v = SENTINEL_BITS;
+      else if (f == F_ORIG) v = sentinel_orig;
+      else if (f == F_SET) v = -1;
+      q_t[(size_t)f * n_slots + slot] = v;
+    }
+  }
+}
+
+// K2a -- replaces make_pairs_call in neighbor-list mode, fixed radius, one
+// candidate set (treensearch_tpu/ops/pallas_pairs.py:445), narrow and fat
+// tier alike.  One block of 128 threads per query tile, one query per
+// thread.  The tile's n_win windows are streamed in order through shared
+// memory, CHUNK candidates (x, y, z, orig: 4 KB) at a time, so a window of
+// any width fits and there is no narrow/fat routing.  Each thread tests
+// its query against the chunk, appends each survivor's orig to its own
+// row while its count is below k8, and keeps counting past the cap.
+// Bound: the distance tests (128 x ~1.2k per tile at 1M points),
+// then the scattered 4-byte row writes.  The TPU kernel's compaction
+// networks and MXU prefix sums existed because a TPU core cannot append
+// per lane; here each thread appends to its own row directly.
+// Self-exclusion by orig in every window is exact: windows of distinct
+// stencil offsets are disjoint and a point has one sorted slot.
+__global__ void __launch_bounds__(TILE)
+pairs_nbrs_fixed_kernel(const int* __restrict__ desc,
+                        const int* __restrict__ q_t,
+                        const int* __restrict__ recs_t, int n_rec,
+                        int tiles_cap, int n_win, int k8, float r2,
+                        int* __restrict__ counts, int* __restrict__ nbrs) {
+  __shared__ float sx[CHUNK];
+  __shared__ float sy[CHUNK];
+  __shared__ float sz[CHUNK];
+  __shared__ int so[CHUNK];
+
+  const int t = blockIdx.x;
+  const int l = threadIdx.x;
+  const int* d = desc + (size_t)t * DESC_W;
+  const size_t n_slots = (size_t)tiles_cap * TILE;
+  const size_t slot = (size_t)t * TILE + l;
+  if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
+    counts[slot] = 0;
+    return;
+  }
+  const float qx = __int_as_float(q_t[slot]);
+  const float qy = __int_as_float(q_t[n_slots + slot]);
+  const float qz = __int_as_float(q_t[2 * n_slots + slot]);
+  const int qo = q_t[F_ORIG * n_slots + slot];
+  int* out = nbrs + (size_t)t * k8 * TILE + l;
+  const int* rx = recs_t;
+  const int* ry = recs_t + (size_t)n_rec;
+  const int* rz = recs_t + 2 * (size_t)n_rec;
+  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
+
+  int cnt = 0;
+  for (int w = 0; w < n_win; ++w) {
+    const int s = d[w];
+    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
+    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
+      const int m = min(CHUNK, ln - c0);
+      for (int j = l; j < m; j += TILE) {
+        const size_t src = (size_t)s + c0 + j;
+        sx[j] = __int_as_float(rx[src]);
+        sy[j] = __int_as_float(ry[src]);
+        sz[j] = __int_as_float(rz[src]);
+        so[j] = ro[src];
+      }
+      __syncthreads();
+      for (int j = 0; j < m; ++j) {
+        const float dx = __fsub_rn(sx[j], qx);
+        const float dy = __fsub_rn(sy[j], qy);
+        const float dz = __fsub_rn(sz[j], qz);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                             __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        const int o = so[j];
+        if (d2 <= r2 && o != qo) {
+          if (cnt < k8) out[(size_t)cnt * TILE] = o;
+          ++cnt;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  counts[slot] = cnt;
+  for (int k = cnt; k < k8; ++k) out[(size_t)k * TILE] = -1;
+}
+
+}  // namespace
+
+extern "C" int tns_expand_query_tiles(const int* desc, const int* recs_t,
+                                      int n_rec, int tiles_cap,
+                                      int sentinel_orig, int* q_t,
+                                      void* stream) {
+  const int n_slots = tiles_cap * TILE;
+  if (n_slots > 0) {
+    const int threads = 256;
+    const int blocks = (n_slots + threads - 1) / threads;
+    expand_query_tiles_kernel<<<blocks, threads, 0,
+                                (cudaStream_t)stream>>>(
+        desc, recs_t, n_rec, n_slots, sentinel_orig, q_t);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tns_pairs_nbrs_fixed(const int* desc, const int* q_t,
+                                    const int* recs_t, int n_rec,
+                                    int tiles_cap, int n_win, int k8,
+                                    float r2, int* counts, int* nbrs,
+                                    void* stream) {
+  if (tiles_cap > 0) {
+    pairs_nbrs_fixed_kernel<<<tiles_cap, TILE, 0, (cudaStream_t)stream>>>(
+        desc, q_t, recs_t, n_rec, tiles_cap, n_win, k8, r2, counts, nbrs);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,81 @@
+"""Neighbor-list views over the padded-CSR solution.
+
+PyTorch counterpart of ``treensearch_tpu/neighborlist.py``: per active
+pair (set_i, set_j) the solution holds ``counts`` (n_i,) and tile-layout
+neighbor rows that ``materialize_nbrs`` turns into (n_i, cap) rows with -1
+padding.  ``NeighborList`` handles mirror the reference's
+``NeighborList.h:8-39``; ``get_neighbors_device`` keeps everything on the
+device as torch tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.fastpath import materialize_nbrs
+
+
+class NeighborList:
+    """Neighbors in set_j of one point of set_i (indices local to set_j,
+    unsorted, like the reference's SIMD output)."""
+
+    __slots__ = ("_ids",)
+
+    def __init__(self, ids: np.ndarray):
+        self._ids = ids
+
+    def size(self) -> int:
+        return int(self._ids.shape[0])
+
+    def __len__(self) -> int:
+        return self.size()
+
+    def __getitem__(self, k: int) -> int:
+        return int(self._ids[k])
+
+    def __iter__(self):
+        return iter(self._ids.tolist())
+
+    def to_numpy(self) -> np.ndarray:
+        return self._ids
+
+    def __repr__(self):
+        return f"NeighborList(n={self.size()})"
+
+
+class NeighborSolution:
+    """One run's results for all active pairs; each pair's arrays are
+    copied to the host at most once."""
+
+    def __init__(self, pairs_device: dict):
+        self._dev = pairs_device
+        self._np_cache: dict = {}
+
+    def _pair(self, si: int, sj: int) -> dict:
+        key = f"{si}-{sj}"
+        if key not in self._dev:
+            raise KeyError(
+                f"search ({si} -> {sj}) is not active; activate it with "
+                "set_active_search before run()")
+        return self._dev[key]
+
+    def _fetch(self, si: int, sj: int):
+        key = f"{si}-{sj}"
+        if key not in self._np_cache:
+            p = self._pair(si, sj)
+            self._np_cache[key] = (p["counts"].cpu().numpy(),
+                                   materialize_nbrs(p).cpu().numpy())
+        return self._np_cache[key]
+
+    def get_neighborlist(self, si: int, sj: int, i: int) -> NeighborList:
+        counts, nbrs = self._fetch(si, sj)
+        return NeighborList(nbrs[i, : counts[i]])
+
+    def get_counts(self, si: int, sj: int) -> np.ndarray:
+        """Counts without materializing the neighbor rows."""
+        return self._pair(si, sj)["counts"].cpu().numpy()
+
+    def get_neighbors_device(self, si: int, sj: int):
+        """Device tensors ``(counts (n_i,), nbrs (n_i, cap))``."""
+        p = self._pair(si, sj)
+        return p["counts"], materialize_nbrs(p)

@@ -1,0 +1,335 @@
+"""The fast path: dense cell table, row-aligned query tiles, stencil
+windows in sorted space, and the two kernels.
+
+PyTorch counterpart of the fixed-radius, single-set, neighbor-list branch
+of ``treensearch_tpu/ops/fastpath.py`` (``build_and_search_fast``,
+``fastpath.py:1690-1711``), rebuilt on every call:
+
+1. ``update_grid`` (``ops/grid.py``) fixes the world box;
+2. ``_prep`` (counterpart of ``_pallas_prep``, row layout) sorts points by
+   padded linear cell id, builds the dense cell-start table, pads every
+   occupied grid row to a multiple of 128 slots so each 128-query tile
+   lies in one grid row, and writes one window descriptor per stencil
+   offset (di, dj): a contiguous, disjoint k-run of the SORTED points;
+3. ``_search`` (counterpart of ``_pallas_search``) builds the sorted
+   field-major records, lays out the query tiles (kernel K1), runs the
+   pairs kernel (K2a) and gathers per-point counts through ``qpos``;
+4. ``materialize_nbrs`` turns the tile-layout rows into (n, k8) padded-CSR
+   rows on demand.
+
+Every structure the JAX prep computes by arithmetic is computed here by
+the same integer arithmetic, so it is bit-identical (tests/
+test_torch_prep.py).  The JAX package's blocked scans exist only for
+XLA-TPU compile times; ``torch.cumsum`` and ``torch.cummax`` replace them,
+and one histogram build of the cell table replaces its two bit-identical
+builds.  The static caps and overflow flags stay: they fix every shape of
+the step, and the host grows a cap and re-runs on overflow.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import SearchConfig, round_up
+from ..utils import keys as K
+from .grid import GridState, update_grid
+from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_X, F_Z, FAT_COL,
+                    LENS_OFF, N_FIELDS, TILE, expand_query_tiles,
+                    pairs_nbrs_fixed)
+
+
+class FastKnobs(NamedTuple):
+    """Static caps of the fast path (the fields of the JAX ``FastKnobs``
+    that the GPU path reads; the rest are TPU schedules)."""
+    dense_cap: int = 1 << 22   # dense cell-table slots
+    tiles_cap: int = 0         # row-aligned 128-slot tiles (0 = from n)
+    rows_cap: int = 0          # grid-row array slots (0 = from dense_cap)
+
+
+class FastCarry(NamedTuple):
+    """Everything derived from the points' cell assignment (counterpart
+    of the JAX ``FastCarry`` without the fat-tier routing)."""
+    valid: torch.Tensor        # () bool
+    lin_s: torch.Tensor        # (n,) sorted linear cell ids
+    lin_chk: torch.Tensor      # (n,) cell ids by original index
+    idx_s: torch.Tensor        # (n,) sorted slot -> original index
+    inv_perm: torch.Tensor     # (n,) original index -> sorted slot
+    pp: torch.Tensor           # (n,) sorted slot -> padded slot
+    qpos: torch.Tensor         # (n,) original index -> padded slot
+    desc: torch.Tensor         # (nt8, 128) window descriptors
+    dense_overflow: torch.Tensor
+    tile_overflow: torch.Tensor
+    rows_overflow: torch.Tensor
+    win_max: torch.Tensor      # () widest window
+    n_cells_stat: torch.Tensor  # () occupied cells
+
+
+def default_tiles_cap(n: int) -> int:
+    """Tile slots: ceil(n/128) plus one partial tile per occupied grid
+    row, estimated as a quarter more (at least 256); the host regrows on
+    ``tile_overflow``."""
+    base = -(-n // TILE)
+    return base + max(256, base // 4)
+
+
+def _statics(cfg: SearchConfig, knobs: FastKnobs) -> dict:
+    """Static sizes shared by prep and search (``_pallas_statics``)."""
+    w = cfg.stencil_w
+    tiles_cap = knobs.tiles_cap if knobs.tiles_cap > 0 else \
+        default_tiles_cap(cfg.n_points)
+    return {
+        "w": w,
+        "tiles_cap": tiles_cap,
+        "NPAD": tiles_cap * TILE,
+        # descriptor rows: one spare past tiles_cap, rounded to 8, so the
+        # descriptor array has the JAX prep's shape
+        "nt8": -(-(tiles_cap + 1) // 8) * 8,
+        "rows_cap": knobs.rows_cap if knobs.rows_cap > 0 else
+        max(1 << 14, knobs.dense_cap >> 3),
+        "offs_2d": [(di, dj) for di in range(-w, w + 1)
+                    for dj in range(-w, w + 1)],
+    }
+
+
+def _lin_coords(ijk: torch.Tensor, w: int, dy, dz) -> torch.Tensor:
+    """Padded linear cell id; ijk are unpadded int32 coords (N, 3)."""
+    return ((ijk[..., 0] + w) * dy + (ijk[..., 1] + w)) * dz + (ijk[..., 2] + w)
+
+
+def _padded_lin(points: torch.Tensor, state: GridState, cfg: SearchConfig,
+                knobs: FastKnobs):
+    """Linear padded cell id per point, plus the padded grid strides."""
+    w = cfg.stencil_w
+    dy = state.n_cells[1] + 2 * w
+    dz = state.n_cells[2] + 2 * w
+    inv_cell = 1.0 / state.cell_size
+    ijk = K.quantize(points, state.grid_min, inv_cell, state.n_cells)
+    lin = _lin_coords(ijk, w, dy, dz)
+    lin = torch.clamp(lin, 0, knobs.dense_cap - 1)
+    return lin, dy, dz, inv_cell
+
+
+def _cell_table(lin_s: torch.Tensor, dense_cap: int) -> torch.Tensor:
+    """table[q] = number of points with lin < q, q in [0, dense_cap]: the
+    sorted start of cell q, empty cells pointing at the next occupied
+    cell.  A histogram and one cumsum."""
+    hist = torch.zeros(dense_cap + 1, dtype=torch.int32, device=lin_s.device)
+    hist.index_add_(0, (lin_s + 1).long(), torch.ones_like(lin_s))
+    return torch.cumsum(hist, 0, dtype=torch.int32)
+
+
+def _i32(x) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
+          knobs: FastKnobs) -> FastCarry:
+    """Sort, dense table, row-aligned layout and window descriptors
+    (``_pallas_prep``, row layout, window starts in sorted space: the
+    ``win_sorted`` branch that production ``rec_expand`` uses).  Requires
+    ``cfg.n_points > 0``."""
+    st = _statics(cfg, knobs)
+    n = cfg.n_points
+    dev = points.device
+    w = st["w"]
+    tiles_cap, NPAD, nt8 = st["tiles_cap"], st["NPAD"], st["nt8"]
+    rows_cap = st["rows_cap"]
+    dense_cap = knobs.dense_cap
+
+    def arange(m):
+        return torch.arange(m, dtype=torch.int32, device=dev)
+
+    dx = state.n_cells[0] + 2 * w
+    lin, dy, dz, _ = _padded_lin(points, state, cfg, knobs)
+    # in float, so a huge sparse domain cannot wrap int32
+    dense_size_f = (dx.to(torch.float32) * dy.to(torch.float32)
+                    * dz.to(torch.float32))
+    dense_overflow = _i32(dense_size_f > torch.tensor(
+        dense_cap - 1, dtype=torch.float32, device=dev))
+    iota = arange(n)
+    lin_s, order = torch.sort(lin, stable=True)
+    idx_s = _i32(order)
+    table = _cell_table(lin_s, dense_cap)
+
+    # ---- row-aligned layout: every occupied grid row padded to 128 ------
+    rows_overflow = _i32(dx * dy + 1 > rows_cap)
+    r_eff = torch.minimum(arange(rows_cap + 1), dense_cap // dz + 1)
+    row_starts = table[torch.clamp(r_eff * dz, max=dense_cap)]
+    row_len = row_starts[1:] - row_starts[:-1]
+    row_pads = torch.remainder(-row_len, TILE)
+    pads_inc = torch.cumsum(row_pads, 0, dtype=torch.int32)
+    pads_exc = pads_inc - row_pads
+    tile_overflow = _i32(n + pads_inc[-1] > NPAD)
+    # per-point padding offset: each row's pad increment at the row's
+    # first sorted point, then one cumsum
+    pad_step = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    pad_step.index_add_(0, torch.clamp(row_starts[:-1], max=n).long(),
+                        torch.cat([row_pads.new_zeros(1), row_pads[:-1]]))
+    pp = torch.clamp(iota + torch.cumsum(pad_step[:n], 0, dtype=torch.int32),
+                     max=NPAD - 1)
+
+    # ---- per-tile grid row and k-extent ---------------------------------
+    # tile -> row = max{r : pstart[r] <= 128 t}: padded row starts are
+    # 128-aligned, so row r claims tile pstart[r] // 128 by scatter-max
+    # (a spare slot takes the claims past tiles_cap) and a cummax fills
+    # the gaps
+    pstart = row_starts[:-1] + pads_exc
+    claim = torch.clamp(pstart // TILE, max=tiles_cap).long()
+    tr0 = torch.zeros(tiles_cap + 1, dtype=torch.int32, device=dev)
+    tr0.scatter_reduce_(0, claim, arange(rows_cap), reduce="amax")
+    tr = torch.cummax(tr0[:tiles_cap], 0).values
+    trl = tr.long()
+    off_t = arange(tiles_cap) * TILE - pstart[trl]
+    cnt_t = torch.clamp(row_len[trl] - off_t, 0, TILE)
+    has = cnt_t > 0
+    a_t = torch.clamp(row_starts[:-1][trl] + off_t, 0, n - 1)
+    b_t = torch.clamp(a_t + cnt_t - 1, 0, n - 1)
+    lmin = torch.where(has, lin_s[a_t.long()], 0)
+    lmax = torch.where(has, lin_s[b_t.long()], 0)
+    trow = torch.where(has, tr, 0)
+    k0 = torch.clamp(lmin - trow * dz, min=0)
+    k1 = torch.clamp(lmax - trow * dz, min=0)
+
+    # ---- window descriptors: one sorted k-run per (di, dj) --------------
+    # window = [table[row' dz + k0 - w], table[row' dz + k1 + w + 1]) of
+    # neighbor row row' = trow + di dy + dj; distinct (di, dj) give
+    # disjoint runs
+    di = torch.tensor([o[0] for o in st["offs_2d"]], dtype=torch.int32,
+                      device=dev)
+    dj = torch.tensor([o[1] for o in st["offs_2d"]], dtype=torch.int32,
+                      device=dev)
+    rp = torch.clamp(trow[:, None] + di[None, :] * dy + dj[None, :], min=0)
+    rp = torch.minimum(rp, dense_cap // dz)
+    base = torch.clamp(rp * dz, max=dense_cap)
+    s = table[torch.clamp(base + k0[:, None] - w, 0, dense_cap).long()]
+    e = table[torch.clamp(base + k1[:, None] + w + 1, 0, dense_cap).long()]
+    lens = torch.clamp(e - s, min=0) * has[:, None]
+    starts = torch.clamp(s, 0, n)
+    n_win = len(st["offs_2d"])
+
+    desc = torch.zeros((nt8, DESC_W), dtype=torch.int32, device=dev)
+    desc[:tiles_cap, :n_win] = starts
+    desc[:tiles_cap, LENS_OFF:LENS_OFF + n_win] = _i32(lens)
+    desc[:tiles_cap, A_COL] = a_t
+    desc[:tiles_cap, CNT_COL] = cnt_t
+    desc[:tiles_cap, FAT_COL] = torch.where(has, 0, 2)
+
+    # ---- carried maps -----------------------------------------------------
+    inv_perm = torch.empty_like(iota).scatter_(0, order, iota)
+    qpos = torch.empty_like(iota).scatter_(0, order, pp)
+    if n > 1:
+        n_cells_stat = 1 + _i32((lin_s[1:] != lin_s[:-1]).sum())
+    else:
+        n_cells_stat = torch.tensor(n, dtype=torch.int32, device=dev)
+    return FastCarry(
+        valid=torch.ones((), dtype=torch.bool, device=dev),
+        lin_s=lin_s, lin_chk=lin, idx_s=idx_s, inv_perm=inv_perm, pp=pp,
+        qpos=qpos, desc=desc, dense_overflow=dense_overflow,
+        tile_overflow=tile_overflow, rows_overflow=rows_overflow,
+        win_max=_i32(lens.max()), n_cells_stat=n_cells_stat)
+
+
+def sorted_records(points: torch.Tensor, idx_s: torch.Tensor) -> torch.Tensor:
+    """Sorted field-major records (8, n) int32: x, y, z as float32 bit
+    patterns, r = 0, orig, set = 0, p0 = p1 = 0 (fixed radius, one set)."""
+    n = points.shape[0]
+    pts_s = points[idx_s.long()]
+    recs_t = torch.zeros((N_FIELDS, n), dtype=torch.int32,
+                         device=points.device)
+    recs_t[F_X:F_Z + 1] = pts_s.view(torch.int32).t()
+    recs_t[F_ORIG] = idx_s
+    return recs_t
+
+
+class KernelInputs(NamedTuple):
+    """The arguments K1 and K2a take from one prep."""
+    desc: torch.Tensor     # (nt8, 128) window descriptors
+    recs_t: torch.Tensor   # (8, n) sorted field-major records
+    tiles_cap: int
+    n_win: int             # (2W+1)^2 stencil windows
+    k8: int                # neighbor row width, nbr_cap rounded up to 8
+    r2: float              # float32 square of the float32 radius
+
+
+def kernel_inputs(points: torch.Tensor, search_radius: float,
+                  carry: FastCarry, cfg: SearchConfig,
+                  knobs: FastKnobs) -> KernelInputs:
+    """Record build and the kernels' static arguments (``_pallas_search``,
+    ``fastpath.py:1098, 1158-1232``)."""
+    st = _statics(cfg, knobs)
+    r = np.float32(search_radius)
+    return KernelInputs(carry.desc, sorted_records(points, carry.idx_s),
+                        st["tiles_cap"], len(st["offs_2d"]),
+                        round_up(cfg.nbr_cap, 8), float(r * r))
+
+
+def _search(points: torch.Tensor, search_radius: float, state: GridState,
+            carry: FastCarry, cfg: SearchConfig, knobs: FastKnobs) -> dict:
+    """Record build, K1, K2a and the counts epilogue (``_pallas_search``,
+    single-set neighbor-list branch)."""
+    a = kernel_inputs(points, search_radius, carry, cfg, knobs)
+    q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
+    counts_t, nbrs_t = pairs_nbrs_fixed(a.desc, q_t, a.recs_t, a.r2,
+                                        a.n_win, a.k8, a.tiles_cap)
+    counts = counts_t[carry.qpos.long()]
+    pairs = {}
+    for (si, sj) in cfg.active_pairs:
+        pairs[f"{si}-{sj}"] = {"counts": counts, "max_count": counts.max(),
+                               "nbrs_tiles": nbrs_t, "qpos": carry.qpos}
+    return {
+        "pairs": pairs,
+        "n_cells": carry.n_cells_stat,
+        "error": state.error,
+        "dense_overflow": carry.dense_overflow,
+        "tile_overflow": carry.tile_overflow,
+        "rows_overflow": carry.rows_overflow,
+        # dead tiles (FAT_COL = 2) are a suffix of the layout
+        "tiles_used": _i32((carry.desc[:a.tiles_cap, FAT_COL] != 2).sum()),
+        "win_max": carry.win_max,
+    }
+
+
+def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
+    dev = state.error.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    pairs = {}
+    for (si, sj) in cfg.active_pairs:
+        n_i = cfg.set_sizes[si]
+        pairs[f"{si}-{sj}"] = {
+            "counts": torch.zeros(n_i, dtype=torch.int32, device=dev),
+            "nbrs": torch.full((n_i, round_up(cfg.nbr_cap, 8)), -1,
+                               dtype=torch.int32, device=dev),
+            "max_count": zero}
+    return {"pairs": pairs, "n_cells": zero, "error": state.error,
+            "dense_overflow": zero, "tile_overflow": zero,
+            "rows_overflow": zero, "tiles_used": zero, "win_max": zero}
+
+
+def build_and_search_fast(points: torch.Tensor, search_radius: float,
+                          cell_size: float, state: GridState,
+                          cfg: SearchConfig,
+                          knobs: FastKnobs) -> tuple[dict, GridState]:
+    """One full search: grid update, prep, records, K1, K2a, counts."""
+    state = update_grid(state, points, cell_size)
+    if cfg.n_points == 0 or not cfg.active_pairs:
+        return _empty_solution(cfg, state), state
+    carry = _prep(points, state, cfg, knobs)
+    return _search(points, search_radius, state, carry, cfg, knobs), state
+
+
+def materialize_nbrs(pair: dict) -> torch.Tensor:
+    """Per-point padded neighbor rows (n, k8) of one pair's solution.
+
+    The kernel leaves rows in tile layout plus a per-point slot pointer
+    (``qpos``, the reference's ``solution_ptr`` indirection); with one
+    tier the per-point view is one gather of slot rows.  The tile-layout
+    array is released once the view exists.
+    """
+    if "nbrs" not in pair:
+        q = pair["qpos"].long()
+        pair["nbrs"] = pair["nbrs_tiles"][q // TILE, :, q % TILE]
+        del pair["nbrs_tiles"]
+    return pair["nbrs"]
