@@ -5,15 +5,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_profile.py
 
-At the 1M-point configuration of ``chip_smoke.py`` (uniform, r = 0.02,
-cell 1.15 r), after two settling runs, it prints:
+For each configuration of ``chip_smoke.py`` (config 1: 1M uniform, r =
+0.02, cell 1.15 r; config 3: fluid + boundary; config 4: variable radii,
+symmetric), after two settling runs, it prints:
 
 - ``run()``'s host time, synchronised, median over 10 runs;
 - ``torch.profiler``'s device time over 5 ``run()`` calls, by kernel
   name and per run, the device's busy time in that window and its idle
   share;
 - the pairs kernel's work: live tiles and distance tests (128 lanes times
-  the windowed candidates of each live tile), from the main path's
+  the windowed candidates of each live tile), from the path's
   descriptors;
 - the peak device memory.
 
@@ -52,27 +53,21 @@ def busy_ms(events) -> tuple[float, float]:
     return busy / 1e3, (iv[-1][1] - iv[0][0]) / 1e3
 
 
-def main() -> int:
+def profile(eng, label: str, card: str) -> None:
+    """Host time, device time by kernel, idle share and peak memory of
+    the engine's own ``run()``, after two settling runs."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from chip_smoke import card_line, main_path_structures, make_engine
-    from treensearch_tpu_torch.ops.pairs import FAT_COL, LENS_OFF, TILE
+    from chip_smoke import settled_inputs, window_tests
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops.pairs import FAT_COL, TILE
 
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    dev = torch.device("cuda", 0)
-    pts = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (N, 3))
-                           .astype(np.float32)).to(dev)
-    eng = make_engine(pts, RADIUS)
     eng.run()
     eng.run()
-    print(f"caps: {eng._knobs()}, nbr_cap {eng._nbr_cap}", flush=True)
-
+    print(f"== {label}: {eng.get_total_n_points()} points; caps: "
+          f"{eng._knobs()}, nbr_cap {eng._nbr_cap} {eng._nbr_caps}",
+          flush=True)
     times = []
     for _ in range(N_TIMED):
         torch.cuda.synchronize()
@@ -84,8 +79,8 @@ def main() -> int:
           f" (min {min(times):.4f}) ({card})", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         for _ in range(N_PROFILED):
             eng.run()
         torch.cuda.synchronize()
@@ -103,9 +98,11 @@ def main() -> int:
               f"{name[:90]}")
     ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
             / N_PROFILED
-            for k in ("expand_query_tiles_kernel", "pairs_nbrs_fixed_kernel")}
+            for k in ("expand_query_tiles_kernel", "pairs_nbrs_fixed_kernel",
+                      "pairs_nbrs_kernel")}
     print(f"per run: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K2a "
-          f"{ours['pairs_nbrs_fixed_kernel']:.4f} ms, all device work "
+          f"{ours['pairs_nbrs_fixed_kernel']:.4f} ms, K2b/K2c "
+          f"{ours['pairs_nbrs_kernel']:.4f} ms, all device work "
           f"{busy / N_PROFILED:.4f} ms, {len(dev_events) / N_PROFILED:.0f} "
           f"device events")
     print(f"{N_PROFILED} runs: device busy {busy:.3f} ms in a {window:.3f} "
@@ -113,13 +110,31 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
 
-    _, a = main_path_structures(pts, RADIUS)
-    live = a.desc[:a.tiles_cap, FAT_COL] != 2
-    cand = a.desc[:a.tiles_cap, LENS_OFF:LENS_OFF + a.n_win][live] \
-        .sum(dim=1, dtype=torch.int64)
-    print(f"K2a work: {int(live.sum())} live tiles of {a.tiles_cap}, "
-          f"{float(cand.double().mean()):.1f} candidates per tile, "
-          f"{TILE * int(cand.sum())} distance tests per run")
+    _, a = settled_inputs(eng)
+    live = int((a.desc[:a.tiles_cap, FAT_COL] != 2).sum())
+    tests = window_tests(a)
+    print(f"{fp.pairs_kernel(a).__name__} work: {live} live tiles of "
+          f"{a.tiles_cap}, {tests / TILE / max(live, 1):.1f} candidates per "
+          f"tile, {tests} distance tests per run", flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chip_smoke import (card_line, config3_data, config3_engine,
+                            config4_data, config4_engine, make_engine)
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (N, 3))
+                           .astype(np.float32)).to(dev)
+    profile(make_engine(pts, RADIUS), "config 1", card)
+    profile(config3_engine(*config3_data(dev)), "config 3", card)
+    profile(config4_engine(*config4_data(dev)), "config 4", card)
     return 0
 
 

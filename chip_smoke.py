@@ -9,21 +9,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: the card's name and power limit from nvidia-smi; CUDA required;
 2. build: ``csrc/pairs.cu`` compiled by nvcc for sm_90a, with its time;
-3. kernels against their plain PyTorch versions on the card, at the
-   structures of the main path (1M points): the query tiles bit-equal,
-   the pairs kernel's counts equal and its rows equal as sets, with
-   median times from CUDA events;
-4. main path: ``TreeNSearch(device="cuda").run()`` on BASELINE config 1
-   (1,000,000 uniform points from ``default_rng(0)``, r = 0.02, cell =
-   1.15 r), once to settle the caps and then 5 times with the points
-   jittered by at most 1e-4 before each run, as an SPH step moves them.
-   Both kernels must launch in every run; a small cloud must match numpy
-   brute force exactly, and 20k sampled points of the 1M run must match
-   scipy's cKDTree under the same float32 rule.
+3. BASELINE config 1 (1,000,000 uniform points from ``default_rng(0)``,
+   r = 0.02, cell = 1.15 r): K1 and K2a against their plain PyTorch
+   versions on a settled engine's structures (query tiles bit-equal,
+   counts equal, rows equal as sets, median times from CUDA events); a
+   small cloud against numpy brute force; ``TreeNSearch(device="cuda")
+   .run()`` once to settle the caps and then 5 times with the points
+   jittered by at most 1e-4, as an SPH step moves them; 20k sampled
+   points against scipy's cKDTree under the same float32 rule;
+4. BASELINE config 3 (``benchmarks/bench_configs.py:109-141``): 400,000
+   fluid and 100,000 boundary points, r = 0.0254, fluid searches fluid
+   and boundary: K2b against its plain version on every candidate-set
+   block, 6 runs, cKDTree samples of both active pairs;
+5. BASELINE config 4 (``bench_configs.py:143-152``): 250,000 points with
+   radii uniform in [0.8, 1.25] x 0.032, all searches, symmetric: K2c
+   against its plain version, 6 runs, a cKDTree sample;
+6. two small sets with variable radii, symmetric search off, against
+   numpy brute force (K2c with two candidate-set blocks).
 
-The last two lines are a JSON object with each kernel's launches, error
-and times, then ``{"ok": true, "device": {...}}``.  The script imports
-nothing of JAX.
+Each path resets every kernel's launch count just before it and reads the
+counts just after: each of its kernels must launch in every ``run()``,
+and no other pairs kernel may.  The last lines are the card, a JSON
+object with each kernel's launches, error, times and bound, then
+``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +54,19 @@ N_SAMPLE = 20_000
 N_SMALL = 3000
 TPU_PAIRS_SEED0 = 32_759_462   # the JAX package's count (BENCH_r05.json)
 REPS = 7
+# BASELINE config 3 and 4 (benchmarks/bench_configs.py:109-152)
+N_FLUID, N_BOUNDARY, R3 = 400_000, 100_000, 0.0254
+N4, R4 = 250_000, 0.032
+N_SMALL_SET = 1500
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per distance test: 3 sub, 3 mul, 2 add, 1 compare;
+# symmetric search adds the compare against r_j^2
+OPS_PER_TEST = 9
+SOURCE_LINES = {"expand_query_tiles": 276, "pairs_nbrs_fixed": 445,
+                "pairs_nbrs_sets": 445, "pairs_nbrs_variable": 445}
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -57,21 +78,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = REPS) -> float:
-    """Median over ``reps`` runs of ``fn``, timed by CUDA events, after
-    one warm-up run."""
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def median_ms(fn, dev, reps: int = REPS) -> float:
+    """Median over ``reps`` runs of ``fn`` after one warm-up run: CUDA
+    events on the card, the host clock on the CPU (a rehearsal only)."""
     import torch
     fn()
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def timed_turns(rec: dict, kernel, plain, dev) -> None:
+    """Kernel and plain times in turns (plain, kernel, kernel, plain); the
+    lower of each pair goes into ``rec``."""
+    p1, t1, t2, p2 = (median_ms(plain, dev), median_ms(kernel, dev),
+                      median_ms(kernel, dev), median_ms(plain, dev))
+    rec["ms"] = min(t1, t2)
+    rec["plain_ms"] = min(p1, p2)
+    print(f"{rec['name']}: kernel {t1:.4f} / {t2:.4f} ms, plain "
+          f"{p1:.4f} / {p2:.4f} ms (median of {REPS} each)", flush=True)
+
+
+def live_slots(desc, tiles_cap):
+    import torch
+    lane = torch.arange(128, device=desc.device)
+    return ((lane[None, :] < desc[:tiles_cap, 63, None])
+            & (desc[:tiles_cap, 127, None] != 2)).reshape(-1)
 
 
 def sorted_rows(counts, nbrs, live):
@@ -85,6 +135,7 @@ def sorted_rows(counts, nbrs, live):
     return torch.sort(rows, dim=1).values[live]
 
 
+# ------------------------------------------------------------- engines
 def make_engine(pts_t, radius):
     """``TreeNSearch`` on ``pts_t``'s device, set up as BASELINE config 1."""
     from treensearch_tpu_torch import TreeNSearch
@@ -96,32 +147,122 @@ def make_engine(pts_t, radius):
     return eng
 
 
-def main_path_structures(pts_t, radius):
-    """The kernels' inputs at the main path's settled caps: one ``run()``
-    of the engine settles them, then its prep is rebuilt at those caps.
-    Returns (carry, ``fastpath.KernelInputs``)."""
+def config3_data(dev, n_fluid=N_FLUID, n_boundary=N_BOUNDARY):
+    """Fluid and boundary points, uniform in the unit cube, float32, from
+    one ``default_rng(0)`` (fluid drawn first)."""
+    import torch
+    rng = np.random.default_rng(0)
+    fluid = rng.uniform(0, 1, (n_fluid, 3)).astype(np.float32)
+    boundary = rng.uniform(0, 1, (n_boundary, 3)).astype(np.float32)
+    return (torch.from_numpy(fluid).to(dev),
+            torch.from_numpy(boundary).to(dev))
+
+
+def config3_engine(fluid_t, boundary_t, radius=R3):
+    """BASELINE config 3: fluid searches fluid and boundary, the boundary
+    searches nothing; default cell size (1.5 r)."""
+    from treensearch_tpu_torch import TreeNSearch
+    eng = TreeNSearch(device=fluid_t.device)
+    f = eng.add_point_set(fluid_t)
+    b = eng.add_point_set(boundary_t)
+    eng.set_search_radius(radius)
+    eng.set_active_search(f, f, True)
+    eng.set_active_search(f, b, True)
+    return eng
+
+
+def config4_data(dev, n=N4):
+    """Uniform points and radii uniform in [0.8, 1.25] x 0.032, float32,
+    from one ``default_rng(0)`` (points drawn first)."""
+    import torch
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    rad = rng.uniform(0.8, 1.25, n).astype(np.float32) * np.float32(R4)
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(rad).to(dev)
+
+
+def config4_engine(pts_t, radii_t):
+    """BASELINE config 4: per-point radii, all searches, symmetric search;
+    default cell size (1.5 r_min, so W = 2 and 25 windows)."""
+    from treensearch_tpu_torch import TreeNSearch
+    eng = TreeNSearch(device=pts_t.device)
+    eng.add_point_set(pts_t, radii_t)
+    eng.set_all_searches(True)
+    eng.set_symmetric_search(True)
+    return eng
+
+
+def settled_inputs(eng):
+    """The kernels' inputs at a settled engine's caps: one ``run()``
+    settles them, then its prep is rebuilt at those caps.  Returns
+    (carry, ``fastpath.KernelInputs``)."""
     from treensearch_tpu_torch.ops import fastpath as fp
-    eng = make_engine(pts_t, radius)
     eng.run()
-    cfg = eng._make_cfg(eng._stencil_w(eng._effective_cell_size()))
+    points, radii = eng._assemble()
+    bounds = eng._radius_bounds(radii)
+    cell = eng._effective_cell_size(bounds)
+    cfg = eng._make_cfg(eng._stencil_w(cell, bounds))
     knobs = eng._knobs()
-    carry = fp._prep(pts_t, eng._grid_state, cfg, knobs)
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii)
     flags = [int(carry.dense_overflow), int(carry.rows_overflow),
              int(carry.tile_overflow)]
     if any(flags):
-        raise RuntimeError(f"main-path prep overflowed at settled caps "
-                           f"{knobs}: {flags}")
-    return carry, fp.kernel_inputs(pts_t, radius, carry, cfg, knobs)
+        raise RuntimeError(f"prep overflowed at settled caps {knobs}: "
+                           f"{flags}")
+    return carry, fp.kernel_inputs(points, eng._search_radius or 0.0, carry,
+                                   cfg, knobs, radii)
 
 
-def check_kernels(pts_t, radius) -> list:
-    """Phase 3: each kernel against its plain version on the same inputs."""
+# ------------------------------------------------------- kernel bounds
+def window_tests(a) -> int:
+    """Distance tests of the pairs kernel on these inputs: 128 lanes times
+    each live tile's windowed candidates (windows clipped to the
+    records)."""
+    import torch
+    desc = a.desc[:a.tiles_cap]
+    n_rec = a.recs_t.shape[1]
+    starts = desc[:, :a.n_win]
+    lens = torch.minimum(desc[:, 64:64 + a.n_win], n_rec - starts)
+    ok = (desc[:, 127:128] != 2) & (starts >= 0) & (starts <= n_rec)
+    return 128 * int(torch.where(ok, lens, 0).sum(dtype=torch.int64))
+
+
+def k1_bound(a) -> tuple:
+    """(bytes, ms): each live slot's record read once (32 B), every
+    slot's query record written once (32 B), two descriptor words per
+    tile read; HBM-bound."""
+    live = int(live_slots(a.desc, a.tiles_cap).sum())
+    moved = 32 * live + 32 * 128 * a.tiles_cap + 8 * a.tiles_cap
+    return moved, moved / HBM_BYTES_PER_S * 1e3
+
+
+def k2_bound(a) -> dict:
+    """Bound of the pairs kernel on these inputs: the larger of the
+    distance tests' float32 operations over the card's float32 rate and
+    the bytes over HBM (records and query fields it reads once, the
+    descriptor's windows, the counts and every block's rows written)."""
+    fields = 4 + int(a.multi_set) + int(a.variable)   # x y z orig set r
+    n_rec = a.recs_t.shape[1]
+    slots = 128 * a.tiles_cap
+    moved = (4 * fields * (n_rec + slots)
+             + 4 * (2 * a.n_win + 1) * a.tiles_cap
+             + 4 * slots * len(a.k8s) + 4 * slots * sum(a.k8s))
+    tests = window_tests(a)
+    ops = tests * (OPS_PER_TEST + int(a.symmetric))
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return {"tests": tests, "ops": ops, "bytes": moved,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+# ------------------------------------------------- kernels vs plain
+def check_k1(a, n, dev, timed: bool) -> dict:
+    """K1 against its plain version, bit for bit; with ``timed``, its time,
+    the plain time and one ``index_select`` of the same records."""
     import torch
     from treensearch_tpu_torch.ops import pairs
-    from treensearch_tpu_torch.ops.pairs import CNT_COL, FAT_COL, TILE
-    carry, (desc, recs_t, tiles_cap, n_win, k8, r2) = main_path_structures(
-        pts_t, radius)
-    n = pts_t.shape[0]
+    desc, recs_t, tiles_cap = a.desc, a.recs_t, a.tiles_cap
 
     def k1():
         return pairs.expand_query_tiles(desc, recs_t, tiles_cap, n)
@@ -131,54 +272,96 @@ def check_kernels(pts_t, radius) -> list:
 
     q_k, q_p = k1(), k1_plain()
     if not torch.equal(q_k, q_p):
-        diff = int((q_k != q_p).sum())
-        raise AssertionError(f"expand_query_tiles: {diff} words differ")
-    k1_err = int((q_k.long() - q_p.long()).abs().max())
+        raise AssertionError(f"expand_query_tiles: {int((q_k != q_p).sum())}"
+                             " words differ")
+    rec = {"name": "expand_query_tiles",
+           "max_abs_err": int((q_k.long() - q_p.long()).abs().max())}
+    if timed:
+        timed_turns(rec, k1, k1_plain, dev)
+        # the yardstick: one gather of the same records into the same
+        # layout, its index (and a sentinel column) made beforehand
+        lane = torch.arange(128, device=dev)
+        src = desc[:tiles_cap, 62, None].long() + lane[None, :]
+        src = torch.where(live_slots(desc, tiles_cap).view(tiles_cap, 128),
+                          src, recs_t.shape[1]).reshape(-1)
+        sent = torch.tensor([pairs.SENTINEL_BITS] * 3 + [0, n, -1, 0, 0],
+                            dtype=torch.int32, device=dev)
+        ext = torch.cat([recs_t, sent[:, None]], dim=1)
+        rec["library_ms"] = median_ms(
+            lambda: torch.index_select(ext, 1, src), dev)
+        moved, rec["bound_ms"] = k1_bound(a)
+        rec["bound_by"] = "bytes"
+        print(f"expand_query_tiles: index_select {rec['library_ms']:.4f} "
+              f"ms; bound {rec['bound_ms']:.4f} ms ({moved} B over HBM)",
+              flush=True)
+    return rec
 
-    def k2():
-        return pairs.pairs_nbrs_fixed(desc, q_k, recs_t, r2, n_win, k8,
-                                      tiles_cap)
 
-    def k2_plain():
-        return pairs.pairs_nbrs_fixed_plain(desc, q_k, recs_t, r2, n_win,
-                                            k8, tiles_cap)
+def check_pairs(carry, a, dev, n) -> dict:
+    """The pairs kernel of these inputs against its plain version: counts
+    equal and rows equal as sets over live slots, for every block; its
+    time in turns with the plain version, and its bound."""
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    kernel = fp.pairs_kernel(a)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
+    (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q), fp.run_pairs(a, q, True)
+    live = live_slots(a.desc, a.tiles_cap)
+    err = int((c_k[:, live].long() - c_p[:, live].long()).abs().max())
+    if err:
+        raise AssertionError(f"{kernel.__name__}: counts differ by {err}")
+    for b in range(len(a.k8s)):
+        if not sorted_rows(c_k[b], nb_k[b], live).equal(
+                sorted_rows(c_p[b], nb_p[b], live)):
+            raise AssertionError(f"{kernel.__name__}: block {b} rows differ "
+                                 "as sets")
+    rec = {"name": kernel.__name__, "max_abs_err": err}
+    rec.update(k2_bound(a))
+    print(f"{kernel.__name__}: counts equal and rows equal as sets over "
+          f"{int(live.sum())} live slots in {len(a.k8s)} block(s) "
+          f"(candidate sets {a.cand_sets}, k8 {a.k8s}, max counts "
+          f"{c_k[:, live].amax(dim=1).tolist()}, widest window "
+          f"{int(carry.win_max)}, {a.n_win} windows); {rec['tests']} "
+          f"distance tests, bound {rec['bound_ms']:.4f} ms by "
+          f"{rec['bound_by']}", flush=True)
+    timed_turns(rec, lambda: fp.run_pairs(a, q),
+                lambda: fp.run_pairs(a, q, True), dev)
+    rec["library_ms"] = None   # no single PyTorch call computes it
+    return rec
 
-    (c_k, nb_k), (c_p, nb_p) = k2(), k2_plain()
-    lane = torch.arange(TILE, device=desc.device)
-    live = ((lane[None, :] < desc[:tiles_cap, CNT_COL, None])
-            & (desc[:tiles_cap, FAT_COL, None] != 2)).reshape(-1)
-    k2_err = int((c_k[live].long() - c_p[live].long()).abs().max())
-    if k2_err:
-        raise AssertionError(f"pairs_nbrs_fixed counts differ by {k2_err}")
-    if not torch.equal(sorted_rows(c_k, nb_k, live),
-                       sorted_rows(c_p, nb_p, live)):
-        raise AssertionError("pairs_nbrs_fixed rows differ as sets")
-    print(f"kernels: q_t bit-equal over {tiles_cap} tiles; counts equal "
-          f"and rows equal as sets over {int(live.sum())} live slots "
-          f"(max count {int(c_k[live].max())}, k8 {k8}, "
-          f"widest window {int(carry.win_max)})", flush=True)
-    out = [{"name": "expand_query_tiles", "max_abs_err": k1_err},
-           {"name": "pairs_nbrs_fixed", "max_abs_err": k2_err}]
-    # turns: plain, kernel, kernel, plain
-    for rec, fk, fp_ in ((out[0], k1, k1_plain), (out[1], k2, k2_plain)):
-        p1, t1, t2, p2 = (median_ms(fp_), median_ms(fk), median_ms(fk),
-                          median_ms(fp_))
-        rec["ms"] = min(t1, t2)
-        rec["plain_ms"] = min(p1, p2)
-        print(f"{rec['name']}: kernel {t1:.4f} / {t2:.4f} ms, plain "
-              f"{p1:.4f} / {p2:.4f} ms (median of {REPS} each)", flush=True)
-    return out
+
+def check_kernels(pts_t, radius) -> list:
+    """Config 1: K1 and K2a against their plain versions on a settled
+    engine's structures."""
+    carry, a = settled_inputs(make_engine(pts_t, radius))
+    n = pts_t.shape[0]
+    k1 = check_k1(a, n, pts_t.device, timed=True)
+    print(f"kernels: q_t bit-equal over {a.tiles_cap} tiles", flush=True)
+    return [k1, check_pairs(carry, a, pts_t.device, n)]
+
+
+def check_path_kernel(eng) -> dict:
+    """Config 3 or 4: K1 (bit-equal, untimed) and the path's pairs kernel
+    against their plain versions on the settled engine's structures."""
+    carry, a = settled_inputs(eng)
+    n = eng.get_total_n_points()
+    check_k1(a, n, a.desc.device, timed=False)
+    return check_pairs(carry, a, a.desc.device, n)
+
+
+# ------------------------------------------------------- brute force
+def _d2(q, c):
+    d = c[None, :, :] - q[:, None, :]
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
 def brute_force_sets(pts: np.ndarray, radius: float) -> list:
-    d = pts[None, :, :] - pts[:, None, :]
-    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-    m = d2 <= np.float32(radius) * np.float32(radius)
+    m = _d2(pts, pts) <= np.float32(radius) * np.float32(radius)
     np.fill_diagonal(m, False)
     return [np.nonzero(row)[0] for row in m]
 
 
-def check_small(device, radius: float) -> None:
+def check_small(device) -> None:
     """The engine on a small cloud against numpy brute force."""
     from treensearch_tpu_torch import TreeNSearch
     pts = np.random.default_rng(1).uniform(0, 1, (N_SMALL, 3)) \
@@ -198,84 +381,222 @@ def check_small(device, radius: float) -> None:
           f"({int(counts.sum())} pairs)", flush=True)
 
 
-def check_sample(pts: np.ndarray, counts, nbrs, radius: float) -> None:
-    """Sampled neighbor sets against cKDTree candidates at r (1 + 1e-5),
-    filtered by the engine's float32 rule."""
+def check_small_variable(device) -> None:
+    """Two sets with per-point radii, symmetric search off, all searches
+    but set 1 in itself, against numpy brute force under the oracle's
+    rules (``treensearch_tpu/oracle.py``): d^2 <= r_i^2 in float32, self
+    excluded within a set.  Runs K2c with two candidate-set blocks."""
+    from treensearch_tpu_torch import TreeNSearch
+    from treensearch_tpu_torch.ops import pairs
+    rng = np.random.default_rng(4)
+    sets = [(rng.uniform(0, 1, (N_SMALL_SET, 3)).astype(np.float32),
+             rng.uniform(0.05, 0.09, N_SMALL_SET).astype(np.float32))
+            for _ in range(2)]
+    active = [(0, 0), (0, 1), (1, 0)]
+    eng = TreeNSearch(device=device)
+    for p, r in sets:
+        eng.add_point_set(p, r)
+    eng.set_symmetric_search(False)
+    for i, j in active:
+        eng.set_active_search(i, j, True)
+    before = pairs.pairs_nbrs_variable.launches
+    eng.run()
+    if device.type == "cuda" and pairs.pairs_nbrs_variable.launches == before:
+        raise AssertionError("small variable sets: K2c did not launch")
+    total = 0
+    for i, j in active:
+        (pi, ri), (pj, _) = sets[i], sets[j]
+        m = _d2(pi, pj) <= (ri * ri)[:, None]
+        if i == j:
+            np.fill_diagonal(m, False)
+        counts, nbrs = (t.cpu().numpy() for t in eng.get_neighbors(i, j))
+        for k, row in enumerate(m):
+            want = np.nonzero(row)[0]
+            got = np.sort(nbrs[k, :counts[k]])
+            if counts[k] != want.size or not np.array_equal(got, want):
+                raise AssertionError(f"small variable sets: pair ({i}, {j}) "
+                                     f"point {k} differs")
+        total += int(counts.sum())
+    print(f"small variable sets: 2 x {N_SMALL_SET} points, symmetric off, "
+          f"pairs {active} match brute force ({total} pairs)", flush=True)
+
+
+def check_sample(q_pts: np.ndarray, c_pts: np.ndarray, counts, nbrs,
+                 r_query: float, keep, same_set: bool, label: str) -> None:
+    """Sampled neighbor sets against cKDTree candidates at r_query (1 +
+    1e-5), filtered by ``keep(i, c, d2)`` (the engine's float32 rule for
+    query i and candidates c); ``same_set`` excludes the query itself."""
     import torch
     from scipy.spatial import cKDTree
     rng = np.random.default_rng(2)
-    sample = np.sort(rng.choice(pts.shape[0], N_SAMPLE, replace=False))
-    tree = cKDTree(pts.astype(np.float64))
-    cand = tree.query_ball_point(pts[sample].astype(np.float64),
-                                 radius * (1 + 1e-5), workers=-1)
+    sample = np.sort(rng.choice(q_pts.shape[0], min(N_SAMPLE, q_pts.shape[0]),
+                                replace=False))
+    tree = cKDTree(c_pts.astype(np.float64))
+    cand = tree.query_ball_point(q_pts[sample].astype(np.float64),
+                                 r_query * (1 + 1e-5), workers=-1)
     idx = torch.as_tensor(sample, dtype=torch.long, device=counts.device)
     c_s = counts[idx].cpu().numpy()
     nb_s = nbrs[idx].cpu().numpy()
-    r2 = np.float32(radius) * np.float32(radius)
     for k, i in enumerate(sample):
         c = np.asarray(cand[k], dtype=np.int64)
-        c = c[c != i]
-        d = pts[c] - pts[i]
+        if same_set:
+            c = c[c != i]
+        d = c_pts[c] - q_pts[i]
         d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
-        want = np.sort(c[d2 <= r2])
+        want = np.sort(c[keep(i, c, d2)])
         got = np.sort(nb_s[k, :c_s[k]])
         if c_s[k] != want.size or not np.array_equal(got, want):
-            raise AssertionError(f"sampled point {i}: engine {got.tolist()}"
-                                 f" vs cKDTree {want.tolist()}")
-    print(f"cKDTree: {N_SAMPLE} sampled neighbor sets exact", flush=True)
+            raise AssertionError(f"{label}: sampled point {i}: engine "
+                                 f"{got.tolist()} vs cKDTree {want.tolist()}")
+    print(f"cKDTree {label}: {sample.size} sampled neighbor sets exact",
+          flush=True)
 
 
-def run_main_path(pts_t, radius: float, card: str) -> dict:
-    """Phase 4: the user's entry points, with launch counts per run."""
-    import torch
+def fixed_rule(radius):
+    r2 = np.float32(radius) * np.float32(radius)
+    return lambda i, c, d2: d2 <= r2
+
+
+# ------------------------------------------------------------ the paths
+def pairs_kernels():
     from treensearch_tpu_torch.ops import pairs
-    kernels = (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed)
-    dev = pts_t.device
-    n = pts_t.shape[0]
-    eng = make_engine(pts_t, radius)
+    return (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed,
+            pairs.pairs_nbrs_sets, pairs.pairs_nbrs_variable)
+
+
+def drive(eng, label: str, path: tuple, jitter_step, card: str) -> dict:
+    """One settling ``run()`` and N_RUNS jittered runs of the user's
+    entry points, with every kernel's count set to 0 just before and read
+    just after; on the card each kernel of ``path`` must launch in every
+    run and no other kernel at all."""
+    import torch
+    kernels = pairs_kernels()
+    dev = eng.device
+    active = [(int(i), int(j)) for i, j in zip(*np.nonzero(eng._active))]
 
     def timed_run():
         before = [k.launches for k in kernels]
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        sync(dev)
         t0 = time.perf_counter()
         eng.run()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
-        grew = [k.launches - b for k, b in zip(kernels, before)]
-        if dev.type == "cuda" and min(grew) < 1:
-            raise AssertionError(f"a kernel did not launch in run(): {grew}")
+        grew = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+        if dev.type == "cuda" and min(grew[k.__name__] for k in path) < 1:
+            raise AssertionError(f"{label}: a kernel did not launch in "
+                                 f"run(): {grew}")
         return ms
+
+    def total_pairs():
+        return sum(int(eng.get_counts(i, j).sum(dtype=np.int64))
+                   for i, j in active)
 
     for k in kernels:
         k.launches = 0
     settle_ms = timed_run()
-    pairs0 = int(eng.get_counts(0, 0).sum(dtype=np.int64))
-    print(f"settling run: {settle_ms:.1f} ms, {pairs0} pairs (TPU count "
-          f"{TPU_PAIRS_SEED0}, difference {pairs0 - TPU_PAIRS_SEED0}); "
-          f"caps: nbr {eng._nbr_cap} tiles {eng._tiles_cap} dense "
-          f"{eng._dense_cap}", flush=True)
+    pairs0 = total_pairs()
     gen = torch.Generator(device=dev).manual_seed(3)
     times, pair_counts = [], []
     for _ in range(N_RUNS):
-        jit = (torch.rand((n, 3), generator=gen, device=dev) * 2 - 1) * JITTER
-        pts_t = pts_t + jit.to(torch.float32)
-        eng.resize_point_set(0, pts_t)
+        jitter_step(lambda shape: ((torch.rand(shape, generator=gen,
+                                               device=dev) * 2 - 1)
+                                   * JITTER).to(torch.float32))
         times.append(timed_run())
-        pair_counts.append(int(eng.get_counts(0, 0).sum(dtype=np.int64)))
-    launches = [k.launches for k in kernels]
+        pair_counts.append(total_pairs())
+    launches = {k.__name__: k.launches for k in kernels}
+    if dev.type == "cuda" and any(
+            n for k, n in launches.items()
+            if k not in {p.__name__ for p in path}):
+        raise AssertionError(f"{label}: a kernel outside the path "
+                             f"launched: {launches}")
     ms = statistics.median(times)
     pairs_n = statistics.median(pair_counts)
-    print(f"run() ms: {' '.join(f'{t:.3f}' for t in times)}", flush=True)
-    print(f"main path: {n} points, median {ms:.3f} ms/run, "
-          f"{pairs_n / (ms / 1e3):.4g} pairs/s ({card})", flush=True)
+    print(f"{label}: settling run {settle_ms:.1f} ms, {pairs0} pairs; "
+          f"caps: nbr {eng._nbr_cap} {eng._nbr_caps} tiles {eng._tiles_cap} "
+          f"dense {eng._dense_cap}; launches {launches}", flush=True)
+    print(f"{label} run() ms: {' '.join(f'{t:.3f}' for t in times)}",
+          flush=True)
+    print(f"{label}: {eng.get_total_n_points()} points, median {ms:.3f} "
+          f"ms/run, {pairs_n / (ms / 1e3):.4g} pairs/s ({card})", flush=True)
+    return {"launches": launches, "ms": ms, "pairs0": pairs0}
+
+
+def run_main_path(pts_t, radius: float, card: str) -> dict:
+    """Config 1 through the user's entry points."""
+    from treensearch_tpu_torch.ops import pairs
+    n = pts_t.shape[0]
+    eng = make_engine(pts_t, radius)
+    state = {"pts": pts_t}
+
+    def jitter(noise):
+        state["pts"] = state["pts"] + noise((n, 3))
+        eng.resize_point_set(0, state["pts"])
+
+    out = drive(eng, "config 1", (pairs.expand_query_tiles,
+                                  pairs.pairs_nbrs_fixed), jitter, card)
+    if n == N:
+        print(f"config 1 before jitter: {out['pairs0']} pairs (TPU count "
+              f"{TPU_PAIRS_SEED0}, difference {out['pairs0'] - TPU_PAIRS_SEED0}"
+              ")", flush=True)
+        if out["pairs0"] != TPU_PAIRS_SEED0:
+            raise AssertionError("config 1 pair count differs from the TPU's")
     counts, nbrs = eng.get_neighbors(0, 0)
     if tuple(counts.shape) != (n,) or nbrs.shape[0] != n \
             or int(nbrs.min()) < -1 or int(nbrs.max()) >= n:
         raise AssertionError("solution has the wrong shape or range")
-    check_sample(pts_t.cpu().numpy(), counts, nbrs, radius)
-    return {"launches": launches, "ms": ms}
+    check_sample(state["pts"].cpu().numpy(), state["pts"].cpu().numpy(),
+                 counts, nbrs, radius, fixed_rule(radius), True, "config 1")
+    return out
+
+
+def run_config3(fluid_t, boundary_t, card: str) -> tuple:
+    """Config 3: K2b against its plain version, then the timed runs and
+    the cKDTree samples of fluid->fluid and fluid->boundary."""
+    from treensearch_tpu_torch.ops import pairs
+    rec = check_path_kernel(config3_engine(fluid_t, boundary_t))
+    eng = config3_engine(fluid_t, boundary_t)
+    state = {"f": fluid_t, "b": boundary_t}
+
+    def jitter(noise):
+        state["f"] = state["f"] + noise(tuple(state["f"].shape))
+        state["b"] = state["b"] + noise(tuple(state["b"].shape))
+        eng.resize_point_set(0, state["f"])
+        eng.resize_point_set(1, state["b"])
+
+    out = drive(eng, "config 3", (pairs.expand_query_tiles,
+                                  pairs.pairs_nbrs_sets), jitter, card)
+    f, b = state["f"].cpu().numpy(), state["b"].cpu().numpy()
+    for j, c_pts in ((0, f), (1, b)):
+        counts, nbrs = eng.get_neighbors(0, j)
+        check_sample(f, c_pts, counts, nbrs, R3, fixed_rule(R3), j == 0,
+                     f"config 3 fluid->{('fluid', 'boundary')[j]}")
+    return rec, out
+
+
+def run_config4(pts_t, radii_t, card: str) -> tuple:
+    """Config 4: K2c against its plain version, then the timed runs and a
+    cKDTree sample under the symmetric rule."""
+    from treensearch_tpu_torch.ops import pairs
+    rec = check_path_kernel(config4_engine(pts_t, radii_t))
+    eng = config4_engine(pts_t, radii_t)
+    state = {"p": pts_t}
+
+    def jitter(noise):
+        state["p"] = state["p"] + noise(tuple(state["p"].shape))
+        eng.resize_point_set(0, state["p"], radii_t)
+
+    out = drive(eng, "config 4", (pairs.expand_query_tiles,
+                                  pairs.pairs_nbrs_variable), jitter, card)
+    p, r = state["p"].cpu().numpy(), radii_t.cpu().numpy()
+    r2 = r * r
+
+    def keep(i, c, d2):   # d^2 <= r_i^2 or d^2 <= r_j^2, float32
+        return (d2 <= r2[i]) | (d2 <= r2[c])
+
+    counts, nbrs = eng.get_neighbors(0, 0)
+    check_sample(p, p, counts, nbrs, float(r.max()), keep, True,
+                 "config 4 symmetric")
+    return rec, out
 
 
 def main() -> int:
@@ -302,16 +623,29 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     pts = np.random.default_rng(0).uniform(0, 1, (N, 3)).astype(np.float32)
     pts_t = torch.from_numpy(pts).to(dev)
-    kernels = check_kernels(pts_t, RADIUS)                # phase 3
-    check_small(dev, RADIUS)                                # phase 4
-    main = run_main_path(pts_t, RADIUS, card)
+    kernels = check_kernels(pts_t, RADIUS)                  # phase 3
+    check_small(dev)
+    main1 = run_main_path(pts_t, RADIUS, card)
+    k2b, main3 = run_config3(*config3_data(dev), card)      # phase 4
+    k2c, main4 = run_config4(*config4_data(dev), card)      # phase 5
+    check_small_variable(dev)                               # phase 6
+    kernels += [k2b, k2c]
+    launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
+                "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4}
     src = os.path.relpath(pairs.SOURCE, HERE)
-    for rec, launches, line in zip(kernels, main["launches"], (276, 445)):
-        rec.update(route="cuda", source=src,
-                   replaces=f"treensearch_tpu/ops/pallas_pairs.py:{line}",
-                   launches=launches)
+    out = []
+    for rec in kernels:
+        name = rec["name"]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "treensearch_tpu/ops/pallas_pairs.py:"
+                        f"{SOURCE_LINES[name]}",
+            "launches": launches[name]["launches"][name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

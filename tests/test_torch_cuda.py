@@ -8,7 +8,8 @@ the repository's conftest:
 
 Tolerance: query tiles bit-equal; counts equal; rows equal slot for slot
 (both versions keep the first k8 survivors in window order, so rows agree
-exactly, truncated ones included).
+exactly, truncated ones included), per candidate-set block for K2b and
+K2c; dead tiles count 0.
 """
 
 import numpy as np
@@ -67,9 +68,11 @@ def test_kernels_match_plain_on_card(dev, case):
     carry = fp._prep(pts, eng._grid_state, cfg, knobs)
     assert int(carry.dense_overflow) == 0 and int(carry.rows_overflow) == 0
     assert int(carry.tile_overflow) == 0
-    _, recs, tiles_cap, n_win, k8, r2 = fp.kernel_inputs(pts, r, carry, cfg,
-                                                         knobs)
+    a = fp.kernel_inputs(pts, r, carry, cfg, knobs)
+    recs, tiles_cap, n_win, r2 = a.recs_t, a.tiles_cap, a.n_win, a.r2
+    k8 = a.k8s[0]
     assert (n_win, k8) == (9, round_up(cap, 8))
+    assert fp.pairs_kernel(a) is pairs.pairs_nbrs_fixed
     before = (pairs.expand_query_tiles.launches,
               pairs.pairs_nbrs_fixed.launches)
     q = pairs.expand_query_tiles(carry.desc, recs, tiles_cap, n)
@@ -138,3 +141,120 @@ def test_engine_on_card_matches_brute_force(dev):
     for i in range(pts.shape[0]):
         assert np.array_equal(np.sort(nbrs[i, :counts[i]]),
                               np.nonzero(m[i])[0])
+
+
+# ------------------------------------------------------------ K2b / K2c
+def _settled(eng, caps=None):
+    """A settled engine's prep and kernel inputs, optionally at other
+    per-set row caps."""
+    eng.run()
+    points, radii = eng._assemble()
+    bounds = eng._radius_bounds(radii)
+    cfg = eng._make_cfg(eng._stencil_w(eng._effective_cell_size(bounds),
+                                       bounds))
+    if caps is not None:
+        cfg = cfg._replace(nbr_caps=caps, nbr_cap=max(caps))
+    knobs = eng._knobs()
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii)
+    assert int(carry.tile_overflow) == 0 and int(carry.dense_overflow) == 0
+    return carry, fp.kernel_inputs(points, eng._search_radius or 0.0, carry,
+                                   cfg, knobs, radii)
+
+
+def _sets_engine(dev, sets, r=None, symmetric=True, active=None):
+    eng = TreeNSearch(device=dev)
+    for pts, rad in sets:
+        eng.add_point_set(torch.from_numpy(pts).to(dev),
+                          None if rad is None else
+                          torch.from_numpy(rad).to(dev))
+    if r is not None:
+        eng.set_search_radius(r)
+    eng.set_symmetric_search(symmetric)
+    if active is None:
+        eng.set_all_searches(True)
+    else:
+        for i, j in active:
+            eng.set_active_search(i, j, True)
+    return eng
+
+
+def _kernel_vs_plain(a, n, wrapper):
+    before = wrapper.launches
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
+    (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q), fp.run_pairs(a, q, True)
+    torch.cuda.synchronize()
+    assert fp.pairs_kernel(a) is wrapper and wrapper.launches == before + 1
+    live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+    dead = ~live
+    assert dead.any()   # the layout's slack tiles
+    assert int(c_k.view(len(a.k8s), a.tiles_cap, 128)[:, dead].abs().sum()) \
+        == 0
+    for b in range(len(a.k8s)):
+        assert torch.equal(c_k[b].view(a.tiles_cap, 128)[live],
+                           c_p[b].view(a.tiles_cap, 128)[live]), b
+        assert torch.equal(nb_k[b][live], nb_p[b][live]), b
+    return c_k
+
+
+def test_k2b_eight_candidate_blocks(dev):
+    rng = np.random.default_rng(5)
+    sets = [(rng.uniform(0, 1, (400 + 50 * k, 3)).astype(np.float32), None)
+            for k in range(8)]
+    eng = _sets_engine(dev, sets, r=0.12)
+    _, a = _settled(eng)
+    assert a.cand_sets == tuple(range(8)) and a.multi_set
+    c = _kernel_vs_plain(a, eng.get_total_n_points(), pairs.pairs_nbrs_sets)
+    assert (c.amax(dim=1) > 0).all()
+
+
+def test_k2b_block_cap_8_truncates(dev):
+    rng = np.random.default_rng(6)
+    fluid = rng.uniform(0, 1, (3000, 3)).astype(np.float32)
+    wall = np.c_[rng.uniform(0, 1, (2000, 2)), np.zeros(2000)] \
+        .astype(np.float32)
+    eng = _sets_engine(dev, [(fluid, None), (wall, None)], r=0.06,
+                       active=[(0, 0), (0, 1)])
+    _, a = _settled(eng, caps=(80, 8))
+    assert a.k8s == (80, 8)
+    c = _kernel_vs_plain(a, 5000, pairs.pairs_nbrs_sets)
+    assert int(c[1].max()) > 8
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_k2c_variable_multi_set(dev, symmetric):
+    rng = np.random.default_rng(7)
+    sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+             rng.uniform(0.03, 0.07, m).astype(np.float32))
+            for m in (2500, 1500)]
+    eng = _sets_engine(dev, sets, symmetric=symmetric,
+                       active=[(0, 0), (0, 1), (1, 0)])
+    _, a = _settled(eng)
+    assert a.variable and a.symmetric == symmetric and len(a.k8s) == 2
+    assert a.n_win == 25
+    _kernel_vs_plain(a, 4000, pairs.pairs_nbrs_variable)
+    # and the engine's lists against numpy brute force
+    for i, j in ((0, 0), (0, 1), (1, 0)):
+        (pi, ri), (pj, rj) = sets[i], sets[j]
+        d = pj[None, :, :] - pi[:, None, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        m = d2 <= (ri * ri)[:, None]
+        if symmetric:
+            m |= d2 <= (rj * rj)[None, :]
+        if i == j:
+            np.fill_diagonal(m, False)
+        counts, nbrs = (t.cpu().numpy() for t in eng.get_neighbors(i, j))
+        assert np.array_equal(counts, m.sum(1))
+        for k in range(0, pi.shape[0], 5):
+            assert np.array_equal(np.sort(nbrs[k, :counts[k]]),
+                                  np.nonzero(m[k])[0])
+
+
+def test_k2c_one_set_truncated_rows(dev):
+    rng = np.random.default_rng(8)
+    pts = _column(3000, rng).astype(np.float32)
+    rad = rng.uniform(0.01, 0.03, 3000).astype(np.float32)
+    eng = _sets_engine(dev, [(pts, rad)])
+    _, a = _settled(eng, caps=(8,))
+    c = _kernel_vs_plain(a, 3000, pairs.pairs_nbrs_variable)
+    assert int(c.max()) > 8

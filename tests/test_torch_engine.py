@@ -255,10 +255,26 @@ def test_active_search_overloads_and_symmetric_flag():
     _oracle(pts, 0.3).compare(eng)
 
 
+def _variable_wide_stencil():
+    # radii spread 1..10: the stencil from r_max at a cell of 1.5 r_min
+    # is 7 cells, past the descriptor's 3
+    eng = TreeNSearch(device="cpu")
+    eng.add_point_set(np.random.default_rng(0).uniform(0, 1, (5, 3)),
+                      np.array([0.01, 0.02, 0.05, 0.08, 0.1]))
+    eng.set_all_searches(True)
+    eng.run()
+
+
+def _nine_candidate_sets(eng):
+    for _ in range(8):
+        eng.add_point_set(np.zeros((3, 3)))
+    eng.set_all_searches(True)
+    eng.run()
+
+
 NOT_PORTED = {
-    "variable_radii": lambda e: e.add_point_set(np.zeros((3, 3)),
-                                                np.ones(3)),
-    "second_set": lambda e: e.add_point_set(np.zeros((3, 3))),
+    "variable_radii": lambda e: _variable_wide_stencil(),
+    "second_set": _nine_candidate_sets,
     "run_scalar": lambda e: e.run_scalar(),
     "zsort": lambda e: e.prepare_zsort(),
     "apply_zsort": lambda e: e.apply_zsort(0, np.zeros((5, 3))),
@@ -277,6 +293,19 @@ def test_outside_the_slice_raises_not_implemented(what):
                 .astype(np.float32), 0.4, run=False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         NOT_PORTED[what](eng)
+
+
+def test_nine_candidate_sets_name_the_search_based_pipeline():
+    eng = _port(np.random.default_rng(0).uniform(0, 1, (5, 3))
+                .astype(np.float32), 0.4, run=False)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        _nine_candidate_sets(eng)
+
+
+def test_adding_a_variable_set_to_a_fixed_engine_raises():
+    eng = _port(np.zeros((3, 3), np.float32), 0.4, run=False)
+    with pytest.raises(ValueError, match="mix"):
+        eng.add_point_set(np.zeros((3, 3)), np.ones(3))
 
 
 def test_domain_too_sparse_for_the_table_raises(monkeypatch):

@@ -1,9 +1,11 @@
-"""Public API: the ``TreeNSearch`` class, main-path subset.
+"""Public API: the ``TreeNSearch`` class.
 
-PyTorch counterpart of ``treensearch_tpu/api.py``: one point set, a fixed
-search radius, ``run()`` and the neighbor-list queries.  The surface
-mirrors the reference (``TreeNSearch/source/TreeNSearch.h:28-427``);
-float64 input is cast to float32 at ingest like the reference's cast-copy
+PyTorch counterpart of ``treensearch_tpu/api.py``: any number of point
+sets under a directed active-search matrix, at one fixed search radius or
+with per-point radii (symmetric search optional), ``run()`` and the
+neighbor-list queries.  The surface mirrors the reference
+(``TreeNSearch/source/TreeNSearch.h:28-427``); float64 input is cast to
+float32 at ingest like the reference's cast-copy
 (``TreeNSearch.cpp:270-297``).
 
 Device rule: ``TreeNSearch(device="cuda")`` is the default and raises when
@@ -26,6 +28,7 @@ from .config import SearchConfig, round_up
 from .neighborlist import NeighborList, NeighborSolution
 from .ops.fastpath import FastKnobs, build_and_search_fast, default_tiles_cap
 from .ops.grid import fresh_state
+from .ops.pairs import MAX_BLOCKS
 from .utils.keys import MAX_CELLS_PER_DIM
 
 _DEFAULT_NBR_CAP = 80
@@ -41,10 +44,11 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 class _PointSet:
-    __slots__ = ("points", "n")
+    __slots__ = ("points", "radii", "n")
 
-    def __init__(self, points, n):
+    def __init__(self, points, radii, n):
         self.points = points
+        self.radii = radii
         self.n = n
 
 
@@ -66,9 +70,24 @@ def _as_points(points, n_points: Optional[int]):
     return arr, n
 
 
+def _check_radii(radii, n: int) -> None:
+    if len(np.shape(radii)) != 1 or np.shape(radii)[0] != n:
+        raise ValueError("radii must be a 1-D array with one radius per "
+                         f"point ({n}), got shape {tuple(np.shape(radii))}")
+
+
+def _as_tensor(x, device, shape) -> torch.Tensor:
+    """Contiguous float32 tensor on ``device`` (no copy for such a tensor
+    already there)."""
+    t = torch.as_tensor(x) if isinstance(x, np.ndarray) else x
+    return t.to(device=device, dtype=torch.float32).reshape(shape) \
+        .contiguous()
+
+
 class TreeNSearch:
-    """Fixed-radius neighborhood search over one point set, on a CUDA
-    device (default) or, when asked for by name, the CPU."""
+    """Neighborhood search over point sets at a fixed radius or with
+    per-point radii, on a CUDA device (default) or, when asked for by
+    name, the CPU."""
 
     def __init__(self, device="cuda", mesh=None):
         if mesh is not None:
@@ -87,10 +106,12 @@ class TreeNSearch:
         self.device = dev
         self._sets: List[_PointSet] = []
         self._active = np.zeros((0, 0), dtype=bool)
-        self._symmetric = True     # stored; no effect at a fixed radius
+        self._variable: Optional[bool] = None   # fixed by the first set
+        self._symmetric = True     # read in variable mode only
         self._search_radius: Optional[float] = None
         self._cell_size: Optional[float] = None
         self._nbr_cap = _DEFAULT_NBR_CAP
+        self._nbr_caps: dict = {}   # per candidate set, once one is set
         self._dense_cap: Optional[int] = None   # sized from n on first run
         self._tiles_cap: Optional[int] = None   # sized from n on first run
         self._rows_cap = 0
@@ -103,35 +124,49 @@ class TreeNSearch:
 
     # ------------------------------------------------------------------ sets
     def add_point_set(self, points, radii=None, n_points: int = None) -> int:
-        """Add the point set; returns its id (0)."""
-        if radii is not None:
-            raise _not_ported("variable per-point radii", 8)
-        if self._sets:
-            raise _not_ported("multiple point sets", 7)
+        """Add a point set; returns its id.  With ``radii`` the engine is
+        in variable-radius mode; mixing modes raises (reference
+        ``TreeNSearch.h:43`` / ``_check``)."""
         arr, n = _as_points(points, n_points)
-        self._sets.append(_PointSet(arr, n))
+        variable = radii is not None
+        if self._variable is not None and self._variable != variable:
+            raise ValueError(
+                "cannot mix fixed-radius and variable-radius point sets")
+        if variable:
+            _check_radii(radii, n)
+        self._variable = variable
+        self._sets.append(_PointSet(arr, radii, n))
+        s = len(self._sets)
+        grown = np.zeros((s, s), dtype=bool)
+        grown[:s - 1, :s - 1] = self._active
         # reference default: a new set takes part in no search
         # (TreeNSearch.cpp:357-361)
-        self._active = np.zeros((1, 1), dtype=bool)
+        self._active = grown
         self._invalidate()
-        return 0
+        return s - 1
 
     def resize_point_set(self, set_id: int, points, radii=None,
                          n_points: int = None) -> None:
         """Replace a set's data and size (reference ``resize_point_set``,
         ``TreeNSearch.cpp:67-133``)."""
         self._require_set(set_id)
-        if radii is not None:
-            raise _not_ported("variable per-point radii", 8)
         arr, n = _as_points(points, n_points)
+        if (radii is not None) != bool(self._variable):
+            raise ValueError("resize must match the engine's radius mode")
+        if radii is not None:
+            _check_radii(radii, n)
         cur = self._sets[set_id]
-        if arr is cur.points and n == cur.n:
-            return   # same buffer and size: the solution stays valid
-        self._sets[set_id] = _PointSet(arr, n)
+        if arr is cur.points and radii is cur.radii and n == cur.n:
+            return   # same buffers and size: the solution stays valid
+        self._sets[set_id] = _PointSet(arr, radii, n)
         self._invalidate()
 
     # ---------------------------------------------------------------- config
     def set_search_radius(self, search_radius: float) -> None:
+        if self._variable:
+            raise ValueError(
+                "set_search_radius is for fixed-radius mode; this engine has "
+                "variable-radius point sets")
         self._search_radius = float(search_radius)
 
     def set_cell_size(self, cell_size: float) -> None:
@@ -171,28 +206,41 @@ class TreeNSearch:
 
     def set_neighbor_cap(self, cap: int, set_j: int = None) -> None:
         """Padded neighbor-list cap; it grows by itself on overflow.  With
-        one point set a per-set cap is the global cap."""
-        if set_j is not None:
+        ``set_j`` it applies to the lists against that candidate set only,
+        so a thin boundary set need not pay a dense fluid's row width."""
+        if set_j is None:
+            self._nbr_cap = int(cap)
+        else:
             self._require_set(set_j)
-        self._nbr_cap = int(cap)
+            self._nbr_caps[set_j] = int(cap)
+
+    def _cap_of(self, set_j: int) -> int:
+        return self._nbr_caps.get(set_j, self._nbr_cap)
 
     # ---------------------------------------------------------------- run
     def run(self) -> None:
         """Search and build all active neighbor lists (reference
         ``run()``, ``TreeNSearch.cpp:138-149``)."""
-        self._check()
-        points = self._assemble()
-        cell = self._effective_cell_size()
-        w = self._stencil_w(cell)
+        points, radii = self._assemble()
+        bounds = self._radius_bounds(radii)
+        self._check(bounds)
+        cell = self._effective_cell_size(bounds)
+        w = self._stencil_w(cell, bounds)
         if w > _MAX_STENCIL_W:
             raise _not_ported(
                 f"a stencil of {w} cells (search radius > 3 cell sizes, "
                 "served by the search-based pipeline)", 9)
-        sol = self._execute(points, self._search_radius, cell, w)
+        n_cand = len({int(j) for j in np.nonzero(self._active)[1]})
+        if n_cand > MAX_BLOCKS:
+            raise _not_ported(
+                f"{n_cand} distinct candidate sets (more than {MAX_BLOCKS}, "
+                "served by the search-based pipeline)", 9)
+        sr = 0.0 if self._variable else self._search_radius
+        sol = self._execute(points, radii, sr, cell, w)
         self._solution = NeighborSolution(sol["pairs"])
         self._last_stats.update(cell_size=cell, stencil_w=w)
 
-    def _execute(self, points, sr, cell, w) -> dict:
+    def _execute(self, points, radii, sr, cell, w) -> dict:
         """One search with overflow-regrow; returns the settled solution
         (``api._execute``, ``treensearch_tpu/api.py:632-869``, for the
         dense, rows, tile and neighbor caps).  All flags come to the host
@@ -205,15 +253,16 @@ class TreeNSearch:
             self._tiles_cap = default_tiles_cap(max(n, 1))
             self._tiles_auto = True
         for _ in range(_MAX_GROW_ROUNDS):
+            cfg = self._make_cfg(w)
             sol, state = build_and_search_fast(
-                points, sr, cell, self._grid_state, self._make_cfg(w),
-                self._knobs())
+                points, sr, cell, self._grid_state, cfg, self._knobs(),
+                radii=radii)
             flags = torch.stack(
                 [sol[k] for k in ("error", "dense_overflow", "rows_overflow",
                                   "tile_overflow", "n_cells")]
                 + [p["max_count"] for p in sol["pairs"].values()]).tolist()
             error, dense_of, rows_of, tile_of, n_cells = flags[:5]
-            max_count = max(flags[5:], default=0)
+            max_counts = dict(zip(sol["pairs"], flags[5:]))
             if error:
                 self._grid_state = fresh_state(self.device)
                 raise RuntimeError(
@@ -236,16 +285,29 @@ class TreeNSearch:
             if tile_of:
                 self._tiles_cap = int(self._tiles_cap * 1.5) + 64
                 continue
-            if max_count > self._nbr_cap:
-                self._nbr_cap = round_up(int(max_count * 1.25) + 1, 16)
+            # per candidate set: a pair's lists live in the block of its
+            # set_j (api.py:848-858 of the JAX package)
+            grew = False
+            for (si, sj) in cfg.active_pairs:
+                mc = max_counts[f"{si}-{sj}"]
+                if mc > self._cap_of(sj):
+                    new_cap = round_up(int(mc * 1.25) + 1, 16)
+                    if self._nbr_caps:
+                        self._nbr_caps[sj] = new_cap
+                    else:
+                        self._nbr_cap = new_cap
+                    grew = True
+            if grew:
                 continue
             self._post_run_tune(sol, state, w)
             self._grid_state = state
-            self._last_stats = {"n_cells": n_cells, "max_count": max_count}
+            self._last_stats = {"n_cells": n_cells,
+                                "max_count": max(flags[5:], default=0)}
             return sol
         raise RuntimeError(
             "padding caps failed to converge "
-            f"(nbr_cap={self._nbr_cap}, dense_cap={self._dense_cap}, "
+            f"(nbr_cap={self._nbr_cap}, nbr_caps={self._nbr_caps}, "
+            f"dense_cap={self._dense_cap}, "
             f"tiles_cap={self._tiles_cap})")
 
     def _post_run_tune(self, sol: dict, state, w: int) -> None:
@@ -297,8 +359,20 @@ class TreeNSearch:
         self._require_solution()
         return self._solution.get_counts(set_i, set_j)
 
+    def get_n_sets(self) -> int:
+        return len(self._sets)
+
+    def get_n_points_in_set(self, set_i: int) -> int:
+        self._require_set(set_i)
+        return self._sets[set_i].n
+
     def get_total_n_points(self) -> int:
         return sum(s.n for s in self._sets)
+
+    def is_search_active(self, set_i: int, set_j: int) -> bool:
+        self._require_set(set_i)
+        self._require_set(set_j)
+        return bool(self._active[set_i, set_j])
 
     def does_set_exist(self, set_i: int) -> bool:
         return 0 <= set_i < len(self._sets)
@@ -335,46 +409,84 @@ class TreeNSearch:
     def _make_cfg(self, w: int) -> SearchConfig:
         pairs = tuple((int(i), int(j))
                       for i, j in zip(*np.nonzero(self._active)))
+        caps = tuple(self._cap_of(j) for j in range(len(self._sets)))
         return SearchConfig(set_sizes=tuple(s.n for s in self._sets),
                             active_pairs=pairs, stencil_w=w,
-                            nbr_cap=self._nbr_cap)
+                            nbr_cap=max(caps, default=self._nbr_cap),
+                            variable=bool(self._variable),
+                            symmetric=bool(self._symmetric and self._variable),
+                            nbr_caps=caps if self._nbr_caps else None)
 
     def _knobs(self) -> FastKnobs:
         """The caps of the next run (settled after one ``run()``)."""
         return FastKnobs(dense_cap=self._dense_cap,
                          tiles_cap=self._tiles_cap, rows_cap=self._rows_cap)
 
-    def _assemble(self) -> torch.Tensor:
-        """The set's points as a contiguous (n, 3) float32 tensor on the
-        engine's device (no copy for such a tensor already there)."""
-        p = self._sets[0].points
-        t = torch.as_tensor(p) if isinstance(p, np.ndarray) else p
-        return t.to(device=self.device, dtype=torch.float32) \
-            .reshape(-1, 3).contiguous()
+    def _assemble(self):
+        """The sets' points, concatenated, as a contiguous (n, 3) float32
+        tensor on the engine's device, and in variable mode their radii
+        as (n,) float32 (else None).  A single set's float32 tensor
+        already on the device is used without a copy."""
+        dev = self.device
+        pts = [_as_tensor(s.points, dev, (-1, 3)) for s in self._sets]
+        if not pts:
+            return torch.zeros((0, 3), dtype=torch.float32, device=dev), None
+        points = pts[0] if len(pts) == 1 else torch.cat(pts)
+        if not self._variable:
+            return points, None
+        rad = [_as_tensor(s.radii, dev, (-1,)) for s in self._sets]
+        return points, rad[0] if len(rad) == 1 else torch.cat(rad)
 
-    def _effective_cell_size(self) -> float:
+    def _radius_bounds(self, radii=None):
+        """(r_min, r_max) over all points: the search radius twice in
+        fixed mode; one device read in variable mode (0, 0 when no point
+        exists)."""
+        if not self._variable:
+            r = self._search_radius or 0.0
+            return r, r
+        if radii is None:
+            radii = self._assemble()[1]
+        if radii.numel() == 0:
+            return 0.0, 0.0
+        r_min, r_max = torch.stack(torch.aminmax(radii)).tolist()
+        return r_min, r_max
+
+    def _effective_cell_size(self, bounds=None) -> float:
         if self._cell_size is not None:
             return self._cell_size
-        # reference default: 1.5 x the radius (TreeNSearch.cpp:299-316)
-        return 1.5 * self._search_radius
+        # reference default: 1.5 x (the radius | the smallest radius)
+        # (TreeNSearch.cpp:299-316)
+        r_min = (bounds or self._radius_bounds())[0]
+        if r_min <= 0:
+            raise ValueError("cannot derive a cell size: no positive radius")
+        return 1.5 * r_min
 
-    def _stencil_w(self, cell: float) -> int:
-        """Smallest w with w * cell >= r, by the same float32 test as the
-        JAX package (no epsilon slack)."""
+    def _stencil_w(self, cell: float, bounds=None) -> int:
+        """Smallest w with w * cell >= r_max, by the same float32 test as
+        the JAX package (no epsilon slack)."""
+        r_max = (bounds or self._radius_bounds())[1]
+        if r_max <= 0:
+            return 1
         c = np.float32(cell)
-        r = np.float32(self._search_radius)
+        r = np.float32(r_max)
         w0 = int(np.floor(r * (np.float32(1.0) / c)))
         w = w0 if np.float32(w0) * c >= r else w0 + 1
         return max(1, w)
 
-    def _check(self) -> None:
+    def _check(self, bounds=None) -> None:
         # reference _check (TreeNSearch.cpp:366-392)
         if not self._sets:
             raise RuntimeError("no point sets have been added")
-        if self._search_radius is None or self._search_radius <= 0 \
-                or not math.isfinite(self._search_radius):
-            raise RuntimeError(
-                "fixed-radius mode requires set_search_radius(r > 0)")
+        if not self._variable:
+            if self._search_radius is None or self._search_radius <= 0 \
+                    or not math.isfinite(self._search_radius):
+                raise RuntimeError(
+                    "fixed-radius mode requires set_search_radius(r > 0)")
+        elif (bounds or self._radius_bounds())[0] < 0:
+            bad = [k for k, s in enumerate(self._sets)
+                   if s.n > 0 and float(_as_tensor(s.radii, "cpu", (-1,))
+                                        .min()) < 0]
+            raise RuntimeError(f"set {bad[0]} has negative radii")
 
     def _require_set(self, set_i: int) -> None:
         if not self.does_set_exist(set_i):

@@ -1,16 +1,16 @@
-"""Static configuration of one search: set sizes, active pairs, stencil
-width and the neighbor cap.
+"""Static configuration of one search: set sizes, active pairs, radius
+mode, stencil width and the neighbor caps.
 
 PyTorch counterpart of ``treensearch_tpu/config.py``.  PyTorch runs
 eagerly, so nothing here keys a compile cache; the fields still fix every
-shape of a step (``nbr_cap`` sizes the padded-CSR rows), which keeps the
+shape of a step (the caps size the padded-CSR rows), which keeps the
 prep's shapes identical to the JAX prep and the step capturable as a CUDA
 graph.  The host grows a cap when a run reports an overflow and re-runs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 
 class SearchConfig(NamedTuple):
@@ -20,10 +20,29 @@ class SearchConfig(NamedTuple):
     active_pairs: Tuple[Tuple[int, int], ...]  # ordered (set_i, set_j)
     stencil_w: int                       # stencil half-width in cells
     nbr_cap: int                         # max neighbors per (point, set_j)
+    variable: bool = False               # per-point radii vs one radius
+    symmetric: bool = False              # OR d^2 <= r_j^2 (variable only)
+    # per-candidate-set caps (len n_sets); None = nbr_cap for every set
+    nbr_caps: Optional[Tuple[int, ...]] = None
+
+    @property
+    def n_sets(self) -> int:
+        return len(self.set_sizes)
 
     @property
     def n_points(self) -> int:
         return sum(self.set_sizes)
+
+    @property
+    def set_offsets(self) -> Tuple[int, ...]:
+        off = [0]
+        for s in self.set_sizes:
+            off.append(off[-1] + s)
+        return tuple(off)
+
+    def cap_of(self, set_j: int) -> int:
+        return self.nbr_caps[set_j] if self.nbr_caps is not None \
+            else self.nbr_cap
 
 
 def round_up(x: int, m: int) -> int:

@@ -1,6 +1,6 @@
-// Kernels of the fixed-radius, single-set neighbor-list path, for Hopper
-// (sm_90a).  Plain C launchers, loaded with ctypes by
-// treensearch_tpu_torch/ops/pairs.py; each returns cudaGetLastError().
+// Kernels of the neighbor-list path, for Hopper (sm_90a).  Plain C
+// launchers, loaded with ctypes by treensearch_tpu_torch/ops/pairs.py; each
+// returns cudaGetLastError().
 //
 // Build flags (ops/pairs.py NVCC_FLAGS) never include --use_fast_math or
 // -ftz: the query padding carries NaN coordinates that must fail every
@@ -28,6 +28,7 @@ constexpr int A_COL = 62;
 constexpr int CNT_COL = 63;
 constexpr int FAT_COL = 127;
 constexpr int N_FIELDS = 8;
+constexpr int F_R = 3;
 constexpr int F_ORIG = 4;
 constexpr int F_SET = 5;
 constexpr int SENTINEL_BITS = 0x7FC00000;  // quiet NaN
@@ -147,6 +148,137 @@ pairs_nbrs_fixed_kernel(const int* __restrict__ desc,
   for (int k = cnt; k < k8; ++k) out[(size_t)k * TILE] = -1;
 }
 
+// The output blocks of K2b/K2c, passed by value: block b collects the
+// survivors whose set id is set_of[b], as set-local indices orig -
+// offset[b], in rows of k8[b] (tiles_cap, k8[b], 128); its counts are row
+// b of counts (n_blocks, tiles_cap * 128).
+constexpr int MAX_BLOCKS = 8;
+struct Blocks {
+  int n_blocks;
+  int set_of[MAX_BLOCKS];
+  int offset[MAX_BLOCKS];
+  int k8[MAX_BLOCKS];
+  int* nbrs[MAX_BLOCKS];
+  int* counts;
+};
+
+// K2b and K2c -- replace make_pairs_call with multi_set (one output block
+// per distinct candidate set, cand_sets/cand_offsets/nbr_caps) and with
+// variable/symmetric radii (treensearch_tpu/ops/pallas_pairs.py:445; the
+// criterion :950-957, the per-block compaction :1154-1310).  K2a's
+// schedule: one block of 128 threads per query tile, windows streamed in
+// CHUNK-candidate passes through shared memory, one query per thread.
+// Each staged candidate also carries its block index (-1 for a set that
+// is no candidate set), found once at staging, and in symmetric mode its
+// squared radius.  A survivor goes to its block's row while that block's
+// count is below its k8; counting goes on past the cap.  The per-block
+// counts stay in registers: the unrolled compare against each block index
+// keeps every array index a constant.
+//   VARIABLE:  d^2 <= r_i^2, r_i the query's F_R, squared in float32;
+//              else d^2 <= r2 (K2b's fixed radius).
+//   SYMMETRIC: also d^2 <= r_j^2 (variable only).
+// The sentinel query (NaN coordinates, r = 0) fails every compare.
+// Bound: the distance tests, as K2a; the block lookup is paid per staged
+// candidate, not per test.
+template <bool VARIABLE, bool SYMMETRIC>
+__global__ void __launch_bounds__(TILE)
+pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
+                  const int* __restrict__ recs_t, int n_rec, int tiles_cap,
+                  int n_win, float r2, Blocks blk) {
+  __shared__ float sx[CHUNK];
+  __shared__ float sy[CHUNK];
+  __shared__ float sz[CHUNK];
+  __shared__ float sr2[SYMMETRIC ? CHUNK : 1];
+  __shared__ int so[CHUNK];
+  __shared__ int sb[CHUNK];
+
+  const int t = blockIdx.x;
+  const int l = threadIdx.x;
+  const int* d = desc + (size_t)t * DESC_W;
+  const size_t n_slots = (size_t)tiles_cap * TILE;
+  const size_t slot = (size_t)t * TILE + l;
+  if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
+    for (int b = 0; b < blk.n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
+    return;
+  }
+  const float qx = __int_as_float(q_t[slot]);
+  const float qy = __int_as_float(q_t[n_slots + slot]);
+  const float qz = __int_as_float(q_t[2 * n_slots + slot]);
+  const int qo = q_t[F_ORIG * n_slots + slot];
+  float qr2 = r2;
+  if (VARIABLE) {
+    const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
+    qr2 = __fmul_rn(qr, qr);
+  }
+  const int* rx = recs_t;
+  const int* ry = recs_t + (size_t)n_rec;
+  const int* rz = recs_t + 2 * (size_t)n_rec;
+  const int* rr = recs_t + F_R * (size_t)n_rec;
+  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
+  const int* rs = recs_t + F_SET * (size_t)n_rec;
+
+  int cnt[MAX_BLOCKS];
+#pragma unroll
+  for (int b = 0; b < MAX_BLOCKS; ++b) cnt[b] = 0;
+  for (int w = 0; w < n_win; ++w) {
+    const int s = d[w];
+    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
+    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
+      const int m = min(CHUNK, ln - c0);
+      for (int j = l; j < m; j += TILE) {
+        const size_t src = (size_t)s + c0 + j;
+        sx[j] = __int_as_float(rx[src]);
+        sy[j] = __int_as_float(ry[src]);
+        sz[j] = __int_as_float(rz[src]);
+        so[j] = ro[src];
+        if (SYMMETRIC) {
+          const float r = __int_as_float(rr[src]);
+          sr2[j] = __fmul_rn(r, r);
+        }
+        const int set = rs[src];
+        int bi = -1;
+#pragma unroll
+        for (int b = 0; b < MAX_BLOCKS; ++b)
+          if (b < blk.n_blocks && set == blk.set_of[b]) bi = b;
+        sb[j] = bi;
+      }
+      __syncthreads();
+      for (int j = 0; j < m; ++j) {
+        const float dx = __fsub_rn(sx[j], qx);
+        const float dy = __fsub_rn(sy[j], qy);
+        const float dz = __fsub_rn(sz[j], qz);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                             __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        bool hit = d2 <= qr2;
+        if (SYMMETRIC) hit = hit || d2 <= sr2[j];
+        const int o = so[j];
+        const int bi = sb[j];
+        if (hit && o != qo && bi >= 0) {
+#pragma unroll
+          for (int b = 0; b < MAX_BLOCKS; ++b) {
+            if (b == bi) {
+              if (cnt[b] < blk.k8[b])
+                blk.nbrs[b][((size_t)t * blk.k8[b] + cnt[b]) * TILE + l] =
+                    o - blk.offset[b];
+              ++cnt[b];
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < MAX_BLOCKS; ++b) {
+    if (b < blk.n_blocks) {
+      blk.counts[b * n_slots + slot] = cnt[b];
+      int* out = blk.nbrs[b] + (size_t)t * blk.k8[b] * TILE + l;
+      for (int k = cnt[b]; k < blk.k8[b]; ++k) out[(size_t)k * TILE] = -1;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tns_expand_query_tiles(const int* desc, const int* recs_t,
@@ -172,6 +304,38 @@ extern "C" int tns_pairs_nbrs_fixed(const int* desc, const int* q_t,
   if (tiles_cap > 0) {
     pairs_nbrs_fixed_kernel<<<tiles_cap, TILE, 0, (cudaStream_t)stream>>>(
         desc, q_t, recs_t, n_rec, tiles_cap, n_win, k8, r2, counts, nbrs);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tns_pairs_nbrs(const int* desc, const int* q_t,
+                              const int* recs_t, int n_rec, int tiles_cap,
+                              int n_win, float r2, int variable,
+                              int symmetric, int n_blocks, const int* set_of,
+                              const int* offset, const int* k8,
+                              int* const* nbrs, int* counts, void* stream) {
+  if (n_blocks < 1 || n_blocks > MAX_BLOCKS || (symmetric && !variable))
+    return (int)cudaErrorInvalidValue;
+  Blocks blk{};
+  blk.n_blocks = n_blocks;
+  for (int b = 0; b < n_blocks; ++b) {
+    blk.set_of[b] = set_of[b];
+    blk.offset[b] = offset[b];
+    blk.k8[b] = k8[b];
+    blk.nbrs[b] = nbrs[b];
+  }
+  blk.counts = counts;
+  if (tiles_cap > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (!variable)
+      pairs_nbrs_kernel<false, false><<<tiles_cap, TILE, 0, st>>>(
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+    else if (!symmetric)
+      pairs_nbrs_kernel<true, false><<<tiles_cap, TILE, 0, st>>>(
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+    else
+      pairs_nbrs_kernel<true, true><<<tiles_cap, TILE, 0, st>>>(
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
   }
   return (int)cudaGetLastError();
 }

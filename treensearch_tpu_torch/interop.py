@@ -3,7 +3,9 @@
 The JAX ``GridState`` and ``FastCarry`` fields, as numpy arrays, become
 the port's tensors, so tests can feed structures the JAX prep built
 straight into the port's kernels: the search engine's counterpart of
-carrying weights across.  This module imports neither JAX nor the JAX
+carrying weights across.  Multi-set and variable-radius structures carry
+over the same way: the sorted radii ride ``r_chk``, and the records are
+rebuilt from the points, radii and set sizes.  This module imports neither JAX nor the JAX
 package; pass ``{k: np.asarray(v) for k, v in state._asdict().items()}``.
 """
 
@@ -57,7 +59,8 @@ def carry_from_numpy(d, device="cpu") -> FastCarry:
     desc[:, FAT_COL] = torch.where(desc[:, FAT_COL] == 2, 2, 0)
     return FastCarry(
         valid=_t(d["valid"], torch.bool, device),
-        lin_s=i32("lin_s"), lin_chk=i32("lin_chk"), idx_s=i32("idx_s"),
+        lin_s=i32("lin_s"), lin_chk=i32("lin_chk"),
+        r_chk=_t(d["r_chk"], torch.float32, device), idx_s=i32("idx_s"),
         inv_perm=i32("inv_perm"), pp=i32("pp"), qpos=i32("qpos"),
         desc=desc, dense_overflow=i32("dense_overflow"),
         tile_overflow=i32("tile_overflow"),

@@ -1,21 +1,25 @@
 """The fast path: dense cell table, row-aligned query tiles, stencil
-windows in sorted space, and the two kernels.
+windows in sorted space, and the pairs kernels.
 
-PyTorch counterpart of the fixed-radius, single-set, neighbor-list branch
-of ``treensearch_tpu/ops/fastpath.py`` (``build_and_search_fast``,
-``fastpath.py:1690-1711``), rebuilt on every call:
+PyTorch counterpart of the neighbor-list branch of
+``treensearch_tpu/ops/fastpath.py`` (``build_and_search_fast``,
+``fastpath.py:1690-1711``) for any number of point sets, at a fixed radius
+or with per-point radii, rebuilt on every call:
 
 1. ``update_grid`` (``ops/grid.py``) fixes the world box;
 2. ``_prep`` (counterpart of ``_pallas_prep``, row layout) sorts points by
    padded linear cell id, builds the dense cell-start table, pads every
    occupied grid row to a multiple of 128 slots so each 128-query tile
    lies in one grid row, and writes one window descriptor per stencil
-   offset (di, dj): a contiguous, disjoint k-run of the SORTED points;
+   offset (di, dj): a contiguous, disjoint k-run of the SORTED points; in
+   variable mode a window past the tile's local reach gets length 0;
 3. ``_search`` (counterpart of ``_pallas_search``) builds the sorted
    field-major records, lays out the query tiles (kernel K1), runs the
-   pairs kernel (K2a) and gathers per-point counts through ``qpos``;
-4. ``materialize_nbrs`` turns the tile-layout rows into (n, k8) padded-CSR
-   rows on demand.
+   pairs kernel (K2a for one set at a fixed radius, K2b for several sets,
+   K2c for per-point radii) with one output block per distinct candidate
+   set, and gathers per-point counts through ``qpos``;
+4. ``materialize_nbrs`` turns a pair's tile-layout rows into (n_i, k8)
+   padded-CSR rows on demand.
 
 Every structure the JAX prep computes by arithmetic is computed here by
 the same integer arithmetic, so it is bit-identical (tests/
@@ -36,9 +40,10 @@ import torch
 from ..config import SearchConfig, round_up
 from ..utils import keys as K
 from .grid import GridState, update_grid
-from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_X, F_Z, FAT_COL,
-                    LENS_OFF, N_FIELDS, TILE, expand_query_tiles,
-                    pairs_nbrs_fixed)
+from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Z,
+                    FAT_COL, LENS_OFF, N_FIELDS, TILE, expand_query_tiles,
+                    pairs_nbrs_fixed, pairs_nbrs_fixed_plain, pairs_nbrs_plain,
+                    pairs_nbrs_sets, pairs_nbrs_variable)
 
 
 class FastKnobs(NamedTuple):
@@ -55,6 +60,7 @@ class FastCarry(NamedTuple):
     valid: torch.Tensor        # () bool
     lin_s: torch.Tensor        # (n,) sorted linear cell ids
     lin_chk: torch.Tensor      # (n,) cell ids by original index
+    r_chk: torch.Tensor        # (n,) sorted radii ((0,) at a fixed radius)
     idx_s: torch.Tensor        # (n,) sorted slot -> original index
     inv_perm: torch.Tensor     # (n,) original index -> sorted slot
     pp: torch.Tensor           # (n,) sorted slot -> padded slot
@@ -91,6 +97,7 @@ def _statics(cfg: SearchConfig, knobs: FastKnobs) -> dict:
         max(1 << 14, knobs.dense_cap >> 3),
         "offs_2d": [(di, dj) for di in range(-w, w + 1)
                     for dj in range(-w, w + 1)],
+        "cand_sets": tuple(sorted({sj for (_, sj) in cfg.active_pairs})),
     }
 
 
@@ -126,11 +133,13 @@ def _i32(x) -> torch.Tensor:
 
 
 def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
-          knobs: FastKnobs) -> FastCarry:
+          knobs: FastKnobs, radii: torch.Tensor | None = None) -> FastCarry:
     """Sort, dense table, row-aligned layout and window descriptors
     (``_pallas_prep``, row layout, window starts in sorted space: the
-    ``win_sorted`` branch that production ``rec_expand`` uses).  Requires
-    ``cfg.n_points > 0``."""
+    ``win_sorted`` branch that production ``rec_expand`` uses).  In
+    variable mode (``cfg.variable``, ``radii`` (n,) float32) each window
+    reaches only as far as the larger of the tile's and the neighbor
+    row's largest radius.  Requires ``cfg.n_points > 0``."""
     st = _statics(cfg, knobs)
     n = cfg.n_points
     dev = points.device
@@ -143,7 +152,7 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
         return torch.arange(m, dtype=torch.int32, device=dev)
 
     dx = state.n_cells[0] + 2 * w
-    lin, dy, dz, _ = _padded_lin(points, state, cfg, knobs)
+    lin, dy, dz, inv_cell = _padded_lin(points, state, cfg, knobs)
     # in float, so a huge sparse domain cannot wrap int32
     dense_size_f = (dx.to(torch.float32) * dy.to(torch.float32)
                     * dz.to(torch.float32))
@@ -152,6 +161,8 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     iota = arange(n)
     lin_s, order = torch.sort(lin, stable=True)
     idx_s = _i32(order)
+    r_s = radii[order] if cfg.variable else \
+        torch.zeros(0, dtype=torch.float32, device=dev)
     table = _cell_table(lin_s, dense_cap)
 
     # ---- row-aligned layout: every occupied grid row padded to 128 ------
@@ -193,6 +204,19 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     k0 = torch.clamp(lmin - trow * dz, min=0)
     k1 = torch.clamp(lmax - trow * dz, min=0)
 
+    # ---- local stencil reach (variable mode) ----------------------------
+    # the static W bounds the (di, dj) offsets; a tile reaches only as far
+    # as max(its own largest radius, the neighbor row's largest radius):
+    # the reference's per-node ghost width (TreeNSearch.cpp:1457-1466)
+    if cfg.variable:
+        rid = torch.clamp(lin_s // dz, max=rows_cap - 1).long()
+        row_rmax = torch.zeros(rows_cap, dtype=torch.float32, device=dev)
+        row_rmax.scatter_reduce_(0, rid, r_s, reduce="amax")
+        lane = arange(TILE)
+        g_idx = torch.clamp(a_t[:, None] + lane[None, :], max=n - 1).long()
+        tile_rmax = torch.where(lane[None, :] < cnt_t[:, None], r_s[g_idx],
+                                0.0).amax(dim=1)
+
     # ---- window descriptors: one sorted k-run per (di, dj) --------------
     # window = [table[row' dz + k0 - w], table[row' dz + k1 + w + 1]) of
     # neighbor row row' = trow + di dy + dj; distinct (di, dj) give
@@ -204,9 +228,20 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     rp = torch.clamp(trow[:, None] + di[None, :] * dy + dj[None, :], min=0)
     rp = torch.minimum(rp, dense_cap // dz)
     base = torch.clamp(rp * dz, max=dense_cap)
-    s = table[torch.clamp(base + k0[:, None] - w, 0, dense_cap).long()]
-    e = table[torch.clamp(base + k1[:, None] + w + 1, 0, dense_cap).long()]
-    lens = torch.clamp(e - s, min=0) * has[:, None]
+    if cfg.variable:
+        # smallest whole number of cells that covers the reach, by the
+        # same float32 test as the host's stencil width (no epsilon)
+        reach = torch.maximum(tile_rmax[:, None],
+                              row_rmax[torch.clamp(rp, max=rows_cap - 1)])
+        w0 = torch.floor(reach * inv_cell).to(torch.int32)
+        wk = torch.clamp(torch.where(w0.to(torch.float32) * state.cell_size
+                                     >= reach, w0, w0 + 1), 1, w)
+        ok = torch.maximum(di.abs(), dj.abs())[None, :] <= wk
+    else:
+        wk, ok = w, True
+    s = table[torch.clamp(base + k0[:, None] - wk, 0, dense_cap).long()]
+    e = table[torch.clamp(base + k1[:, None] + wk + 1, 0, dense_cap).long()]
+    lens = torch.clamp(e - s, min=0) * (has[:, None] & ok)
     starts = torch.clamp(s, 0, n)
     n_win = len(st["offs_2d"])
 
@@ -226,59 +261,136 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
         n_cells_stat = torch.tensor(n, dtype=torch.int32, device=dev)
     return FastCarry(
         valid=torch.ones((), dtype=torch.bool, device=dev),
-        lin_s=lin_s, lin_chk=lin, idx_s=idx_s, inv_perm=inv_perm, pp=pp,
+        lin_s=lin_s, lin_chk=lin, r_chk=r_s, idx_s=idx_s, inv_perm=inv_perm,
+        pp=pp,
         qpos=qpos, desc=desc, dense_overflow=dense_overflow,
         tile_overflow=tile_overflow, rows_overflow=rows_overflow,
         win_max=_i32(lens.max()), n_cells_stat=n_cells_stat)
 
 
-def sorted_records(points: torch.Tensor, idx_s: torch.Tensor) -> torch.Tensor:
-    """Sorted field-major records (8, n) int32: x, y, z as float32 bit
-    patterns, r = 0, orig, set = 0, p0 = p1 = 0 (fixed radius, one set)."""
+def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
+                   radii: torch.Tensor | None = None,
+                   set_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Sorted field-major records (8, n) int32: x, y, z and r as float32
+    bit patterns (r = 0 without ``radii``), orig (the index into the
+    concatenated sets), the set id (0 without ``set_ids``), p0 = p1 = 0
+    (the payload fields of the reduce contract)."""
     n = points.shape[0]
-    pts_s = points[idx_s.long()]
+    order = idx_s.long()
     recs_t = torch.zeros((N_FIELDS, n), dtype=torch.int32,
                          device=points.device)
-    recs_t[F_X:F_Z + 1] = pts_s.view(torch.int32).t()
+    recs_t[F_X:F_Z + 1] = points[order].view(torch.int32).t()
+    if radii is not None:
+        recs_t[F_R] = radii[order].view(torch.int32)
     recs_t[F_ORIG] = idx_s
+    if set_ids is not None:
+        recs_t[F_SET] = set_ids[order]
     return recs_t
 
 
+def set_ids_of(cfg: SearchConfig, device) -> torch.Tensor:
+    """(n,) int32 set id of each point of the concatenated sets."""
+    return torch.repeat_interleave(
+        torch.arange(cfg.n_sets, dtype=torch.int32, device=device),
+        torch.tensor(cfg.set_sizes, device=device),
+        output_size=cfg.n_points)
+
+
 class KernelInputs(NamedTuple):
-    """The arguments K1 and K2a take from one prep."""
+    """The arguments K1 and the pairs kernel take from one prep."""
     desc: torch.Tensor     # (nt8, 128) window descriptors
     recs_t: torch.Tensor   # (8, n) sorted field-major records
     tiles_cap: int
     n_win: int             # (2W+1)^2 stencil windows
-    k8: int                # neighbor row width, nbr_cap rounded up to 8
-    r2: float              # float32 square of the float32 radius
+    r2: float              # float32 square of the float32 radius (fixed)
+    cand_sets: tuple       # distinct candidate sets, one output block each
+    cand_offsets: tuple    # each candidate set's first concatenated index
+    k8s: tuple             # each block's row width: its cap rounded to 8
+    variable: bool         # per-point radii (K2c)
+    symmetric: bool        # d^2 <= r_j^2 also counts (K2c)
+    multi_set: bool        # more than one point set (K2b filters by set)
 
 
 def kernel_inputs(points: torch.Tensor, search_radius: float,
-                  carry: FastCarry, cfg: SearchConfig,
-                  knobs: FastKnobs) -> KernelInputs:
+                  carry: FastCarry, cfg: SearchConfig, knobs: FastKnobs,
+                  radii: torch.Tensor | None = None) -> KernelInputs:
     """Record build and the kernels' static arguments (``_pallas_search``,
-    ``fastpath.py:1098, 1158-1232``)."""
+    ``fastpath.py:1083-1098, 1158-1232``)."""
     st = _statics(cfg, knobs)
+    multi = cfg.n_sets > 1
+    recs = sorted_records(
+        points, carry.idx_s, radii if cfg.variable else None,
+        set_ids_of(cfg, points.device) if multi else None)
     r = np.float32(search_radius)
-    return KernelInputs(carry.desc, sorted_records(points, carry.idx_s),
-                        st["tiles_cap"], len(st["offs_2d"]),
-                        round_up(cfg.nbr_cap, 8), float(r * r))
+    cand = st["cand_sets"]
+    return KernelInputs(
+        carry.desc, recs, st["tiles_cap"], len(st["offs_2d"]),
+        float(r * r), cand, tuple(cfg.set_offsets[sj] for sj in cand),
+        tuple(round_up(cfg.cap_of(sj), 8) for sj in cand),
+        cfg.variable, cfg.symmetric, multi)
 
 
-def _search(points: torch.Tensor, search_radius: float, state: GridState,
-            carry: FastCarry, cfg: SearchConfig, knobs: FastKnobs) -> dict:
-    """Record build, K1, K2a and the counts epilogue (``_pallas_search``,
-    single-set neighbor-list branch)."""
-    a = kernel_inputs(points, search_radius, carry, cfg, knobs)
+def pairs_kernel(a: KernelInputs):
+    """The pairs kernel's wrapper for these inputs: K2c for per-point
+    radii, K2b for several sets, K2a for one set at a fixed radius."""
+    if a.variable:
+        return pairs_nbrs_variable
+    return pairs_nbrs_sets if a.multi_set else pairs_nbrs_fixed
+
+
+def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False):
+    """The pairs kernel (or, with ``plain``, its plain version) on these
+    inputs: counts (n_blocks, tiles_cap * 128) and one tile-layout row
+    array per candidate set."""
+    kernel = pairs_kernel(a)
+    if kernel is pairs_nbrs_fixed:
+        fn = pairs_nbrs_fixed_plain if plain else pairs_nbrs_fixed
+        counts, nbrs = fn(a.desc, q_t, a.recs_t, a.r2, a.n_win, a.k8s[0],
+                          a.tiles_cap)
+        return counts[None], [nbrs]
+    blocks = (a.cand_sets, a.cand_offsets, a.k8s)
+    if plain:
+        return pairs_nbrs_plain(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap,
+                                *blocks, r2=None if a.variable else a.r2,
+                                symmetric=a.symmetric)
+    if a.variable:
+        return kernel(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap, *blocks,
+                      a.symmetric)
+    return kernel(a.desc, q_t, a.recs_t, a.r2, a.n_win, a.tiles_cap,
+                  *blocks)
+
+
+def _search(points: torch.Tensor, radii: torch.Tensor | None,
+            search_radius: float, state: GridState, carry: FastCarry,
+            cfg: SearchConfig, knobs: FastKnobs) -> dict:
+    """Record build, K1, the pairs kernel and the counts epilogue
+    (``_pallas_search``, neighbor-list branch, ``fastpath.py:1465-1589``).
+
+    One output block per distinct candidate set: pairs (si, sj) that share
+    sj share its tile-layout rows, each through its own slice of ``qpos``
+    (the roles of the JAX ``blocks``/``qpos_set`` and ``attach_blocks``).
+    A pair whose query set is empty gets empty arrays."""
+    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii)
     q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
-    counts_t, nbrs_t = pairs_nbrs_fixed(a.desc, q_t, a.recs_t, a.r2,
-                                        a.n_win, a.k8, a.tiles_cap)
-    counts = counts_t[carry.qpos.long()]
+    counts_t, nbrs_t = run_pairs(a, q_t)
+    # every block's counts through one gather
+    gathered = counts_t[:, carry.qpos.long()]
+    offs = cfg.set_offsets
+    zero = torch.zeros((), dtype=torch.int32, device=points.device)
     pairs = {}
     for (si, sj) in cfg.active_pairs:
+        b = a.cand_sets.index(sj)
+        n_i = cfg.set_sizes[si]
+        if n_i == 0:
+            pairs[f"{si}-{sj}"] = {
+                "counts": gathered.new_zeros(0),
+                "nbrs": gathered.new_zeros((0, a.k8s[b])),
+                "max_count": zero}
+            continue
+        counts = gathered[b, offs[si]:offs[si] + n_i]
         pairs[f"{si}-{sj}"] = {"counts": counts, "max_count": counts.max(),
-                               "nbrs_tiles": nbrs_t, "qpos": carry.qpos}
+                               "nbrs_tiles": nbrs_t[b],
+                               "qpos": carry.qpos[offs[si]:offs[si] + n_i]}
     return {
         "pairs": pairs,
         "n_cells": carry.n_cells_stat,
@@ -300,7 +412,7 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
         n_i = cfg.set_sizes[si]
         pairs[f"{si}-{sj}"] = {
             "counts": torch.zeros(n_i, dtype=torch.int32, device=dev),
-            "nbrs": torch.full((n_i, round_up(cfg.nbr_cap, 8)), -1,
+            "nbrs": torch.full((n_i, round_up(cfg.cap_of(sj), 8)), -1,
                                dtype=torch.int32, device=dev),
             "max_count": zero}
     return {"pairs": pairs, "n_cells": zero, "error": state.error,
@@ -310,23 +422,28 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
 
 def build_and_search_fast(points: torch.Tensor, search_radius: float,
                           cell_size: float, state: GridState,
-                          cfg: SearchConfig,
-                          knobs: FastKnobs) -> tuple[dict, GridState]:
-    """One full search: grid update, prep, records, K1, K2a, counts."""
+                          cfg: SearchConfig, knobs: FastKnobs,
+                          radii: torch.Tensor | None = None
+                          ) -> tuple[dict, GridState]:
+    """One full search: grid update, prep, records, K1, the pairs kernel,
+    counts.  ``radii`` (n,) float32 in variable mode, else None."""
     state = update_grid(state, points, cell_size)
     if cfg.n_points == 0 or not cfg.active_pairs:
         return _empty_solution(cfg, state), state
-    carry = _prep(points, state, cfg, knobs)
-    return _search(points, search_radius, state, carry, cfg, knobs), state
+    carry = _prep(points, state, cfg, knobs, radii)
+    return _search(points, radii, search_radius, state, carry, cfg,
+                   knobs), state
 
 
 def materialize_nbrs(pair: dict) -> torch.Tensor:
-    """Per-point padded neighbor rows (n, k8) of one pair's solution.
+    """Per-point padded neighbor rows (n_i, k8) of one pair's solution.
 
     The kernel leaves rows in tile layout plus a per-point slot pointer
     (``qpos``, the reference's ``solution_ptr`` indirection); with one
-    tier the per-point view is one gather of slot rows.  The tile-layout
-    array is released once the view exists.
+    tier the per-point view is one gather of slot rows.  The pair then
+    drops its reference to the tile-layout rows; pairs that share a
+    candidate set share those rows, which are released when the last of
+    them has materialised.
     """
     if "nbrs" not in pair:
         q = pair["qpos"].long()
