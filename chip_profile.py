@@ -7,18 +7,20 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 For each configuration of ``chip_smoke.py`` (config 1: 1M uniform, r =
 0.02, cell 1.15 r; config 3: fluid + boundary; config 4: variable radii,
-symmetric), after two settling runs, it prints:
+symmetric), and for ``run_reduce`` (the poly6 density, n_out = 1, with
+masses as payload) and ``run_mask`` at config 1, after two settling calls,
+it prints:
 
-- ``run()``'s host time, synchronised, median over 10 runs;
-- ``torch.profiler``'s device time over 5 ``run()`` calls, by kernel
-  name and per run, the device's busy time in that window and its idle
-  share;
+- the call's host time, synchronised, median over 10 calls;
+- ``torch.profiler``'s device time over 5 calls, by kernel name and per
+  call, the device's busy time in that window and its idle share;
 - the pairs kernel's work: live tiles and distance tests (128 lanes times
   the windowed candidates of each live tile), from the path's
   descriptors;
 - the peak device memory.
 
-Every time is the engine's own ``run()``; nothing re-sequences its steps.
+Every time is the engine's own entry point; nothing re-sequences its
+steps.
 It exits non-zero without CUDA.
 """
 
@@ -53,9 +55,12 @@ def busy_ms(events) -> tuple[float, float]:
     return busy / 1e3, (iv[-1][1] - iv[0][0]) / 1e3
 
 
-def profile(eng, label: str, card: str) -> None:
+def profile(eng, label: str, card: str, call=None,
+            kernel: str | None = None) -> None:
     """Host time, device time by kernel, idle share and peak memory of
-    the engine's own ``run()``, after two settling runs."""
+    the engine's own ``call`` (``run()`` by default), after two settling
+    calls; ``kernel`` names the pairs kernel of the path (by default the
+    one ``run()`` takes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -63,8 +68,9 @@ def profile(eng, label: str, card: str) -> None:
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops.pairs import FAT_COL, TILE
 
-    eng.run()
-    eng.run()
+    call = call or eng.run
+    call()
+    call()
     print(f"== {label}: {eng.get_total_n_points()} points; caps: "
           f"{eng._knobs()}, nbr_cap {eng._nbr_cap} {eng._nbr_caps}",
           flush=True)
@@ -72,17 +78,18 @@ def profile(eng, label: str, card: str) -> None:
     for _ in range(N_TIMED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.run()
+        call()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"run() host ms, median of {N_TIMED}: {statistics.median(times):.4f}"
+    print(f"host ms per call, median of {N_TIMED}: "
+          f"{statistics.median(times):.4f}"
           f" (min {min(times):.4f}) ({card})", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for _ in range(N_PROFILED):
-            eng.run()
+            call()
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -99,10 +106,13 @@ def profile(eng, label: str, card: str) -> None:
     ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
             / N_PROFILED
             for k in ("expand_query_tiles_kernel", "pairs_nbrs_fixed_kernel",
-                      "pairs_nbrs_kernel")}
-    print(f"per run: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K2a "
+                      "pairs_nbrs_kernel", "pairs_reduce_kernel",
+                      "pairs_mask_kernel")}
+    print(f"per call: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K2a "
           f"{ours['pairs_nbrs_fixed_kernel']:.4f} ms, K2b/K2c "
-          f"{ours['pairs_nbrs_kernel']:.4f} ms, all device work "
+          f"{ours['pairs_nbrs_kernel']:.4f} ms, K3 "
+          f"{ours['pairs_reduce_kernel']:.4f} ms, K4 "
+          f"{ours['pairs_mask_kernel']:.4f} ms, all device work "
           f"{busy / N_PROFILED:.4f} ms, {len(dev_events) / N_PROFILED:.0f} "
           f"device events")
     print(f"{N_PROFILED} runs: device busy {busy:.3f} ms in a {window:.3f} "
@@ -113,7 +123,8 @@ def profile(eng, label: str, card: str) -> None:
     _, a = settled_inputs(eng)
     live = int((a.desc[:a.tiles_cap, FAT_COL] != 2).sum())
     tests = window_tests(a)
-    print(f"{fp.pairs_kernel(a).__name__} work: {live} live tiles of "
+    print(f"{kernel or fp.pairs_kernel(a).__name__} work: {live} live "
+          f"tiles of "
           f"{a.tiles_cap}, {tests / TILE / max(live, 1):.1f} candidates per "
           f"tile, {tests} distance tests per run", flush=True)
 
@@ -125,16 +136,27 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chip_smoke import (card_line, config3_data, config3_engine,
-                            config4_data, config4_engine, make_engine)
+                            config4_data, config4_engine, density_fn,
+                            make_engine)
 
     card = card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
-    pts = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (N, 3))
+    rng = np.random.default_rng(0)   # chip_smoke.py's points and masses
+    pts = torch.from_numpy(rng.uniform(0, 1, (N, 3))
                            .astype(np.float32)).to(dev)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, N)
+                            .astype(np.float32)).to(dev)
     profile(make_engine(pts, RADIUS), "config 1", card)
     profile(config3_engine(*config3_data(dev)), "config 3", card)
     profile(config4_engine(*config4_data(dev)), "config 4", card)
+    red = make_engine(pts, RADIUS)
+    profile(red, "config 1 run_reduce (density, n_out 1)", card,
+            call=lambda: red.run_reduce(density_fn, 1, payload=[mass]),
+            kernel="pairs_reduce")
+    msk = make_engine(pts, RADIUS)
+    profile(msk, "config 1 run_mask", card, call=msk.run_mask,
+            kernel="pairs_mask")
     return 0
 
 

@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: the card's name and power limit from nvidia-smi; CUDA required;
-2. build: ``csrc/pairs.cu`` compiled by nvcc for sm_90a, with its time;
+2. build: ``csrc/pairs.cu`` and the fused reduce's kernel for each of the
+   five callbacks below (``csrc/reduce.cu`` with the traced callback),
+   compiled by nvcc for sm_90a, one nvcc each, all started together, with
+   their times;
 3. BASELINE config 1 (1,000,000 uniform points from ``default_rng(0)``,
    r = 0.02, cell = 1.15 r): K1 and K2a against their plain PyTorch
    versions on a settled engine's structures (query tiles bit-equal,
@@ -25,13 +28,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
    radii uniform in [0.8, 1.25] x 0.032, all searches, symmetric: K2c
    against its plain version, 6 runs, a cKDTree sample;
 6. two small sets with variable radii, symmetric search off, against
-   numpy brute force (K2c with two candidate-set blocks).
+   numpy brute force (K2c with two candidate-set blocks);
+7. ``run_reduce`` at config 1 (``benchmarks/bench_reduce_1m.py``'s
+   workload without its z-sort): masses uniform in [0.5, 1.5) from the
+   points' generator; K3 against its plain version on a settled engine's
+   structures for the neighbor count (equal), the poly6 density
+   ``m_j (h^2 - d^2)^3`` (n_out = 1) and ``density4_fn`` (n_out = 4),
+   within 3e-5 of the sum of the terms' magnitudes; the density of all 1M
+   points against a float64 sum over ``run()``'s neighbor rows (rtol 5e-5,
+   the benchmark's) and the count leg equal to ``run()``'s counts; a
+   settling call and 5 jittered calls for each of n_out = 1 and 4;
+8. ``run_mask`` at config 1: K4 against its plain version (bits word for
+   word, counts equal); the mask's counts equal to ``run()``'s over all
+   1M queries and ``decode_mask`` of every tile equal to ``run()``'s rows
+   as sets, 32,759,462 pairs at seed 0; a settling call and 5 jittered
+   calls;
+9. small clouds against numpy brute force: three sets under an
+   asymmetric active matrix with a payload (set 2 searches nothing), and
+   one set with per-point radii and symmetric search, each through
+   ``run_reduce`` (with an int env term) and ``run_mask``.
 
 Each path resets every kernel's launch count just before it and reads the
-counts just after: each of its kernels must launch in every ``run()``,
-and no other pairs kernel may.  The last lines are the card, a JSON
-object with each kernel's launches, error, times and bound, then
-``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+counts just after: each of its kernels must launch in every call (K1 and
+K3 or K4 exactly once in each jittered ``run_reduce``/``run_mask``), and
+no other pairs kernel may.  The last lines are the card, a JSON object
+with each kernel's launches, error, times and bound, then ``{"ok": true,
+"device": {...}}``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -54,6 +77,7 @@ N_SAMPLE = 20_000
 N_SMALL = 3000
 TPU_PAIRS_SEED0 = 32_759_462   # the JAX package's count (BENCH_r05.json)
 REPS = 7
+KERNEL_BATCH = 10   # back-to-back kernel calls per timed run
 # BASELINE config 3 and 4 (benchmarks/bench_configs.py:109-152)
 N_FLUID, N_BOUNDARY, R3 = 400_000, 100_000, 0.0254
 N4, R4 = 250_000, 0.032
@@ -66,8 +90,53 @@ FP32_OPS_PER_S = 67e12
 # symmetric search adds the compare against r_j^2
 OPS_PER_TEST = 9
 SOURCE_LINES = {"expand_query_tiles": 276, "pairs_nbrs_fixed": 445,
-                "pairs_nbrs_sets": 445, "pairs_nbrs_variable": 445}
+                "pairs_nbrs_sets": 445, "pairs_nbrs_variable": 445,
+                "pairs_reduce": 671, "pairs_mask": 779}
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the fused reduce (benchmarks/bench_reduce_1m.py): smoothing length h = r
+H2 = np.float32(RADIUS * RADIUS)
+REDUCE_RTOL = 3e-5      # kernel vs plain: float32 sums in another order
+DENSITY_RTOL = 5e-5     # vs a float64 sum over run()'s lists (the bench's)
+N_SMALL_SETS = (1500, 1000, 800)
+
+
+# ------------------------------------------------ the reduce callbacks
+def count_fn(env):
+    import torch
+    return torch.ones_like(env["d2"])
+
+
+def density_fn(env):
+    """``bench_reduce_1m.py::density_fn``: poly6 density m_j (h^2 - d^2)^3
+    (up to the normalisation)."""
+    w = H2 - env["d2"]
+    return env["p0_j"] * (w * w * w)
+
+
+def density4_fn(env):
+    """``bench_reduce_1m.py::density4_fn``: the density and three
+    gradient-like sums."""
+    w = H2 - env["d2"]
+    k = env["p0_j"] * (w * w)
+    return (k * w, k * env["dx"], k * env["dy"], k * env["dz"])
+
+
+def small_fn(env):
+    """The small multi-set cloud: counts, an int env term, payload terms."""
+    import torch
+    return (torch.ones_like(env["d2"]), env["orig_j"] + env["set_j"],
+            env["d2"] * env["p0_j"], env["p1_i"] * env["p0_j"])
+
+
+def variable_fn(env):
+    import torch
+    return (torch.ones_like(env["d2"]), env["d2"] * env["r_j"])
+
+
+# (callback, n_out, variable): each builds one kernel
+CALLBACKS = ((count_fn, 1, False), (density_fn, 1, False),
+             (density4_fn, 4, False), (small_fn, 4, False),
+             (variable_fn, 2, True))
 
 
 def card_line() -> str:
@@ -84,9 +153,10 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def median_ms(fn, dev, reps: int = REPS) -> float:
-    """Median over ``reps`` runs of ``fn`` after one warm-up run: CUDA
-    events on the card, the host clock on the CPU (a rehearsal only)."""
+def median_ms(fn, dev, reps: int = REPS, per: int = 1) -> float:
+    """Median over ``reps`` of the time of ``per`` back-to-back calls of
+    ``fn`` over ``per``, after one warm-up call: CUDA events on the card,
+    the host clock on the CPU (a rehearsal only)."""
     import torch
     fn()
     times = []
@@ -95,26 +165,33 @@ def median_ms(fn, dev, reps: int = REPS) -> float:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(per):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / per)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(per):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / per)
     return statistics.median(times)
 
 
 def timed_turns(rec: dict, kernel, plain, dev) -> None:
     """Kernel and plain times in turns (plain, kernel, kernel, plain); the
-    lower of each pair goes into ``rec``."""
-    p1, t1, t2, p2 = (median_ms(plain, dev), median_ms(kernel, dev),
-                      median_ms(kernel, dev), median_ms(plain, dev))
+    lower of each pair goes into ``rec``.  The kernel is timed over
+    KERNEL_BATCH back-to-back calls, so its wrapper's host work overlaps
+    the previous launch and the time is the device's."""
+    p1, t1, t2, p2 = (median_ms(plain, dev),
+                      median_ms(kernel, dev, per=KERNEL_BATCH),
+                      median_ms(kernel, dev, per=KERNEL_BATCH),
+                      median_ms(plain, dev))
     rec["ms"] = min(t1, t2)
     rec["plain_ms"] = min(p1, p2)
-    print(f"{rec['name']}: kernel {t1:.4f} / {t2:.4f} ms, plain "
-          f"{p1:.4f} / {p2:.4f} ms (median of {REPS} each)", flush=True)
+    print(f"{rec['name']}: kernel {t1:.4f} / {t2:.4f} ms (median of {REPS} "
+          f"runs of {KERNEL_BATCH} calls), plain {p1:.4f} / {p2:.4f} ms "
+          f"(median of {REPS})", flush=True)
 
 
 def live_slots(desc, tiles_cap):
@@ -192,10 +269,11 @@ def config4_engine(pts_t, radii_t):
     return eng
 
 
-def settled_inputs(eng):
+def settled_inputs(eng, payload=None):
     """The kernels' inputs at a settled engine's caps: one ``run()``
-    settles them, then its prep is rebuilt at those caps.  Returns
-    (carry, ``fastpath.KernelInputs``)."""
+    settles them, then its prep is rebuilt at those caps (``payload``
+    (n, 2) rides the records).  Returns (carry,
+    ``fastpath.KernelInputs``)."""
     from treensearch_tpu_torch.ops import fastpath as fp
     eng.run()
     points, radii = eng._assemble()
@@ -210,7 +288,19 @@ def settled_inputs(eng):
         raise RuntimeError(f"prep overflowed at settled caps {knobs}: "
                            f"{flags}")
     return carry, fp.kernel_inputs(points, eng._search_radius or 0.0, carry,
-                                   cfg, knobs, radii)
+                                   cfg, knobs, radii, payload)
+
+
+def active_inputs(eng, payload=None):
+    """K3's and K4's arguments on a settled engine's structures: the
+    kernel inputs, the allow table and the query tiles (built by K1)."""
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    _, a = settled_inputs(eng, payload)
+    allow = fp.allow_table(eng._make_cfg(1), a.cand_sets, a.desc.device)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap,
+                                 eng.get_total_n_points())
+    return a, allow, q
 
 
 # ------------------------------------------------------- kernel bounds
@@ -219,12 +309,48 @@ def window_tests(a) -> int:
     each live tile's windowed candidates (windows clipped to the
     records)."""
     import torch
-    desc = a.desc[:a.tiles_cap]
-    n_rec = a.recs_t.shape[1]
-    starts = desc[:, :a.n_win]
-    lens = torch.minimum(desc[:, 64:64 + a.n_win], n_rec - starts)
-    ok = (desc[:, 127:128] != 2) & (starts >= 0) & (starts <= n_rec)
-    return 128 * int(torch.where(ok, lens, 0).sum(dtype=torch.int64))
+    from treensearch_tpu_torch.ops.pairs import clipped_windows
+    _, lens = clipped_windows(a.desc, a.recs_t.shape[1], a.n_win,
+                              a.tiles_cap)
+    return 128 * int(lens.sum(dtype=torch.int64))
+
+
+def _bound(rec: dict, ops: int, moved: int) -> dict:
+    """``bound_ms`` and ``bound_by`` of ``ops`` float32 operations and
+    ``moved`` bytes, into ``rec``."""
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    rec.update(ops=ops, bytes=moved, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return rec
+
+
+def k3_bound(a, n_out: int, traced_ops: int, hits: int) -> dict:
+    """K3's bound on these inputs: 9 operations per distance test, and per
+    hit the traced callback's operations and n_out adds; the bytes are the
+    candidate fields it stages (x y z orig set p0 p1) read once, the query
+    tiles (8 fields), the windows' descriptor words and n_out floats per
+    slot written."""
+    slots = 128 * a.tiles_cap
+    tests = window_tests(a)
+    moved = (4 * 7 * a.recs_t.shape[1] + 4 * 8 * slots
+             + 4 * (2 * a.n_win + 1) * a.tiles_cap + 4 * n_out * slots)
+    return _bound({"tests": tests, "hits": hits},
+                  tests * OPS_PER_TEST + hits * (traced_ops + n_out), moved)
+
+
+def k4_bound(a, n_rows: int) -> dict:
+    """K4's bound on these inputs: 9 operations per distance test; the
+    bytes are the candidate fields it stages (x y z orig set) read once,
+    the query fields (x y z orig set), the descriptor words and row bases,
+    the counts and 16 B per candidate row of bits written."""
+    slots = 128 * a.tiles_cap
+    tests = window_tests(a)
+    moved = (4 * 5 * a.recs_t.shape[1] + 4 * 5 * slots
+             + 4 * (2 * a.n_win + 1) * a.tiles_cap + 8 * (a.tiles_cap + 1)
+             + 4 * slots + 16 * n_rows)
+    return _bound({"tests": tests, "rows": n_rows},
+                  tests * (OPS_PER_TEST + int(a.symmetric)), moved)
 
 
 def k1_bound(a) -> tuple:
@@ -248,12 +374,8 @@ def k2_bound(a) -> dict:
              + 4 * (2 * a.n_win + 1) * a.tiles_cap
              + 4 * slots * len(a.k8s) + 4 * slots * sum(a.k8s))
     tests = window_tests(a)
-    ops = tests * (OPS_PER_TEST + int(a.symmetric))
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    return {"tests": tests, "ops": ops, "bytes": moved,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return _bound({"tests": tests},
+                  tests * (OPS_PER_TEST + int(a.symmetric)), moved)
 
 
 # ------------------------------------------------- kernels vs plain
@@ -349,6 +471,99 @@ def check_path_kernel(eng) -> dict:
     return check_pairs(carry, a, a.desc.device, n)
 
 
+def _outputs(outs) -> tuple:
+    return outs if isinstance(outs, tuple) else (outs,)
+
+
+def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
+    """K3 against its plain version on these inputs: the outputs in
+    ``exact`` equal, the others within REDUCE_RTOL of the sum of the
+    terms' magnitudes (the plain version of ``|fn|``).  With ``hits`` (the
+    neighbor pairs of these inputs), its time in turns with the plain
+    version and its bound.  Returns (record, the kernel's sums)."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import reduce as red
+    dev = a.desc.device
+    spec = red.ReduceSpec(fn, n_out, True)
+    args = (a.desc, q, a.recs_t, a.n_win, a.tiles_cap)
+    kw = fp.active_args(a)
+
+    def kernel():
+        return red.pairs_reduce(*args, spec, a.cand_sets, allow, **kw)
+
+    def plain(s=spec):
+        return red.pairs_reduce_plain(*args, s, a.cand_sets, allow, **kw)
+
+    def magnitudes(env):
+        return tuple(torch.as_tensor(o).float().abs()
+                     for o in _outputs(fn(env)))
+
+    k, p = kernel(), plain()
+    scale = plain(red.ReduceSpec(magnitudes, n_out, True))
+    err = (k - p).abs()
+    for j in range(n_out):
+        ok = torch.equal(k[j], p[j]) if j in exact else \
+            bool((err[j] <= REDUCE_RTOL * scale[j]).all())
+        if not ok:
+            raise AssertionError(f"pairs_reduce ({fn.__name__}): output {j} "
+                                 f"differs from plain by up to "
+                                 f"{float(err[j].max())}")
+    rel = float((err / scale.clamp(min=torch.finfo(torch.float32).tiny))
+                .max())
+    rec = {"name": "pairs_reduce", "max_abs_err": float(err.max())}
+    print(f"pairs_reduce ({fn.__name__}, n_out {n_out}): outputs {list(exact)}"
+          f" equal to plain, the others within {REDUCE_RTOL} of the "
+          f"magnitude sums (max abs err {rec['max_abs_err']:.3e}, max err / "
+          f"magnitude sum {rel:.3e})", flush=True)
+    if hits:
+        ops = red.kernel_source(spec, a.variable)[1]
+        rec.update(k3_bound(a, n_out, ops, hits))
+        print(f"pairs_reduce ({fn.__name__}): {rec['tests']} distance tests, "
+              f"{hits} hits x ({ops} traced + {n_out} adds) operations, "
+              f"{rec['bytes']} B; bound {rec['bound_ms']:.4f} ms by "
+              f"{rec['bound_by']}", flush=True)
+        timed_turns(rec, kernel, plain, dev)
+        rec["library_ms"] = None   # no single PyTorch call computes it
+    return rec, k
+
+
+def check_k4(a, allow, q) -> dict:
+    """K4 against its plain version on these inputs: row bases, bits word
+    for word and counts equal; its time in turns with the plain version
+    and its bound."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    args = (a.desc, q, a.recs_t, a.n_win, a.tiles_cap, a.cand_sets, allow)
+    kw = fp.active_args(a)
+
+    def kernel():
+        return pairs.pairs_mask(*args, **kw)
+
+    def plain():
+        return pairs.pairs_mask_plain(*args, **kw)
+
+    (c_k, b_k, base_k), (c_p, b_p, base_p) = kernel(), plain()
+    if not torch.equal(base_k, base_p):
+        raise AssertionError("pairs_mask: row bases differ")
+    words = int((b_k != b_p).sum())
+    err = int((c_k.long() - c_p.long()).abs().max())
+    if words or err:
+        raise AssertionError(f"pairs_mask: {words} bit words differ, counts "
+                             f"by up to {err}")
+    rec = {"name": "pairs_mask", "max_abs_err": err}
+    rec.update(k4_bound(a, b_k.shape[0]))
+    print(f"pairs_mask: bits equal word for word over {b_k.shape[0]} "
+          f"candidate rows ({b_k.numel() * 4} B), counts equal "
+          f"({int(c_k.sum(dtype=torch.int64))} pairs); {rec['tests']} "
+          f"distance tests, bound {rec['bound_ms']:.4f} ms by "
+          f"{rec['bound_by']}", flush=True)
+    timed_turns(rec, kernel, plain, a.desc.device)
+    rec["library_ms"] = None   # no single PyTorch call computes it
+    return rec
+
+
 # ------------------------------------------------------- brute force
 def _d2(q, c):
     d = c[None, :, :] - q[:, None, :]
@@ -421,6 +636,95 @@ def check_small_variable(device) -> None:
           f"pairs {active} match brute force ({total} pairs)", flush=True)
 
 
+def _check_contracts(eng, m, fn, n_out, want, exact, label,
+                     payload=None) -> None:
+    """``eng.run_reduce(fn, n_out, payload)`` against the brute-force sums
+    ``want`` (n_out, n) (the outputs in ``exact`` equal, the others within
+    REDUCE_RTOL), then ``eng.run_mask()`` decoded against the brute-force
+    neighbor matrix ``m``, exactly; on the card K3 and K4 must launch."""
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
+    before = (red.pairs_reduce.launches, pairs.pairs_mask.launches)
+    got = np.concatenate([t.cpu().numpy() for t in
+                          eng.run_reduce(fn, n_out, payload).values()]).T
+    for j in range(n_out):
+        ok = np.array_equal(got[j], want[j]) if j in exact else \
+            np.allclose(got[j], want[j], rtol=REDUCE_RTOL, atol=1e-6)
+        if not ok:
+            raise AssertionError(f"{label}: run_reduce output {j} differs "
+                                 "from brute force")
+    mask, meta = eng.run_mask()
+    counts, (row_ptr, cols) = fp.decode_mask(mask, meta)
+    counts, row_ptr, cols = (t.cpu().numpy() for t in (counts, row_ptr, cols))
+    if not np.array_equal(counts, m.sum(1)):
+        raise AssertionError(f"{label}: run_mask counts differ")
+    for i, row in enumerate(m):
+        if not np.array_equal(cols[row_ptr[i]:row_ptr[i + 1]],
+                              np.nonzero(row)[0]):
+            raise AssertionError(f"{label}: run_mask query {i} differs")
+    if eng.device.type == "cuda" and min(
+            red.pairs_reduce.launches - before[0],
+            pairs.pairs_mask.launches - before[1]) < 1:
+        raise AssertionError(f"{label}: K3 or K4 did not launch")
+    print(f"{label}: run_reduce ({n_out} outputs) and run_mask match brute "
+          f"force ({int(m.sum())} pairs)", flush=True)
+
+
+def check_small_contracts(device) -> None:
+    """Phase 9: three sets under an asymmetric active matrix (set 2
+    searches nothing) with a payload, and one set with per-point radii and
+    symmetric search, through ``run_reduce`` and ``run_mask`` against
+    numpy brute force."""
+    from treensearch_tpu_torch import TreeNSearch
+    rng = np.random.default_rng(5)
+    sets = [rng.uniform(0, 1, (k, 3)).astype(np.float32)
+            for k in N_SMALL_SETS]
+    n0, n1, _ = N_SMALL_SETS
+    pay = [rng.uniform(0.5, 1.5, (n0, 2)).astype(np.float32),
+           rng.uniform(0.5, 1.5, n1).astype(np.float32), None]
+    active = [(0, 0), (0, 2), (1, 0)]
+    r = 0.07
+    eng = TreeNSearch(device=device)
+    for s in sets:
+        eng.add_point_set(s)
+    eng.set_search_radius(r)
+    for i, j in active:
+        eng.set_active_search(i, j, True)
+    pts = np.concatenate(sets)
+    n = pts.shape[0]
+    sid = np.repeat(np.arange(3), N_SMALL_SETS)
+    d2 = _d2(pts, pts)
+    am = np.zeros((3, 3), bool)
+    am[tuple(zip(*active))] = True
+    m = (d2 <= np.float32(r) * np.float32(r)) & am[sid[:, None], sid[None, :]]
+    np.fill_diagonal(m, False)
+    pl = np.zeros((n, 2), np.float32)
+    pl[:n0] = pay[0]
+    pl[n0:n0 + n1, 0] = pay[1]
+    want = np.stack([
+        m.sum(1), np.where(m, np.arange(n)[None, :] + sid[None, :], 0).sum(1),
+        np.where(m, d2 * pl[None, :, 0], 0).sum(1, dtype=np.float64),
+        np.where(m, pl[:, None, 1] * pl[None, :, 0], 0)
+        .sum(1, dtype=np.float64)])
+    _check_contracts(eng, m, small_fn, 4, want, (0, 1),
+                     f"small sets {N_SMALL_SETS}, active {active}", pay)
+
+    pts = rng.uniform(0, 1, (N_SMALL, 3)).astype(np.float32)
+    rad = rng.uniform(0.03, 0.06, N_SMALL).astype(np.float32)
+    eng = TreeNSearch(device=device)
+    eng.add_point_set(pts, rad)
+    eng.set_all_searches(True)
+    eng.set_symmetric_search(True)
+    d2 = _d2(pts, pts)
+    m = (d2 <= (rad * rad)[:, None]) | (d2 <= (rad * rad)[None, :])
+    np.fill_diagonal(m, False)
+    want = np.stack([m.sum(1), np.where(m, d2 * rad[None, :], 0)
+                     .sum(1, dtype=np.float64)])
+    _check_contracts(eng, m, variable_fn, 2, want, (0,),
+                     f"small variable set of {N_SMALL}, symmetric")
+
+
 def check_sample(q_pts: np.ndarray, c_pts: np.ndarray, counts, nbrs,
                  r_query: float, keep, same_set: bool, label: str) -> None:
     """Sampled neighbor sets against cKDTree candidates at r_query (1 +
@@ -460,49 +764,59 @@ def fixed_rule(radius):
 # ------------------------------------------------------------ the paths
 def pairs_kernels():
     from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
     return (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed,
-            pairs.pairs_nbrs_sets, pairs.pairs_nbrs_variable)
+            pairs.pairs_nbrs_sets, pairs.pairs_nbrs_variable,
+            red.pairs_reduce, pairs.pairs_mask)
 
 
-def drive(eng, label: str, path: tuple, jitter_step, card: str) -> dict:
-    """One settling ``run()`` and N_RUNS jittered runs of the user's
-    entry points, with every kernel's count set to 0 just before and read
-    just after; on the card each kernel of ``path`` must launch in every
-    run and no other kernel at all."""
+def drive(eng, label: str, path: tuple, jitter_step, card: str, call=None,
+          pairs_of=None, once: bool = False) -> dict:
+    """One settling call and N_RUNS jittered calls of a user's entry point
+    (``call``, by default ``eng.run``), with every kernel's count set to 0
+    just before and read just after; on the card each kernel of ``path``
+    must launch in every call (exactly once in each jittered call with
+    ``once``) and no other kernel at all.  ``pairs_of(result)`` is a
+    call's pair total (by default from ``run()``'s counts)."""
     import torch
     kernels = pairs_kernels()
     dev = eng.device
     active = [(int(i), int(j)) for i, j in zip(*np.nonzero(eng._active))]
+    call = call or eng.run
 
-    def timed_run():
-        before = [k.launches for k in kernels]
-        sync(dev)
-        t0 = time.perf_counter()
-        eng.run()
-        sync(dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        grew = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
-        if dev.type == "cuda" and min(grew[k.__name__] for k in path) < 1:
-            raise AssertionError(f"{label}: a kernel did not launch in "
-                                 f"run(): {grew}")
-        return ms
-
-    def total_pairs():
+    def total_pairs(_):
         return sum(int(eng.get_counts(i, j).sum(dtype=np.int64))
                    for i, j in active)
 
+    pairs_of = pairs_of or total_pairs
+
+    def timed_run(jittered: bool):
+        before = [k.launches for k in kernels]
+        sync(dev)
+        t0 = time.perf_counter()
+        out = call()
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        grew = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+        on_path = [grew[k.__name__] for k in path]
+        if dev.type == "cuda" and (min(on_path) < 1 or (
+                once and jittered and max(on_path) != 1)):
+            raise AssertionError(f"{label}: a kernel did not launch (once) "
+                                 f"in the call: {grew}")
+        return ms, pairs_of(out)
+
     for k in kernels:
         k.launches = 0
-    settle_ms = timed_run()
-    pairs0 = total_pairs()
+    settle_ms, pairs0 = timed_run(False)
     gen = torch.Generator(device=dev).manual_seed(3)
     times, pair_counts = [], []
     for _ in range(N_RUNS):
         jitter_step(lambda shape: ((torch.rand(shape, generator=gen,
                                                device=dev) * 2 - 1)
                                    * JITTER).to(torch.float32))
-        times.append(timed_run())
-        pair_counts.append(total_pairs())
+        ms, n_pairs = timed_run(True)
+        times.append(ms)
+        pair_counts.append(n_pairs)
     launches = {k.__name__: k.launches for k in kernels}
     if dev.type == "cuda" and any(
             n for k, n in launches.items()
@@ -514,10 +828,10 @@ def drive(eng, label: str, path: tuple, jitter_step, card: str) -> dict:
     print(f"{label}: settling run {settle_ms:.1f} ms, {pairs0} pairs; "
           f"caps: nbr {eng._nbr_cap} {eng._nbr_caps} tiles {eng._tiles_cap} "
           f"dense {eng._dense_cap}; launches {launches}", flush=True)
-    print(f"{label} run() ms: {' '.join(f'{t:.3f}' for t in times)}",
+    print(f"{label} ms per call: {' '.join(f'{t:.3f}' for t in times)}",
           flush=True)
     print(f"{label}: {eng.get_total_n_points()} points, median {ms:.3f} "
-          f"ms/run, {pairs_n / (ms / 1e3):.4g} pairs/s ({card})", flush=True)
+          f"ms/call, {pairs_n / (ms / 1e3):.4g} pairs/s ({card})", flush=True)
     return {"launches": launches, "ms": ms, "pairs0": pairs0}
 
 
@@ -599,6 +913,152 @@ def run_config4(pts_t, radii_t, card: str) -> tuple:
     return rec, out
 
 
+def density_f64(pts, mass, counts, nbrs):
+    """rho_i = sum over ``run()``'s neighbor rows of m_j (h^2 - d^2)^3:
+    each term formed in float32 as the kernel forms it, summed in
+    float64."""
+    import torch
+    n, k8 = nbrs.shape
+    out = torch.empty(n, dtype=torch.float64, device=pts.device)
+    lane = torch.arange(k8, device=pts.device)
+    step = 1 << 17
+    for r0 in range(0, n, step):
+        valid = lane[None, :] < counts[r0:r0 + step, None]
+        j = torch.where(valid, nbrs[r0:r0 + step], 0).long()
+        d = pts[j] - pts[r0:r0 + step, None, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        w = H2 - d2
+        term = mass[j] * (w * w * w)
+        out[r0:r0 + step] = torch.where(valid, term.double(), 0.0).sum(dim=1)
+    return out
+
+
+def _jitter_one_set(eng, pts_t):
+    state = {"pts": pts_t}
+
+    def jitter(noise):
+        state["pts"] = state["pts"] + noise(tuple(state["pts"].shape))
+        eng.resize_point_set(0, state["pts"])
+
+    return jitter
+
+
+def run_reduce_path(pts_t, mass_t, card: str) -> tuple:
+    """Phase 7: K3 against its plain version, the density against a
+    float64 sum over ``run()``'s lists and the count leg against
+    ``run()``'s counts, then the n_out = 1 and 4 paths."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
+    n = pts_t.shape[0]
+    payload = torch.stack([mass_t, torch.zeros_like(mass_t)], dim=1)
+    eng = make_engine(pts_t, RADIUS)
+    a, allow, q = active_inputs(eng, payload)
+    _, ones = check_k3(a, allow, q, count_fn, 1, exact=(0,))
+    hits = int(ones.sum(dtype=torch.float64))
+    rec, _ = check_k3(a, allow, q, density_fn, 1, hits=hits)
+    check_k3(a, allow, q, density4_fn, 4, hits=hits)
+    del a, allow, q, ones
+
+    rho = eng.run_reduce(density_fn, 1, payload=[mass_t])[0][:, 0]
+    count = eng.run_reduce(count_fn)[0][:, 0]
+    eng.run()
+    counts, nbrs = eng.get_neighbors(0, 0)
+    total = int(counts.sum(dtype=torch.int64))
+    if not torch.equal(count, counts.float()):
+        raise AssertionError("run_reduce counts differ from run()'s")
+    ref = density_f64(pts_t, mass_t, counts, nbrs)
+    rel = (rho.double() - ref).abs() / ref.abs().clamp(min=1e-300)
+    if not torch.allclose(rho.double(), ref, rtol=DENSITY_RTOL, atol=1e-18):
+        raise AssertionError(f"run_reduce density: worst relative error "
+                             f"{float(rel.max())} against the float64 sum")
+    print(f"run_reduce: count leg equal to run()'s counts ({total} pairs); "
+          f"density of all {n} points within {DENSITY_RTOL} of a float64 sum"
+          f" over run()'s rows (worst relative error {float(rel.max()):.3e},"
+          f" mean density {float(ref.mean()):.6e})", flush=True)
+    del counts, nbrs, ref, rel
+
+    path = (pairs.expand_query_tiles, red.pairs_reduce)
+    out1 = drive(eng, "run_reduce n_out=1 (density)", path,
+                 _jitter_one_set(eng, pts_t), card,
+                 call=lambda: eng.run_reduce(density_fn, 1,
+                                             payload=[mass_t]),
+                 pairs_of=lambda _: total, once=True)
+    out4 = drive(eng, "run_reduce n_out=4 (density4_fn)", path,
+                 _jitter_one_set(eng, pts_t), card,
+                 call=lambda: eng.run_reduce(density4_fn, 4,
+                                             payload=[mass_t]),
+                 pairs_of=lambda _: total, once=True)
+    return rec, out1, out4
+
+
+def run_mask_path(pts_t, card: str) -> tuple:
+    """Phase 8: K4 against its plain version, the mask's counts and
+    decoded sets against ``run()``'s for every query, then the path."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    n = pts_t.shape[0]
+    eng = make_engine(pts_t, RADIUS)
+    rec = check_k4(*active_inputs(eng))
+
+    mask, meta = eng.run_mask()
+    eng.run()
+    counts, nbrs = eng.get_neighbors(0, 0)
+    if not torch.equal(mask["counts"]["s0"], counts):
+        raise AssertionError("run_mask counts differ from run()'s")
+    dec_counts, (_, cols) = fp.decode_mask(mask, meta)
+    valid = torch.arange(nbrs.shape[1], device=nbrs.device)[None, :] \
+        < counts[:, None]
+    rows = torch.sort(torch.where(valid, nbrs, torch.iinfo(torch.int32).max),
+                      dim=1).values
+    if not (torch.equal(dec_counts, counts.long())
+            and torch.equal(cols, rows[valid].long())):
+        raise AssertionError("decode_mask differs from run()'s rows")
+    total = cols.numel()
+    print(f"run_mask: counts of all {n} queries equal to run()'s; "
+          f"decode_mask of every tile equal to run()'s rows as sets "
+          f"({total} pairs, {meta['layout']} layout, "
+          f"{mask['bits'].shape[0]} rows)", flush=True)
+    if n == N and total != TPU_PAIRS_SEED0:
+        raise AssertionError(f"run_mask: {total} pairs, not "
+                             f"{TPU_PAIRS_SEED0}")
+    del mask, counts, nbrs, dec_counts, cols, valid, rows
+
+    out = drive(eng, "run_mask", (pairs.expand_query_tiles,
+                                  pairs.pairs_mask),
+                _jitter_one_set(eng, pts_t), card, call=eng.run_mask,
+                pairs_of=lambda res: int(res[0]["counts_flat"]
+                                         .sum(dtype=torch.int64)),
+                once=True)
+    return rec, out
+
+
+def build_all() -> None:
+    """Phase 2: ``csrc/pairs.cu`` and K3 for each of CALLBACKS, one nvcc
+    each, all started together."""
+    from functools import partial
+
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
+    jobs = [("pairs.cu", pairs.load_library)] + [
+        (f"reduce.cu + {fn.__name__}",
+         partial(red.reduce_library, red.ReduceSpec(fn, n_out), variable))
+        for fn, n_out, variable in CALLBACKS]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = [(name, ex.submit(job)) for name, job in jobs]
+        libs = [(name, f.result()) for name, f in futures]
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(libs)} "
+          f"libraries", flush=True)
+    print("nvcc: " + " ".join(libs[0][1].command), flush=True)
+    for name, lib in libs:
+        print(f"  {name}: {lib.seconds:.2f} s nvcc -> "
+              f"{os.path.relpath(lib.path, HERE)}", flush=True)
+        print(lib.log.strip(), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -606,22 +1066,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
 
     card = card_line()                                      # phase 1
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
-
-    t0 = time.perf_counter()                                # phase 2
-    lib = pairs.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s ({lib.seconds:.2f} s "
-          f"nvcc) from {os.path.relpath(pairs.SOURCE, HERE)} -> "
-          f"{os.path.relpath(lib.path, HERE)}", flush=True)
-    print("nvcc: " + " ".join(lib.command), flush=True)
-    print(lib.log.strip(), flush=True)
+    build_all()                                             # phase 2
 
     dev = torch.device("cuda", 0)
-    pts = np.random.default_rng(0).uniform(0, 1, (N, 3)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, 1, (N, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, N).astype(np.float32)
     pts_t = torch.from_numpy(pts).to(dev)
     kernels = check_kernels(pts_t, RADIUS)                  # phase 3
     check_small(dev)
@@ -629,15 +1085,23 @@ def main() -> int:
     k2b, main3 = run_config3(*config3_data(dev), card)      # phase 4
     k2c, main4 = run_config4(*config4_data(dev), card)      # phase 5
     check_small_variable(dev)                               # phase 6
-    kernels += [k2b, k2c]
+    k3, main7, main7b = run_reduce_path(                    # phase 7
+        pts_t, torch.from_numpy(mass).to(dev), card)
+    k4, main8 = run_mask_path(pts_t, card)                  # phase 8
+    check_small_contracts(dev)                              # phase 9
+    kernels += [k2b, k2c, k3, k4]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
-                "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4}
-    src = os.path.relpath(pairs.SOURCE, HERE)
+                "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,
+                "pairs_reduce": main7, "pairs_mask": main8}
+    print(f"launches on the reduce paths: n_out=1 {main7['launches']}, "
+          f"n_out=4 {main7b['launches']}", flush=True)
+    sources = {"pairs_reduce": red.TEMPLATE}
     out = []
     for rec in kernels:
         name = rec["name"]
         out.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(sources.get(name, pairs.SOURCE), HERE),
             "replaces": "treensearch_tpu/ops/pallas_pairs.py:"
                         f"{SOURCE_LINES[name]}",
             "launches": launches[name]["launches"][name],

@@ -9,7 +9,9 @@ the repository's conftest:
 Tolerance: query tiles bit-equal; counts equal; rows equal slot for slot
 (both versions keep the first k8 survivors in window order, so rows agree
 exactly, truncated ones included), per candidate-set block for K2b and
-K2c; dead tiles count 0.
+K2c; dead tiles count 0.  K4: bits equal word for word.  K3: integer-valued
+legs equal, the others within 3e-5 of the sum of the terms' magnitudes
+(only the order of the float32 sum differs).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from treensearch_tpu_torch import TreeNSearch
 from treensearch_tpu_torch.config import SearchConfig, round_up
 from treensearch_tpu_torch.ops import fastpath as fp
 from treensearch_tpu_torch.ops import pairs
+from treensearch_tpu_torch.ops import reduce as red
 from treensearch_tpu_torch.ops.grid import fresh_state, update_grid
 
 pytestmark = pytest.mark.cuda
@@ -258,3 +261,175 @@ def test_k2c_one_set_truncated_rows(dev):
     _, a = _settled(eng, caps=(8,))
     c = _kernel_vs_plain(a, 3000, pairs.pairs_nbrs_variable)
     assert int(c.max()) > 8
+
+
+# ------------------------------------------------------------ K3 / K4
+def fn8(e):
+    """Eight outputs over every env field kind (n_out = 8)."""
+    return (torch.ones_like(e["d2"]), e["d2"], e["dx"] * e["p0_j"],
+            e["orig_j"].float(), e["set_j"] * e["p1_i"] + e["set_i"],
+            torch.exp(-e["d2"] * 50.0), e["r2_i"],
+            torch.where(e["dz"] > 0, e["p1_j"], 0.0))
+
+
+def fn_var(e):
+    return (torch.ones_like(e["d2"]), e["d2"] * e["r_j"], e["r2_i"])
+
+
+def fn_density(e):
+    w = np.float32(0.02 * 0.02) - e["d2"]
+    return e["p0_j"] * (w * w * w)
+
+
+def _active_inputs(eng, payload=None):
+    """A settled engine's K3/K4 inputs: kernel inputs with the payload,
+    the allow table and the query tiles (and the prep's ``qpos``)."""
+    eng.run()
+    points, radii = eng._assemble()
+    bounds = eng._radius_bounds(radii)
+    cfg = eng._make_cfg(eng._stencil_w(eng._effective_cell_size(bounds),
+                                       bounds))
+    knobs = eng._knobs()
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii)
+    assert int(carry.tile_overflow) == 0 and int(carry.dense_overflow) == 0
+    a = fp.kernel_inputs(points, eng._search_radius or 0.0, carry, cfg,
+                         knobs, radii, payload)
+    allow = fp.allow_table(cfg, a.cand_sets, points.device)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap,
+                                 cfg.n_points)
+    return a, allow, q, carry.qpos.long()
+
+
+def _k3_vs_plain(a, allow, q, fn, n_out, exact):
+    spec = red.ReduceSpec(fn, n_out, True)
+    args = (a.desc, q, a.recs_t, a.n_win, a.tiles_cap)
+    kw = fp.active_args(a)
+    before = red.pairs_reduce.launches
+    k = red.pairs_reduce(*args, spec, a.cand_sets, allow, **kw)
+    p = red.pairs_reduce_plain(*args, spec, a.cand_sets, allow, **kw)
+
+    def magnitudes(e):
+        outs = fn(e)
+        return tuple(torch.as_tensor(o).float().abs()
+                     for o in (outs if isinstance(outs, tuple) else (outs,)))
+
+    scale = red.pairs_reduce_plain(*args, red.ReduceSpec(magnitudes, n_out),
+                                   a.cand_sets, allow, **kw)
+    torch.cuda.synchronize()
+    assert red.pairs_reduce.launches == before + 1
+    live = (a.desc[:a.tiles_cap, pairs.FAT_COL] != 2).repeat_interleave(128)
+    assert not k[:, ~live].any()
+    for j in range(n_out):
+        if j in exact:
+            assert torch.equal(k[j], p[j]), j
+        else:
+            assert ((k[j] - p[j]).abs() <= 3e-5 * scale[j] + 1e-30).all(), j
+    return k
+
+
+def _k4_vs_plain(a, allow, q):
+    args = (a.desc, q, a.recs_t, a.n_win, a.tiles_cap, a.cand_sets, allow)
+    kw = fp.active_args(a)
+    before = pairs.pairs_mask.launches
+    c_k, b_k, base_k = pairs.pairs_mask(*args, **kw)
+    c_p, b_p, base_p = pairs.pairs_mask_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert pairs.pairs_mask.launches == before + 1
+    assert torch.equal(base_k, base_p)
+    assert torch.equal(c_k, c_p) and torch.equal(b_k, b_p)
+    return c_k
+
+
+def test_k3_k4_eight_candidate_sets_and_a_set_that_searches_nothing(dev):
+    rng = np.random.default_rng(9)
+    sizes = [300 + 40 * k for k in range(9)]
+    eng = _sets_engine(
+        dev, [(rng.uniform(0, 1, (m, 3)).astype(np.float32), None)
+              for m in sizes], r=0.12,
+        active=[(i, (3 * i + 1) % 8) for i in range(8)]
+        + [(i, i) for i in range(0, 8, 2)])   # set 8 searches nothing
+    n = sum(sizes)
+    payload = torch.from_numpy(rng.uniform(0.5, 1.5, (n, 2))
+                               .astype(np.float32)).to(dev)
+    a, allow, q, qpos = _active_inputs(eng, payload)
+    assert a.cand_sets == tuple(range(8))
+    k = _k3_vs_plain(a, allow, q, fn8, 8, exact=(0, 3, 6))
+    c = _k4_vs_plain(a, allow, q)
+    assert torch.equal(k[0], c.float())
+    set8 = sum(sizes[:8])
+    assert not c[qpos[set8:]].any()     # set 8 searches nothing
+    assert c[qpos[:set8]].sum() > 0 and not k[6].any()   # r2_i = 0
+
+
+def test_k3_k4_windows_wider_than_a_chunk_and_partial_tiles(dev):
+    rng = np.random.default_rng(10)
+    pts = _column(3000, rng).astype(np.float32)
+    eng = _sets_engine(dev, [(pts, None)], r=0.02)
+    eng.set_cell_size(0.023)
+    payload = torch.from_numpy(rng.uniform(0.5, 1.5, (3000, 2))
+                               .astype(np.float32)).to(dev)
+    a, allow, q, _ = _active_inputs(eng, payload)
+    assert int((a.desc[:a.tiles_cap, pairs.LENS_OFF:pairs.LENS_OFF + 9])
+               .max()) > 256
+    cnt = a.desc[:a.tiles_cap, pairs.CNT_COL]
+    live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+    assert ((cnt < 128) & live).any() and (~live).any()
+    _k3_vs_plain(a, allow, q, fn_density, 1, exact=())
+    _k4_vs_plain(a, allow, q)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_k3_k4_variable_multi_set(dev, symmetric):
+    rng = np.random.default_rng(11)
+    sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+             rng.uniform(0.03, 0.07, m).astype(np.float32))
+            for m in (2500, 1500)]
+    eng = _sets_engine(dev, sets, symmetric=symmetric,
+                       active=[(0, 0), (0, 1), (1, 0)])
+    a, allow, q, _ = _active_inputs(eng)
+    assert a.variable and a.n_win == 25
+    k = _k3_vs_plain(a, allow, q, fn_var, 3, exact=(0,))
+    c = _k4_vs_plain(a, allow, q)
+    assert torch.equal(k[0], c.float())
+
+
+def test_engine_contracts_on_card_match_brute_force(dev):
+    rng = np.random.default_rng(12)
+    sets = [rng.uniform(0, 1, (m, 3)).astype(np.float32)
+            for m in (1200, 800, 600)]
+    active = [(0, 0), (0, 2), (1, 0)]
+    eng = _sets_engine(dev, [(s, None) for s in sets], r=0.08,
+                       active=active)
+    allp = np.concatenate(sets)
+    sid = np.repeat(np.arange(3), [len(s) for s in sets])
+    d = allp[None, :, :] - allp[:, None, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    m = d2 <= np.float32(0.08) * np.float32(0.08)
+    am = np.zeros((3, 3), bool)
+    for i, j in active:
+        am[i, j] = True
+    m &= am[sid[:, None], sid[None, :]]
+    np.fill_diagonal(m, False)
+    got = torch.cat([eng.run_reduce(
+        lambda e: (torch.ones_like(e["d2"]), e["orig_j"].float()), 2)[i]
+        for i in range(3)]).cpu().numpy()
+    assert np.array_equal(got[:, 0], m.sum(1))
+    assert np.array_equal(got[:, 1], np.where(m, np.arange(2600), 0).sum(1))
+    mask, meta = eng.run_mask()
+    counts, (row_ptr, cols) = fp.decode_mask(mask, meta)
+    assert np.array_equal(counts.cpu().numpy(), m.sum(1))
+    row_ptr, cols = row_ptr.cpu().numpy(), cols.cpu().numpy()
+    for i in range(0, 2600, 7):
+        assert np.array_equal(cols[row_ptr[i]:row_ptr[i + 1]],
+                              np.nonzero(m[i])[0])
+
+
+def test_unsupported_callback_raises_on_card(dev):
+    eng = _sets_engine(dev, [(np.random.default_rng(13).uniform(
+        0, 1, (500, 3)).astype(np.float32), None)], r=0.1)
+    before = red.pairs_reduce.launches
+    with pytest.raises(TypeError, match="sin"):
+        eng.run_reduce(lambda e: torch.sin(e["d2"]))
+    with pytest.raises(TypeError, match="outputs"):
+        eng.run_reduce(lambda e: (e["d2"], e["d2"]), 1)
+    assert red.pairs_reduce.launches == before

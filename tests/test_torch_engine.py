@@ -278,8 +278,10 @@ NOT_PORTED = {
     "run_scalar": lambda e: e.run_scalar(),
     "zsort": lambda e: e.prepare_zsort(),
     "apply_zsort": lambda e: e.apply_zsort(0, np.zeros((5, 3))),
-    "run_reduce": lambda e: e.run_reduce(lambda env: env["d2"]),
-    "run_mask": lambda e: e.run_mask(),
+    # the device contracts share run()'s gates (here a 9-cell stencil)
+    "run_reduce": lambda e: (e.set_cell_size(0.05),
+                             e.run_reduce(lambda env: env["d2"])),
+    "run_mask": lambda e: (e.set_cell_size(0.05), e.run_mask()),
     "make_step_fn": lambda e: e.make_step_fn(),
     "distribute": lambda e: e.distribute(object()),
     "mesh": lambda e: TreeNSearch(device="cpu", mesh=object()),

@@ -1,11 +1,13 @@
 """treensearch_tpu_torch: the neighborhood-search engine in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
-The port of ``treensearch_tpu`` (which stays the JAX reference).  This
-slice covers ``TreeNSearch.run()`` on one point set at a fixed radius:
-grid update, sort and row-aligned tile layout in PyTorch, and the
-query-tile and pairs kernels in ``csrc/pairs.cu``.  The package imports
-torch and numpy, never jax.
+The port of ``treensearch_tpu`` (which stays the JAX reference).  It
+covers ``TreeNSearch.run()`` on several point sets at a fixed radius or
+with per-point radii, and the device contracts ``run_reduce`` and
+``run_mask``: grid update, sort and row-aligned tile layout in PyTorch,
+the query-tile, pairs and mask kernels in ``csrc/pairs.cu`` and the fused
+reduce in ``csrc/reduce.cu``.  The package imports torch and numpy, never
+jax.
 """
 
 from .api import TreeNSearch

@@ -3,7 +3,9 @@
 PyTorch counterpart of ``treensearch_tpu/api.py``: any number of point
 sets under a directed active-search matrix, at one fixed search radius or
 with per-point radii (symmetric search optional), ``run()`` and the
-neighbor-list queries.  The surface mirrors the reference
+neighbor-list queries, and the device contracts ``run_reduce`` (the fused
+neighbor-reduce) and ``run_mask`` (the bitmask).  The surface mirrors the
+reference
 (``TreeNSearch/source/TreeNSearch.h:28-427``); float64 input is cast to
 float32 at ingest like the reference's cast-copy
 (``TreeNSearch.cpp:270-297``).
@@ -29,6 +31,7 @@ from .neighborlist import NeighborList, NeighborSolution
 from .ops.fastpath import FastKnobs, build_and_search_fast, default_tiles_cap
 from .ops.grid import fresh_state
 from .ops.pairs import MAX_BLOCKS
+from .ops.reduce import ReduceSpec
 from .utils.keys import MAX_CELLS_PER_DIM
 
 _DEFAULT_NBR_CAP = 80
@@ -221,6 +224,89 @@ class TreeNSearch:
     def run(self) -> None:
         """Search and build all active neighbor lists (reference
         ``run()``, ``TreeNSearch.cpp:138-149``)."""
+        sol = self._execute(*self._setup())
+        self._solution = NeighborSolution(sol["pairs"])
+        self._last_stats["path"] = "fast"
+
+    def run_reduce(self, fn: Callable, n_out: int = 1,
+                   payload=None) -> dict:
+        """The fused neighbor-reduce, the device-side visitor
+        (``treensearch_tpu/api.py:436-488``): ``fn`` is evaluated on every
+        neighbor pair that the active searches would emit (self excluded,
+        as in ``run()``) and its outputs are summed in float32 per query
+        point inside the pairs kernel (K3); no neighbor list exists.
+
+        ``fn(env)`` returns one value or a tuple of ``n_out`` (1 to 8)
+        values per pair.  ``env`` holds ``dx, dy, dz`` (candidate minus
+        query), ``d2``, ``r2_i`` (the query's radius squared in variable
+        mode, 0 at a fixed radius, as in the JAX package), ``orig_i``,
+        ``orig_j``, ``set_i``, ``set_j`` (int32; orig is the index into
+        the concatenated sets), the payload ``p0_i, p1_i, p0_j, p1_j``, and
+        ``r_j`` in variable mode.  Write ``fn`` with PyTorch operations:
+        on the CPU it runs eagerly on tensors; for the card it is traced
+        once per call into CUDA, and the first call with a new expression
+        builds a kernel (``ops/reduce.py`` lists the operations it takes;
+        any other raises ``TypeError``).
+
+        ``payload``: per set, None or a (n_i,) or (n_i, <= 2) float array
+        (numpy or torch), zero-padded, visible as ``p0``/``p1``.
+
+        Returns ``{set_index: (n_i, n_out) float32 tensor}`` on the
+        engine's device.  Caps regrow as in ``run()``; there are no
+        neighbor caps, and ``run()``'s result stays as it was.
+        """
+        spec = ReduceSpec(fn, int(n_out), payload is not None)
+        setup = self._setup()
+        points = setup[0]
+        if points.shape[0] == 0:
+            return {si: torch.zeros((s.n, spec.n_out), dtype=torch.float32,
+                                    device=self.device)
+                    for si, s in enumerate(self._sets)}
+        sol = self._execute(*setup, reduce=spec,
+                            payload=self._assemble_payload(payload))
+        self._last_stats["path"] = "reduce"
+        return {si: sol["reduce"][f"s{si}"].t()
+                for si in range(len(self._sets))}
+
+    def run_mask(self) -> tuple:
+        """The bitmask contract (``treensearch_tpu/api.py:490-553``): the
+        search's hit bits, with no compaction and no caps, so nothing can
+        truncate.  Returns ``(mask, meta)``.
+
+        ``mask`` (tensors on the engine's device):
+
+        - ``bits`` (rows, 4) int32 and ``cand_base`` (tiles + 1,) int64:
+          candidate k of live tile t, in window order, owns row
+          ``cand_base[t] + k``; bit ``l % 32`` of word ``l // 32`` says
+          that it neighbors query lane l of tile t (self excluded, the
+          active matrix applied: exactly the pairs ``run()`` emits);
+        - ``desc`` (the window descriptors), ``qpos`` (point -> query
+          slot), ``q_orig``/``q_set`` (per query slot), ``cand_orig``
+          (sorted record -> concatenated original index);
+        - ``counts`` {"s<i>": (n_i,) int32} exact per-query totals, and
+          ``counts_flat`` the same per query slot.
+
+        ``meta``: ``n_win``, ``n_total``, ``set_offsets``, ``set_sizes``
+        and ``layout``.  The JAX package's ``pack``, ``wcap`` and
+        ``fat_wcap`` are gone: this layout has no record packing and no
+        fixed window buffer (windows stream through the kernel).
+        ``ops.fastpath.decode_mask(mask, meta)`` decodes it.
+        """
+        setup = self._setup()
+        if setup[0].shape[0] == 0:
+            raise ValueError("run_mask needs at least one point")
+        sol = self._execute(*setup, mask=True)
+        w = setup[4]
+        cfg = self._make_cfg(w)
+        meta = {"n_win": (2 * w + 1) ** 2, "n_total": cfg.n_points,
+                "set_offsets": cfg.set_offsets, "set_sizes": cfg.set_sizes,
+                "layout": "candidate-rows"}
+        self._last_stats["path"] = "mask"
+        return sol["mask"], meta
+
+    def _setup(self) -> tuple:
+        """The points, radii, search radius, cell size and stencil of a
+        search, with the gates every search shares."""
         points, radii = self._assemble()
         bounds = self._radius_bounds(radii)
         self._check(bounds)
@@ -236,16 +322,16 @@ class TreeNSearch:
                 f"{n_cand} distinct candidate sets (more than {MAX_BLOCKS}, "
                 "served by the search-based pipeline)", 9)
         sr = 0.0 if self._variable else self._search_radius
-        sol = self._execute(points, radii, sr, cell, w)
-        self._solution = NeighborSolution(sol["pairs"])
-        self._last_stats.update(cell_size=cell, stencil_w=w)
+        return points, radii, sr, cell, w
 
-    def _execute(self, points, radii, sr, cell, w) -> dict:
+    def _execute(self, points, radii, sr, cell, w, **mode) -> dict:
         """One search with overflow-regrow; returns the settled solution
         (``api._execute``, ``treensearch_tpu/api.py:632-869``, for the
-        dense, rows, tile and neighbor caps).  All flags come to the host
-        in one read per attempt; ``_last_stats`` keeps the settled run's
-        occupied cells and largest count."""
+        dense, rows, tile and neighbor caps).  ``mode`` selects the fused
+        reduce or the mask (``build_and_search_fast``'s keywords).  All
+        flags come to the host in one read per attempt; ``_last_stats``
+        keeps the settled run's occupied cells, largest count (0 without
+        neighbor lists), cell size and stencil."""
         n = self.get_total_n_points()
         if self._dense_cap is None:
             self._dense_cap = self._default_dense_cap()
@@ -256,7 +342,7 @@ class TreeNSearch:
             cfg = self._make_cfg(w)
             sol, state = build_and_search_fast(
                 points, sr, cell, self._grid_state, cfg, self._knobs(),
-                radii=radii)
+                radii=radii, **mode)
             flags = torch.stack(
                 [sol[k] for k in ("error", "dense_overflow", "rows_overflow",
                                   "tile_overflow", "n_cells")]
@@ -286,10 +372,11 @@ class TreeNSearch:
                 self._tiles_cap = int(self._tiles_cap * 1.5) + 64
                 continue
             # per candidate set: a pair's lists live in the block of its
-            # set_j (api.py:848-858 of the JAX package)
+            # set_j (api.py:848-858 of the JAX package); the reduce and
+            # the mask have no lists and no neighbor caps
             grew = False
             for (si, sj) in cfg.active_pairs:
-                mc = max_counts[f"{si}-{sj}"]
+                mc = max_counts.get(f"{si}-{sj}", 0)
                 if mc > self._cap_of(sj):
                     new_cap = round_up(int(mc * 1.25) + 1, 16)
                     if self._nbr_caps:
@@ -302,7 +389,8 @@ class TreeNSearch:
             self._post_run_tune(sol, state, w)
             self._grid_state = state
             self._last_stats = {"n_cells": n_cells,
-                                "max_count": max(flags[5:], default=0)}
+                                "max_count": max(flags[5:], default=0),
+                                "cell_size": cell, "stencil_w": w}
             return sol
         raise RuntimeError(
             "padding caps failed to converge "
@@ -381,12 +469,6 @@ class TreeNSearch:
     def run_scalar(self) -> None:
         raise _not_ported("run_scalar (the search-based pipeline)", 9)
 
-    def run_reduce(self, fn, n_out: int = 1, payload=None) -> dict:
-        raise _not_ported("run_reduce (the fused neighbor-reduce)", 11)
-
-    def run_mask(self):
-        raise _not_ported("run_mask (the bitmask contract)", 12)
-
     def make_step_fn(self, *args, **kwargs):
         raise _not_ported("make_step_fn (the temporal-coherence step)", 6)
 
@@ -436,6 +518,30 @@ class TreeNSearch:
             return points, None
         rad = [_as_tensor(s.radii, dev, (-1,)) for s in self._sets]
         return points, rad[0] if len(rad) == 1 else torch.cat(rad)
+
+    def _assemble_payload(self, payload) -> Optional[torch.Tensor]:
+        """Per-set payload columns as one (n_total, 2) float32 tensor on
+        the engine's device, zero-padded, aligned with ``_assemble``'s
+        concatenation (``treensearch_tpu/api.py:555-575``)."""
+        if payload is None:
+            return None
+        if len(payload) != len(self._sets):
+            raise ValueError("payload must have one entry per point set")
+        out = torch.zeros((self.get_total_n_points(), 2), dtype=torch.float32,
+                          device=self.device)
+        off = 0
+        for s, p in zip(self._sets, payload):
+            if p is not None:
+                shape = tuple(np.shape(p))
+                cols = shape[1] if len(shape) == 2 else 1
+                if len(shape) not in (1, 2) or shape[0] != s.n \
+                        or not 1 <= cols <= 2:
+                    raise ValueError(f"payload shape {shape} does not match "
+                                     f"set size {s.n} (at most 2 columns)")
+                out[off:off + s.n, :cols] = _as_tensor(p, self.device,
+                                                       (s.n, cols))
+            off += s.n
+        return out
 
     def _radius_bounds(self, radii=None):
         """(r_min, r_max) over all points: the search radius twice in

@@ -14,8 +14,8 @@
 //   recs_t (8, n_rec): sorted records, field-major: x, y, z, r, orig, set,
 //          p0, p1.
 //   q_t    (8, tiles_cap * 128): query tiles, field-major.
-// Both kernels clip every record range to [0, n_rec), so no descriptor can
-// make them read outside recs_t; the plain versions clip the same way.
+// Every kernel clips every record range to [0, n_rec), so no descriptor
+// can make it read outside recs_t; the plain versions clip the same way.
 
 #include <cuda_runtime.h>
 
@@ -279,6 +279,125 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
   }
 }
 
+// The candidate sets of K4 (and K3, csrc/reduce.cu), passed by value: a
+// candidate whose set is set_of[b] carries bit b, and a query of set s
+// takes it when bit b of allow[s] is set (the active matrix).
+struct CandSets {
+  int n_blocks;
+  int set_of[MAX_BLOCKS];
+};
+
+__device__ __forceinline__ int cand_bit(const CandSets& cs, int set) {
+  int bit = 0;
+#pragma unroll
+  for (int b = 0; b < MAX_BLOCKS; ++b)
+    if (b < cs.n_blocks && set == cs.set_of[b]) bit = 1 << b;
+  return bit;
+}
+
+// K4 -- replaces make_pairs_call(mask_mode=True)
+// (treensearch_tpu/ops/pallas_pairs.py:779-859).  K2's schedule and
+// criteria (one block of 128 threads per tile, windows streamed through
+// shared memory in CHUNK-candidate passes), plus the active matrix: the
+// query's allow word is read once, each staged candidate carries its
+// candidate-set bit.  Instead of compacting hits, every warp takes
+// __ballot_sync of its 32 lanes' hits on each staged candidate, so the
+// tile's 4 warps give one row of 4 words per candidate; a chunk's rows
+// gather in shared memory and are stored coalesced after it, at row
+// cand_base[t] + (the candidate's index in the tile's window order).
+// Counts are K2's.  Every lane of a live tile walks the same chunk loop
+// (its bounds come from the tile's descriptor), so each ballot sees all
+// 32 lanes; the sentinel lanes of a partial tile vote 0.  Dead tiles
+// return as a whole block and own no rows.
+// Bound: the distance tests, as K2; the bits are 16 B per candidate row
+// (about 175 MB at 1M points), under a tenth of the tests' time at HBM
+// rate.
+template <bool VARIABLE, bool SYMMETRIC>
+__global__ void __launch_bounds__(TILE)
+pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
+                  const int* __restrict__ recs_t, int n_rec, int tiles_cap,
+                  int n_win, float r2, CandSets cs,
+                  const int* __restrict__ allow, int n_allow,
+                  const long long* __restrict__ cand_base,
+                  int* __restrict__ counts, int* __restrict__ bits) {
+  __shared__ float sx[CHUNK];
+  __shared__ float sy[CHUNK];
+  __shared__ float sz[CHUNK];
+  __shared__ float sr2[SYMMETRIC ? CHUNK : 1];
+  __shared__ int so[CHUNK];
+  __shared__ int sbit[CHUNK];
+  __shared__ unsigned sw[CHUNK * (TILE / 32)];
+
+  const int t = blockIdx.x;
+  const int l = threadIdx.x;
+  const int* d = desc + (size_t)t * DESC_W;
+  const size_t n_slots = (size_t)tiles_cap * TILE;
+  const size_t slot = (size_t)t * TILE + l;
+  if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
+    counts[slot] = 0;
+    return;
+  }
+  const float qx = __int_as_float(q_t[slot]);
+  const float qy = __int_as_float(q_t[n_slots + slot]);
+  const float qz = __int_as_float(q_t[2 * n_slots + slot]);
+  const int qo = q_t[F_ORIG * n_slots + slot];
+  const int qs = q_t[F_SET * n_slots + slot];
+  const int allow_q = (qs >= 0 && qs < n_allow) ? allow[qs] : 0;
+  float qr2 = r2;
+  if (VARIABLE) {
+    const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
+    qr2 = __fmul_rn(qr, qr);
+  }
+  const int* rx = recs_t;
+  const int* ry = recs_t + (size_t)n_rec;
+  const int* rz = recs_t + 2 * (size_t)n_rec;
+  const int* rr = recs_t + F_R * (size_t)n_rec;
+  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
+  const int* rs = recs_t + F_SET * (size_t)n_rec;
+
+  long long row = cand_base[t];
+  int cnt = 0;
+  for (int w = 0; w < n_win; ++w) {
+    const int s = d[w];
+    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
+    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
+      const int m = min(CHUNK, ln - c0);
+      for (int j = l; j < m; j += TILE) {
+        const size_t src = (size_t)s + c0 + j;
+        sx[j] = __int_as_float(rx[src]);
+        sy[j] = __int_as_float(ry[src]);
+        sz[j] = __int_as_float(rz[src]);
+        so[j] = ro[src];
+        sbit[j] = cand_bit(cs, rs[src]);
+        if (SYMMETRIC) {
+          const float r = __int_as_float(rr[src]);
+          sr2[j] = __fmul_rn(r, r);
+        }
+      }
+      __syncthreads();
+      for (int j = 0; j < m; ++j) {
+        const float dx = __fsub_rn(sx[j], qx);
+        const float dy = __fsub_rn(sy[j], qy);
+        const float dz = __fsub_rn(sz[j], qz);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                             __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        bool hit = d2 <= qr2;
+        if (SYMMETRIC) hit = hit || d2 <= sr2[j];
+        hit = hit && so[j] != qo && (allow_q & sbit[j]) != 0;
+        const unsigned vote = __ballot_sync(0xffffffffu, hit);
+        if ((l & 31) == 0) sw[j * (TILE / 32) + (l >> 5)] = vote;
+        cnt += hit;
+      }
+      __syncthreads();
+      int* dst = bits + row * (TILE / 32);
+      for (int k = l; k < m * (TILE / 32); k += TILE) dst[k] = (int)sw[k];
+      row += m;
+    }
+  }
+  counts[slot] = cnt;
+}
+
 }  // namespace
 
 extern "C" int tns_expand_query_tiles(const int* desc, const int* recs_t,
@@ -336,6 +455,36 @@ extern "C" int tns_pairs_nbrs(const int* desc, const int* q_t,
     else
       pairs_nbrs_kernel<true, true><<<tiles_cap, TILE, 0, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tns_pairs_mask(const int* desc, const int* q_t,
+                              const int* recs_t, int n_rec, int tiles_cap,
+                              int n_win, float r2, int variable,
+                              int symmetric, int n_blocks, const int* set_of,
+                              const int* allow, int n_allow,
+                              const long long* cand_base, int* counts,
+                              int* bits, void* stream) {
+  if (n_blocks < 0 || n_blocks > MAX_BLOCKS || (symmetric && !variable))
+    return (int)cudaErrorInvalidValue;
+  CandSets cs{};
+  cs.n_blocks = n_blocks;
+  for (int b = 0; b < n_blocks; ++b) cs.set_of[b] = set_of[b];
+  if (tiles_cap > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (!variable)
+      pairs_mask_kernel<false, false><<<tiles_cap, TILE, 0, st>>>(
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
+          n_allow, cand_base, counts, bits);
+    else if (!symmetric)
+      pairs_mask_kernel<true, false><<<tiles_cap, TILE, 0, st>>>(
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
+          n_allow, cand_base, counts, bits);
+    else
+      pairs_mask_kernel<true, true><<<tiles_cap, TILE, 0, st>>>(
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
+          n_allow, cand_base, counts, bits);
   }
   return (int)cudaGetLastError();
 }

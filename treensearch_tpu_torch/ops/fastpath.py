@@ -17,9 +17,12 @@ or with per-point radii, rebuilt on every call:
    field-major records, lays out the query tiles (kernel K1), runs the
    pairs kernel (K2a for one set at a fixed radius, K2b for several sets,
    K2c for per-point radii) with one output block per distinct candidate
-   set, and gathers per-point counts through ``qpos``;
+   set, and gathers per-point counts through ``qpos``; in place of the
+   pairs kernel, ``_search_reduce`` runs the fused reduce (K3) and
+   ``_search_mask`` the bitmask kernel (K4), each with its epilogue;
 4. ``materialize_nbrs`` turns a pair's tile-layout rows into (n_i, k8)
-   padded-CSR rows on demand.
+   padded-CSR rows on demand, and ``decode_mask`` turns a mask into
+   per-query neighbor sets.
 
 Every structure the JAX prep computes by arithmetic is computed here by
 the same integer arithmetic, so it is bit-identical (tests/
@@ -41,9 +44,13 @@ from ..config import SearchConfig, round_up
 from ..utils import keys as K
 from .grid import GridState, update_grid
 from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Z,
-                    FAT_COL, LENS_OFF, N_FIELDS, TILE, expand_query_tiles,
+                    FAT_COL, LENS_OFF, N_FIELDS, TILE,
+                    clipped_windows, expand_query_tiles, pairs_mask,
                     pairs_nbrs_fixed, pairs_nbrs_fixed_plain, pairs_nbrs_plain,
                     pairs_nbrs_sets, pairs_nbrs_variable)
+from .reduce import ReduceSpec, pairs_reduce
+
+F_P0, F_P1 = 6, 7   # the payload fields of the records
 
 
 class FastKnobs(NamedTuple):
@@ -270,11 +277,14 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
 
 def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
                    radii: torch.Tensor | None = None,
-                   set_ids: torch.Tensor | None = None) -> torch.Tensor:
+                   set_ids: torch.Tensor | None = None,
+                   payload: torch.Tensor | None = None) -> torch.Tensor:
     """Sorted field-major records (8, n) int32: x, y, z and r as float32
     bit patterns (r = 0 without ``radii``), orig (the index into the
-    concatenated sets), the set id (0 without ``set_ids``), p0 = p1 = 0
-    (the payload fields of the reduce contract)."""
+    concatenated sets), the set id (0 without ``set_ids``), and the
+    reduce contract's payload p0, p1 as float32 bit patterns (0 without
+    ``payload`` (n, 2) float32; ``fastpath.py:1119-1123, 1178-1198`` of
+    the JAX package)."""
     n = points.shape[0]
     order = idx_s.long()
     recs_t = torch.zeros((N_FIELDS, n), dtype=torch.int32,
@@ -285,6 +295,8 @@ def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
     recs_t[F_ORIG] = idx_s
     if set_ids is not None:
         recs_t[F_SET] = set_ids[order]
+    if payload is not None:
+        recs_t[F_P0:F_P1 + 1] = payload[order].view(torch.int32).t()
     return recs_t
 
 
@@ -313,14 +325,16 @@ class KernelInputs(NamedTuple):
 
 def kernel_inputs(points: torch.Tensor, search_radius: float,
                   carry: FastCarry, cfg: SearchConfig, knobs: FastKnobs,
-                  radii: torch.Tensor | None = None) -> KernelInputs:
+                  radii: torch.Tensor | None = None,
+                  payload: torch.Tensor | None = None) -> KernelInputs:
     """Record build and the kernels' static arguments (``_pallas_search``,
-    ``fastpath.py:1083-1098, 1158-1232``)."""
+    ``fastpath.py:1083-1098, 1158-1232``); ``payload`` (n, 2) float32
+    rides the records for the fused reduce."""
     st = _statics(cfg, knobs)
     multi = cfg.n_sets > 1
     recs = sorted_records(
         points, carry.idx_s, radii if cfg.variable else None,
-        set_ids_of(cfg, points.device) if multi else None)
+        set_ids_of(cfg, points.device) if multi else None, payload)
     r = np.float32(search_radius)
     cand = st["cand_sets"]
     return KernelInputs(
@@ -328,6 +342,22 @@ def kernel_inputs(points: torch.Tensor, search_radius: float,
         float(r * r), cand, tuple(cfg.set_offsets[sj] for sj in cand),
         tuple(round_up(cfg.cap_of(sj), 8) for sj in cand),
         cfg.variable, cfg.symmetric, multi)
+
+
+def allow_table(cfg: SearchConfig, cand_sets: tuple,
+                device) -> torch.Tensor:
+    """The active matrix as K3 and K4 read it: (n_sets,) int32, bit b of
+    entry si set when set si searches candidate set ``cand_sets[b]`` (the
+    role of the JAX kernels' per-set OR, ``pallas_pairs.py:736-752``)."""
+    bits = [0] * cfg.n_sets
+    for si, sj in cfg.active_pairs:
+        bits[si] |= 1 << cand_sets.index(sj)
+    return torch.tensor(bits, dtype=torch.int32, device=device)
+
+
+def active_args(a: KernelInputs) -> dict:
+    """The radius-mode arguments of K3 and K4 for these inputs."""
+    return {"r2": None if a.variable else a.r2, "symmetric": a.symmetric}
 
 
 def pairs_kernel(a: KernelInputs):
@@ -358,6 +388,60 @@ def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False):
                       a.symmetric)
     return kernel(a.desc, q_t, a.recs_t, a.r2, a.n_win, a.tiles_cap,
                   *blocks)
+
+
+def _flags(state: GridState, carry: FastCarry, tiles_cap: int) -> dict:
+    """The regrow flags and statistics every search returns."""
+    return {
+        "n_cells": carry.n_cells_stat,
+        "error": state.error,
+        "dense_overflow": carry.dense_overflow,
+        "tile_overflow": carry.tile_overflow,
+        "rows_overflow": carry.rows_overflow,
+        # dead tiles (FAT_COL = 2) are a suffix of the layout
+        "tiles_used": _i32((carry.desc[:tiles_cap, FAT_COL] != 2).sum()),
+        "win_max": carry.win_max,
+    }
+
+
+def _per_set(x: torch.Tensor, cfg: SearchConfig) -> dict:
+    """Slices of a (..., n) tensor in concatenated order, one per set."""
+    offs = cfg.set_offsets
+    return {f"s{si}": x[..., offs[si]:offs[si + 1]]
+            for si in range(cfg.n_sets)}
+
+
+def _search_reduce(points, radii, payload, search_radius, state, carry,
+                   cfg, knobs, spec: ReduceSpec, allow) -> dict:
+    """Records (with the payload), K1, K3 and the reduce epilogue
+    (``fastpath.py:1350-1407`` without the fat tier to merge): one gather
+    of the (n_out, slots) sums through ``qpos``, then per-set slices
+    ``{"s<i>": (n_out, n_i)}``."""
+    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii,
+                      payload)
+    q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
+    sums = pairs_reduce(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap, spec,
+                        a.cand_sets, allow, **active_args(a))
+    return {"reduce": _per_set(sums[:, carry.qpos.long()], cfg),
+            "pairs": {}, **_flags(state, carry, a.tiles_cap)}
+
+
+def _search_mask(points, radii, search_radius, state, carry, cfg, knobs,
+                 allow) -> dict:
+    """Records, K1, K4 and the mask epilogue (``fastpath.py:1409-1463``,
+    ``cand_orig`` at ``:1229-1232``); see ``decode_mask`` for the
+    layout."""
+    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii)
+    q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
+    counts_flat, bits, cand_base = pairs_mask(
+        a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap, a.cand_sets, allow,
+        **active_args(a))
+    mask = {"bits": bits, "cand_base": cand_base, "desc": a.desc,
+            "qpos": carry.qpos, "q_orig": q_t[F_ORIG], "q_set": q_t[F_SET],
+            "cand_orig": a.recs_t[F_ORIG],
+            "counts": _per_set(counts_flat[carry.qpos.long()], cfg),
+            "counts_flat": counts_flat}
+    return {"mask": mask, "pairs": {}, **_flags(state, carry, a.tiles_cap)}
 
 
 def _search(points: torch.Tensor, radii: torch.Tensor | None,
@@ -391,17 +475,7 @@ def _search(points: torch.Tensor, radii: torch.Tensor | None,
         pairs[f"{si}-{sj}"] = {"counts": counts, "max_count": counts.max(),
                                "nbrs_tiles": nbrs_t[b],
                                "qpos": carry.qpos[offs[si]:offs[si] + n_i]}
-    return {
-        "pairs": pairs,
-        "n_cells": carry.n_cells_stat,
-        "error": state.error,
-        "dense_overflow": carry.dense_overflow,
-        "tile_overflow": carry.tile_overflow,
-        "rows_overflow": carry.rows_overflow,
-        # dead tiles (FAT_COL = 2) are a suffix of the layout
-        "tiles_used": _i32((carry.desc[:a.tiles_cap, FAT_COL] != 2).sum()),
-        "win_max": carry.win_max,
-    }
+    return {"pairs": pairs, **_flags(state, carry, a.tiles_cap)}
 
 
 def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
@@ -423,14 +497,30 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
 def build_and_search_fast(points: torch.Tensor, search_radius: float,
                           cell_size: float, state: GridState,
                           cfg: SearchConfig, knobs: FastKnobs,
-                          radii: torch.Tensor | None = None
-                          ) -> tuple[dict, GridState]:
+                          radii: torch.Tensor | None = None,
+                          reduce: ReduceSpec | None = None,
+                          payload: torch.Tensor | None = None,
+                          mask: bool = False) -> tuple[dict, GridState]:
     """One full search: grid update, prep, records, K1, the pairs kernel,
-    counts.  ``radii`` (n,) float32 in variable mode, else None."""
+    counts.  ``radii`` (n,) float32 in variable mode, else None.  With
+    ``reduce`` the fused reduce (K3, ``payload`` (n, 2) float32 or None)
+    and with ``mask`` the bitmask kernel (K4) take the pairs kernel's
+    place; both need ``cfg.n_points > 0``."""
+    allow = None
+    if reduce is not None or mask:
+        # copied to the device before this call queues any work
+        allow = allow_table(cfg, _statics(cfg, knobs)["cand_sets"],
+                            points.device)
     state = update_grid(state, points, cell_size)
-    if cfg.n_points == 0 or not cfg.active_pairs:
+    if allow is None and (cfg.n_points == 0 or not cfg.active_pairs):
         return _empty_solution(cfg, state), state
     carry = _prep(points, state, cfg, knobs, radii)
+    if reduce is not None:
+        return _search_reduce(points, radii, payload, search_radius, state,
+                              carry, cfg, knobs, reduce, allow), state
+    if mask:
+        return _search_mask(points, radii, search_radius, state, carry, cfg,
+                            knobs, allow), state
     return _search(points, radii, search_radius, state, carry, cfg,
                    knobs), state
 
@@ -450,3 +540,70 @@ def materialize_nbrs(pair: dict) -> torch.Tensor:
         pair["nbrs"] = pair["nbrs_tiles"][q // TILE, :, q % TILE]
         del pair["nbrs_tiles"]
     return pair["nbrs"]
+
+
+_DECODE_ROWS = 1 << 18   # mask rows unpacked at a time (128 MB of int32)
+
+
+def decode_mask(mask: dict, meta: dict, tiles=None):
+    """Per-query neighbor sets of a ``run_mask`` result, vectorised on the
+    mask's device (counterpart of the JAX package's host reference
+    decoder, ``fastpath.py:1895-1946``).
+
+    The port's layout (``meta["layout"]``): candidate k of live tile t,
+    counted in window order over the windows of ``desc`` clipped to the
+    records, owns row ``cand_base[t] + k`` of ``bits``; bit ``l % 32`` of
+    its word ``l // 32`` says that it neighbors query lane l of tile t.
+    Its record is ``desc[t, w] + (k - the lengths of t's earlier
+    windows)`` of window w, whose original index is ``cand_orig`` there.
+
+    Returns ``(counts, (row_ptr, cols))``, the JAX decoder's two results
+    as tensors: per-query counts (n_total,) int64 by concatenated original
+    index, and the neighbors of query q, their concatenated original
+    indices ascending, ``cols[row_ptr[q]:row_ptr[q + 1]]`` (the union over
+    the query set's active candidate sets; ``meta["set_offsets"]`` splits
+    them per pair).  ``tiles`` restricts the decode to those tile indices
+    (the queries of other tiles then count 0).
+    """
+    bits, cand_base, q_orig = mask["bits"], mask["cand_base"], mask["q_orig"]
+    cand_orig = mask["cand_orig"]
+    n, n_win = meta["n_total"], meta["n_win"]
+    dev = bits.device
+    tiles_cap = cand_base.shape[0] - 1
+    starts, lens = clipped_windows(mask["desc"], cand_orig.shape[0], n_win,
+                                   tiles_cap)
+    sel = torch.arange(tiles_cap, device=dev) if tiles is None else \
+        torch.as_tensor(tiles, dtype=torch.int64, device=dev)
+    # one segment of rows per (tile, window), in row order
+    lens = lens[sel].long()
+    seg_len = lens.reshape(-1)
+    seg_row = (cand_base[sel][:, None] + torch.cumsum(lens, 1) - lens) \
+        .reshape(-1)
+    seg_slot = starts[sel].reshape(-1).long()
+    seg_tile = sel.repeat_interleave(n_win)
+    total = int(seg_len.sum())
+    seg = torch.repeat_interleave(torch.arange(seg_len.shape[0], device=dev),
+                                  seg_len, output_size=total)
+    pos = torch.arange(total, device=dev) \
+        - (torch.cumsum(seg_len, 0) - seg_len)[seg]
+    rows, slots, tile_of = seg_row[seg] + pos, seg_slot[seg] + pos, \
+        seg_tile[seg]
+    shift = torch.arange(32, dtype=torch.int32, device=dev)
+    qs = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    cs = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    for r0 in range(0, total, _DECODE_ROWS):
+        words = bits[rows[r0:r0 + _DECODE_ROWS]]
+        lanes = ((words[:, :, None] >> shift) & 1).reshape(-1, TILE) != 0
+        ci, lane = torch.nonzero(lanes, as_tuple=True)
+        ci = ci + r0
+        qs.append(q_orig[tile_of[ci] * TILE + lane].long())
+        cs.append(cand_orig[slots[ci]].long())
+    q, c = torch.cat(qs), torch.cat(cs)
+    keep = q < n
+    q, c = q[keep], c[keep]
+    order = torch.argsort(q * (n + 1) + c)
+    q, c = q[order], c[order]
+    counts = torch.bincount(q, minlength=n)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=row_ptr[1:])
+    return counts, (row_ptr, c)

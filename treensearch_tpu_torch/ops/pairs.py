@@ -17,13 +17,18 @@ PyTorch counterpart of ``treensearch_tpu/ops/pallas_pairs.py``:
 - ``pairs_nbrs_variable`` (K2c) replaces ``make_pairs_call(variable=True,
   symmetric=...)``: per-point radii, d^2 <= r_i^2, or also d^2 <= r_j^2
   when symmetric, with K2b's output blocks (one block for one set).
+- ``pairs_mask`` (K4) replaces ``make_pairs_call(mask_mode=True)``
+  (``pallas_pairs.py:779-859``): per-pair hit bits plus exact counts, the
+  active matrix applied, in the port's own layout (``mask_cand_base``).
 
-The kernels live in ``csrc/pairs.cu`` behind a plain C interface.  They
-are compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/`` at
-the repository root, cached by a hash of the source and flags, and loaded
-with ``ctypes``.  Each wrapper dispatches on the device of its tensors:
-CPU tensors take the plain version, CUDA tensors launch the kernel or
-raise.  There is no fallback from one to the other.
+The fused reduce (K3) is in ``reduce.py``; it shares this module's window
+clipping, candidate loop and build.  The kernels live in ``csrc/`` behind
+a plain C interface.  They are compiled by ``nvcc`` for ``sm_90a`` at
+first use into ``build/`` at the repository root, cached by a hash of the
+source and flags, and loaded with ``ctypes``.  Each wrapper dispatches on
+the device of its tensors: CPU tensors take the plain version, CUDA
+tensors launch the kernel or raise.  There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +55,8 @@ A_COL = 62        # descriptor column: tile's first sorted point index
 CNT_COL = 63      # descriptor column: tile's real point count (<= 128)
 FAT_COL = 127     # descriptor column: 2 = dead tile (no real queries)
 MAX_WIN = 49      # (2W+1)^2 windows for stencil W <= 3
-MAX_BLOCKS = 8    # candidate-set output blocks of K2b/K2c
+MAX_BLOCKS = 8    # candidate-set output blocks of K2b/K2c, candidate sets
+MASK_WORDS = TILE // 32   # K4: int32 words per candidate row, bit = lane
 # the plain K2a's chunk of tiles, in (query, candidate) slots: its
 # temporaries stay at a few hundred MB whatever the point count
 _PLAIN_CHUNK_ELEMS = 1 << 23
@@ -72,12 +79,14 @@ class _Library:
                  log: str, seconds: float):
         self.lib = lib
         self.path = path
-        self.command = command
+        self.command = command    # empty when the file was already built
         self.log = log
         self.seconds = seconds
+        self.configured = False   # its ctypes signatures are set
 
 
-_LOADED: dict = {}   # loaded library per build directory, for the process
+_LOADED: dict = {}   # loaded library per built file, for the process
+_PAIRS: dict = {}    # csrc/pairs.cu's library per build directory
 
 
 def _find_nvcc() -> str | None:
@@ -91,17 +100,28 @@ def _find_nvcc() -> str | None:
     return default if os.path.isfile(default) else None
 
 
-def load_library(build_dir: Path | None = None) -> _Library:
-    """Build ``csrc/pairs.cu`` (once per source hash) and load it.
+def _replace_atomically(data: bytes, out: Path, suffix: str) -> None:
+    fd, tmp = tempfile.mkstemp(suffix=suffix, dir=out.parent)
+    with os.fdopen(fd, "wb") as f:
+        f.write(data)
+    os.replace(tmp, out)
+
+
+def build_library(name: str, text: bytes, build_dir: Path | None = None,
+                  source: Path | None = None) -> _Library:
+    """Build the CUDA source ``text`` into ``build_dir/<name>_<hash>.so``
+    and load it, once per hash of the text and the flags, in and across
+    processes.  ``source`` is the file the text was read from; without
+    one the text is first written to ``<name>_<hash>.cu`` beside the
+    library (a generated source).
 
     Raises ``RuntimeError`` when ``nvcc`` is missing or the build fails.
     """
     build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
-    if str(build_dir) in _LOADED:
-        return _LOADED[str(build_dir)]
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = build_dir / f"pairs_{digest[:16]}.so"
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = build_dir / f"{name}_{digest[:16]}.so"
+    if str(out) in _LOADED:
+        return _LOADED[str(out)]
     command, log, seconds = [], "(cached build)", 0.0
     if not out.exists():
         nvcc = _find_nvcc()
@@ -110,9 +130,12 @@ def load_library(build_dir: Path | None = None) -> _Library:
                 "cannot build the CUDA kernels: nvcc not found (set "
                 "CUDA_HOME or put nvcc on PATH)")
         build_dir.mkdir(parents=True, exist_ok=True)
+        if source is None:
+            source = out.with_suffix(".cu")
+            _replace_atomically(text, source, ".cu")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
         os.close(fd)
-        command = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+        command = [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(command, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -121,7 +144,21 @@ def load_library(build_dir: Path | None = None) -> _Library:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    loaded = _Library(ctypes.CDLL(str(out)), out, command, log, seconds)
+    _LOADED[str(out)] = loaded
+    return loaded
+
+
+def load_library(build_dir: Path | None = None) -> _Library:
+    """Build ``csrc/pairs.cu`` (once per source hash) and load it.
+
+    Raises ``RuntimeError`` when ``nvcc`` is missing or the build fails.
+    """
+    build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
+    if str(build_dir) in _PAIRS:
+        return _PAIRS[str(build_dir)]
+    loaded = build_library("pairs", SOURCE.read_bytes(), build_dir, SOURCE)
+    lib = loaded.lib
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tns_expand_query_tiles.argtypes = [vp, vp, ci, ci, ci, vp, vp]
     lib.tns_expand_query_tiles.restype = ci
@@ -132,8 +169,11 @@ def load_library(build_dir: Path | None = None) -> _Library:
     lib.tns_pairs_nbrs.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, ci,
                                    pi, pi, pi, pv, vp, vp]
     lib.tns_pairs_nbrs.restype = ci
-    loaded = _Library(lib, out, command, log, seconds)
-    _LOADED[str(build_dir)] = loaded
+    lib.tns_pairs_mask.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, ci,
+                                   pi, vp, ci, vp, vp, vp, vp]
+    lib.tns_pairs_mask.restype = ci
+    loaded.configured = True
+    _PAIRS[str(build_dir)] = loaded
     return loaded
 
 
@@ -223,51 +263,73 @@ def expand_query_tiles(desc: torch.Tensor, recs_t: torch.Tensor,
 expand_query_tiles.launches = 0
 
 
-# ---------------------------------------------------------------- K2
-def pairs_nbrs_plain(desc: torch.Tensor, q_t: torch.Tensor,
-                     recs_t: torch.Tensor, n_win: int, tiles_cap: int,
-                     cand_sets, cand_offsets, k8s, r2: float | None = None,
-                     symmetric: bool = False):
-    """Plain version of the pairs kernels (K2b with ``r2`` given, K2c with
-    ``r2=None``, K2a through ``pairs_nbrs_fixed_plain``), chunked over
-    tiles to bound memory.
-
-    For query lane l of tile t, the candidates are the window slots
-    ``desc[t, w] + o`` with ``o < desc[t, 64 + w]``, in window order; a
-    candidate survives when ``d2 = (dx*dx + dy*dy) + dz*dz`` in float32 is
-    ``<= r2`` (fixed radius) or ``<= r_i * r_i`` (``r2=None``: the query's
-    F_R), or also ``<= r_j * r_j`` when ``symmetric``, and its orig
-    differs from the query's.  Block b keeps the survivors whose F_SET is
-    ``cand_sets[b]`` (all of them for ``None``), front-packs ``orig -
-    cand_offsets[b]`` into rows of ``k8s[b]`` with -1 fill, and counts
-    exactly past the cap.  Dead tiles
-    (``FAT_COL == 2``) count 0, and a window is clipped to the records.
-    Returns counts (n_blocks, tiles_cap * 128) and one (tiles_cap, k8,
-    128) array per block.
-    """
-    dev = desc.device
-    n_rec = recs_t.shape[1]
-    blocks = list(zip(cand_sets, cand_offsets, k8s))
-    counts = torch.zeros((len(blocks), tiles_cap * TILE), dtype=torch.int32,
-                         device=dev)
-    nbrs = [torch.full((tiles_cap, k8, TILE), -1, dtype=torch.int32,
-                       device=dev) for k8 in k8s]
+# ------------------------------------------ the candidates of every pairs kernel
+def clipped_windows(desc: torch.Tensor, n_rec: int, n_win: int,
+                    tiles_cap: int):
+    """Each tile's window starts and lengths (tiles_cap, n_win) int32, the
+    lengths clipped as every pairs kernel clips them: to the records, to
+    0 for a start outside [0, n_rec] and for a dead tile."""
     live = (desc[:tiles_cap, FAT_COL] != 2)[:, None]
     starts = desc[:tiles_cap, :n_win]
     lens = torch.minimum(desc[:tiles_cap, LENS_OFF:LENS_OFF + n_win],
-                         n_rec - starts)
+                         n_rec - starts).clamp(min=0)
     lens = torch.where(live & (starts >= 0) & (starts <= n_rec), lens, 0)
+    return starts, lens
+
+
+class _Chunk(NamedTuple):
+    """A chunk of tiles [t0, t1) of the plain versions' candidate loop:
+    candidate record index ``idx`` and ``ok`` (nt, width) over each tile's
+    windows (window-major, padded to the widest), the displacement
+    candidate minus query and d^2 (nt, 128, width) float32, and ``hit``:
+    the radius criterion, in-window and not the query itself."""
+    t0: int
+    t1: int
+    idx: torch.Tensor
+    ok: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    d2: torch.Tensor
+    hit: torch.Tensor
+
+    def query(self, q: torch.Tensor) -> torch.Tensor:
+        """One field of the query tiles as (nt, 128, 1)."""
+        return _query_rows(q, self.t0, self.t1)
+
+    def cand(self, c: torch.Tensor) -> torch.Tensor:
+        """One field of the sorted records as (nt, 1, width)."""
+        return c[self.idx][:, None, :]
+
+
+def _query_rows(q: torch.Tensor, t0: int, t1: int) -> torch.Tensor:
+    return q[t0 * TILE:t1 * TILE].view(-1, TILE)[:, :, None]
+
+
+def f32_field(a: torch.Tensor, f: int) -> torch.Tensor:
+    """Field ``f`` of field-major int32 records as float32."""
+    return a[f].view(torch.float32)
+
+
+def _plain_chunks(desc: torch.Tensor, q_t: torch.Tensor,
+                  recs_t: torch.Tensor, n_win: int, tiles_cap: int,
+                  r2: float | None, symmetric: bool):
+    """The candidate loop of every plain version, chunked over tiles to
+    bound memory (``_Chunk``s).
+
+    For query lane l of tile t, the candidates are the window slots
+    ``desc[t, w] + o`` with ``o`` below the clipped length, in window
+    order; a candidate hits when ``d2 = (dx*dx + dy*dy) + dz*dz`` in
+    float32 is ``<= r2`` (fixed radius) or ``<= r_i * r_i`` (``r2=None``:
+    the query's F_R), or also ``<= r_j * r_j`` when ``symmetric``, and its
+    orig differs from the query's."""
+    dev = desc.device
+    starts, lens = clipped_windows(desc, recs_t.shape[1], n_win, tiles_cap)
     lmax = int(lens.max()) if tiles_cap > 0 else 0
     if lmax == 0:
-        return counts, nbrs
-
-    def f32(a, f):
-        return a[f].view(torch.float32)
-
-    cx, cy, cz, cr = (f32(recs_t, f) for f in (F_X, F_Y, F_Z, F_R))
-    co, cs = recs_t[F_ORIG], recs_t[F_SET]
-    qx, qy, qz, qr = (f32(q_t, f) for f in (F_X, F_Y, F_Z, F_R))
-    qo = q_t[F_ORIG]
+        return
+    cx, cy, cz, cr = (f32_field(recs_t, f) for f in (F_X, F_Y, F_Z, F_R))
+    qx, qy, qz, qr = (f32_field(q_t, f) for f in (F_X, F_Y, F_Z, F_R))
     width = n_win * lmax
     per = max(1, _PLAIN_CHUNK_ELEMS // (TILE * width))
     off = torch.arange(lmax, dtype=torch.int32, device=dev)
@@ -279,36 +341,82 @@ def pairs_nbrs_plain(desc: torch.Tensor, q_t: torch.Tensor,
         ok = (off[None, None, :] < lens[t0:t1, :, None]).reshape(nt, width)
         idx = (starts[t0:t1, :, None] + off[None, None, :]).reshape(nt, width)
         idx = torch.where(ok, idx, 0).long()
-        sl = slice(t0 * TILE, t1 * TILE)
 
         def query(q):
-            return q[sl].view(nt, TILE)[:, :, None]
+            return _query_rows(q, t0, t1)
 
-        def diff(c, q):
-            return c[idx][:, None, :] - query(q)
+        def cand(c):
+            return c[idx][:, None, :]
 
-        dx, dy, dz = diff(cx, qx), diff(cy, qy), diff(cz, qz)
+        dx, dy, dz = (cand(c) - query(q)
+                      for c, q in ((cx, qx), (cy, qy), (cz, qz)))
         d2 = (dx * dx + dy * dy) + dz * dz
         if r2 is None:
             qri = query(qr)
             hit = d2 <= qri * qri
             if symmetric:
-                crj = cr[idx][:, None, :]
+                crj = cand(cr)
                 hit = hit | (d2 <= crj * crj)
         else:
             hit = d2 <= r2_t
-        cand = co[idx]
-        m = hit & ok[:, None, :] & (cand[:, None, :] != query(qo))
+        hit = hit & ok[:, None, :] \
+            & (cand(recs_t[F_ORIG]) != query(q_t[F_ORIG]))
+        yield _Chunk(t0, t1, idx, ok, dx, dy, dz, d2, hit)
+
+
+def allow_bits(ch: _Chunk, q_t: torch.Tensor, recs_t: torch.Tensor,
+               cand_sets, allow: torch.Tensor) -> torch.Tensor:
+    """The active matrix on a chunk's pairs (nt, 128, width) bool: the
+    candidate's set is candidate set b and bit b of ``allow[query set]``
+    is set; the sentinel query (set -1) searches nothing."""
+    c_set = ch.cand(recs_t[F_SET])
+    bit = torch.zeros_like(c_set)
+    for b, s in enumerate(cand_sets):
+        bit = bit | torch.where(c_set == s, 1 << b, 0)
+    q_set = ch.query(q_t[F_SET])
+    n_allow = allow.shape[0]
+    inside = (q_set >= 0) & (q_set < n_allow)
+    a_q = torch.where(inside, allow[q_set.clamp(0, n_allow - 1)], 0)
+    return (a_q & bit) != 0
+
+
+# ---------------------------------------------------------------- K2
+def pairs_nbrs_plain(desc: torch.Tensor, q_t: torch.Tensor,
+                     recs_t: torch.Tensor, n_win: int, tiles_cap: int,
+                     cand_sets, cand_offsets, k8s, r2: float | None = None,
+                     symmetric: bool = False):
+    """Plain version of the pairs kernels (K2b with ``r2`` given, K2c with
+    ``r2=None``, K2a through ``pairs_nbrs_fixed_plain``) over the
+    candidates of ``_plain_chunks``.
+
+    Block b keeps the hits whose F_SET is ``cand_sets[b]`` (all of them
+    for ``None``), front-packs ``orig - cand_offsets[b]`` into rows of
+    ``k8s[b]`` with -1 fill, and counts exactly past the cap.  Dead tiles
+    (``FAT_COL == 2``) count 0.  Returns counts (n_blocks, tiles_cap *
+    128) and one (tiles_cap, k8, 128) array per block.
+    """
+    dev = desc.device
+    blocks = list(zip(cand_sets, cand_offsets, k8s))
+    counts = torch.zeros((len(blocks), tiles_cap * TILE), dtype=torch.int32,
+                         device=dev)
+    nbrs = [torch.full((tiles_cap, k8, TILE), -1, dtype=torch.int32,
+                       device=dev) for k8 in k8s]
+    co, cs = recs_t[F_ORIG], recs_t[F_SET]
+    for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap, r2,
+                            symmetric):
+        nt = ch.t1 - ch.t0
+        sl = slice(ch.t0 * TILE, ch.t1 * TILE)
+        cand = ch.cand(co)
         for b, (set_id, offset, k8) in enumerate(blocks):
-            mb = m if set_id is None else m & (cs[idx] == set_id)[:, None, :]
+            mb = ch.hit if set_id is None else ch.hit & (ch.cand(cs) == set_id)
             counts[b, sl] = mb.sum(dim=2, dtype=torch.int32).reshape(-1)
             pos = torch.cumsum(mb, dim=2, dtype=torch.int32) - 1
             keep = mb & (pos < k8)
             rows = torch.full((nt, TILE, k8 + 1), -1, dtype=torch.int32,
                               device=dev)
             rows.scatter_(2, torch.where(keep, pos, k8).long(),
-                          torch.where(keep, cand[:, None, :] - offset, -1))
-            nbrs[b][t0:t1] = rows[:, :, :k8].transpose(1, 2)
+                          torch.where(keep, cand - offset, -1))
+            nbrs[b][ch.t0:ch.t1] = rows[:, :, :k8].transpose(1, 2)
     return counts, nbrs
 
 
@@ -441,3 +549,110 @@ def pairs_nbrs_variable(desc: torch.Tensor, q_t: torch.Tensor,
 
 
 pairs_nbrs_variable.launches = 0
+
+
+# ------------------------------------------------------- K3 and K4 arguments
+def check_active_args(desc, q_t, recs_t, n_win, tiles_cap, cand_sets,
+                      allow, r2, symmetric) -> tuple:
+    """Checks shared by K3 and K4, which apply the active matrix instead of
+    writing blocks: ``cand_sets`` (0 to 8 distinct set ids, bit b of a
+    query set's ``allow`` entry standing for ``cand_sets[b]``) and
+    ``allow`` (n_sets,) int32.  Returns ``cand_sets`` as a tuple."""
+    _check_desc(desc, tiles_cap)
+    _check_recs(recs_t, desc.device)
+    _require(q_t, "q_t", (N_FIELDS, tiles_cap * TILE), desc.device)
+    _check_n_win(n_win)
+    cand_sets = tuple(int(s) for s in cand_sets)
+    if len(cand_sets) > MAX_BLOCKS or len(set(cand_sets)) != len(cand_sets):
+        raise ValueError(f"0 to {MAX_BLOCKS} distinct candidate sets, got "
+                         f"{cand_sets}")
+    if allow.dim() != 1 or allow.shape[0] < 1:
+        raise ValueError("allow must be (n_sets >= 1,), got "
+                         f"{tuple(allow.shape)}")
+    _require(allow, "allow", tuple(allow.shape), desc.device)
+    if symmetric and r2 is not None:
+        raise ValueError("symmetric search needs per-point radii (r2=None)")
+    return cand_sets
+
+
+def set_ids_arg(cand_sets) -> ctypes.Array:
+    """The candidate sets as a C int array (at least one entry)."""
+    return (ctypes.c_int * max(len(cand_sets), 1))(*cand_sets)
+
+
+# ---------------------------------------------------------------- K4
+def mask_cand_base(desc: torch.Tensor, n_rec: int, n_win: int,
+                   tiles_cap: int) -> torch.Tensor:
+    """Where each tile's rows start in K4's ``bits``: (tiles_cap + 1,)
+    int64, the exclusive cumulative sum of each tile's clipped window
+    lengths (0 for a dead tile); the last entry is the number of rows."""
+    _, lens = clipped_windows(desc, n_rec, n_win, tiles_cap)
+    base = torch.zeros(tiles_cap + 1, dtype=torch.int64, device=desc.device)
+    torch.cumsum(lens.sum(dim=1, dtype=torch.int64), 0, out=base[1:])
+    return base
+
+
+def pairs_mask_plain(desc: torch.Tensor, q_t: torch.Tensor,
+                     recs_t: torch.Tensor, n_win: int, tiles_cap: int,
+                     cand_sets, allow: torch.Tensor, r2: float | None = None,
+                     symmetric: bool = False):
+    """Plain version of K4 over the candidates of ``_plain_chunks``, the
+    active matrix applied (``allow_bits``).  Returns counts (tiles_cap *
+    128,) int32, bits (rows, 4) int32 and ``cand_base``: candidate k of
+    live tile t, in window order, owns row ``cand_base[t] + k``, and bit
+    ``l % 32`` of its word ``l // 32`` says that query lane l hits it."""
+    dev = desc.device
+    cand_base = mask_cand_base(desc, recs_t.shape[1], n_win, tiles_cap)
+    base = cand_base.tolist()
+    counts = torch.zeros(tiles_cap * TILE, dtype=torch.int32, device=dev)
+    bits = torch.zeros((base[-1], MASK_WORDS), dtype=torch.int32, device=dev)
+    weight = torch.ones(32, dtype=torch.int64, device=dev) \
+        << torch.arange(32, device=dev)
+    for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap, r2,
+                            symmetric):
+        m = ch.hit & allow_bits(ch, q_t, recs_t, cand_sets, allow)
+        counts[ch.t0 * TILE:ch.t1 * TILE] = \
+            m.sum(dim=2, dtype=torch.int32).reshape(-1)
+        nt, width = ch.ok.shape
+        words = (m.transpose(1, 2).reshape(nt, width, MASK_WORDS, 32)
+                 .to(torch.int64) * weight).sum(dim=3)
+        words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+        bits[base[ch.t0]:base[ch.t1]] = words[ch.ok].to(torch.int32)
+    return counts, bits, cand_base
+
+
+def pairs_mask(desc: torch.Tensor, q_t: torch.Tensor, recs_t: torch.Tensor,
+               n_win: int, tiles_cap: int, cand_sets, allow: torch.Tensor,
+               r2: float | None = None, symmetric: bool = False):
+    """K4: exact per-query counts (tiles_cap * 128,) int32 and the hit
+    bits (rows, 4) int32 of every candidate row, with ``cand_base``
+    (``pairs_mask_plain`` has the layout).  ``r2=None`` takes the radii
+    from the records' F_R field (K2c's criteria).  Nothing is capped, so
+    nothing can truncate; sizing ``bits`` is one host read."""
+    cand_sets = check_active_args(desc, q_t, recs_t, n_win, tiles_cap,
+                                  cand_sets, allow, r2, symmetric)
+    if desc.device.type == "cpu":
+        return pairs_mask_plain(desc, q_t, recs_t, n_win, tiles_cap,
+                                cand_sets, allow, r2, symmetric)
+    lib = _cuda_lib(desc)
+    n_rec = recs_t.shape[1]
+    cand_base = mask_cand_base(desc, n_rec, n_win, tiles_cap)
+    n_rows = int(cand_base[-1])
+    counts = torch.empty(tiles_cap * TILE, dtype=torch.int32,
+                         device=desc.device)
+    bits = torch.empty((n_rows, MASK_WORDS), dtype=torch.int32,
+                       device=desc.device)
+    stream = torch.cuda.current_stream(desc.device).cuda_stream
+    err = lib.tns_pairs_mask(
+        desc.data_ptr(), q_t.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap,
+        n_win, float(r2 if r2 is not None else 0.0), int(r2 is None),
+        int(symmetric), len(cand_sets), set_ids_arg(cand_sets),
+        allow.data_ptr(), allow.shape[0], cand_base.data_ptr(),
+        counts.data_ptr(), bits.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_mask launch failed: CUDA error {err}")
+    pairs_mask.launches += 1
+    return counts, bits, cand_base
+
+
+pairs_mask.launches = 0
