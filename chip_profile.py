@@ -7,9 +7,14 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 For each configuration of ``chip_smoke.py`` (config 1: 1M uniform, r =
 0.02, cell 1.15 r; config 3: fluid + boundary; config 4: variable radii,
-symmetric), and for ``run_reduce`` (the poly6 density, n_out = 1, with
-masses as payload) and ``run_mask`` at config 1, after two settling calls,
-it prints:
+symmetric), for ``run_reduce`` (the poly6 density, n_out = 1, with
+masses as payload), ``run_mask`` and ``run()`` with split staging (K4
+then K5) at config 1, each call with every set's points moved by up to
+1e-4 from where they started (``chip_smoke.py``'s jitter, made
+beforehand), so the temporal-coherence carry rebuilds in every call as
+in ``chip_smoke.py``'s paths; and for config 1's ``run()`` and
+``make_step_fn(reuse=True)`` step at static positions (the carry reused,
+no prep), after two settling calls, it prints:
 
 - the call's host time, synchronised, median over 10 calls;
 - ``torch.profiler``'s device time over 5 calls, by kernel name and per
@@ -39,6 +44,7 @@ RADIUS = 0.02
 N_TIMED = 10
 N_PROFILED = 5
 TOP = 15
+JITTER = 1e-4
 
 
 def busy_ms(events) -> tuple[float, float]:
@@ -55,12 +61,31 @@ def busy_ms(events) -> tuple[float, float]:
     return busy / 1e3, (iv[-1][1] - iv[0][0]) / 1e3
 
 
+def moved_sets(eng, count: int):
+    """``count`` copies of every set's points, each moved by up to JITTER
+    from the start, made on the card beforehand; returns a function that
+    hands the next copy to the engine (no device work)."""
+    import torch
+    sets = [(s.points, s.radii) for s in eng._sets]
+    gen = torch.Generator(device=sets[0][0].device).manual_seed(3)
+    pool = iter([[p + (torch.rand(p.shape, generator=gen, device=p.device)
+                       * 2 - 1) * JITTER for p, _ in sets]
+                 for _ in range(count)])
+
+    def move():
+        for i, (p, (_, r)) in enumerate(zip(next(pool), sets)):
+            eng.resize_point_set(i, p, r)
+
+    return move
+
+
 def profile(eng, label: str, card: str, call=None,
-            kernel: str | None = None) -> None:
+            kernel: str | None = None, moving: bool = True) -> None:
     """Host time, device time by kernel, idle share and peak memory of
     the engine's own ``call`` (``run()`` by default), after two settling
-    calls; ``kernel`` names the pairs kernel of the path (by default the
-    one ``run()`` takes)."""
+    calls; with ``moving`` each call first moves the points
+    (``moved_sets``).  ``kernel`` names the pairs kernel of the path (by
+    default the one ``run()`` takes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -68,7 +93,15 @@ def profile(eng, label: str, card: str, call=None,
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops.pairs import FAT_COL, TILE
 
-    call = call or eng.run
+    entry = call or eng.run
+    if moving:
+        move = moved_sets(eng, 2 + N_TIMED + N_PROFILED)
+
+        def call():
+            move()
+            return entry()
+    else:
+        call = entry
     call()
     call()
     print(f"== {label}: {eng.get_total_n_points()} points; caps: "
@@ -107,12 +140,13 @@ def profile(eng, label: str, card: str, call=None,
             / N_PROFILED
             for k in ("expand_query_tiles_kernel", "pairs_nbrs_fixed_kernel",
                       "pairs_nbrs_kernel", "pairs_reduce_kernel",
-                      "pairs_mask_kernel")}
+                      "pairs_mask_kernel", "pairs_nbrs_from_bits_kernel")}
     print(f"per call: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K2a "
           f"{ours['pairs_nbrs_fixed_kernel']:.4f} ms, K2b/K2c "
           f"{ours['pairs_nbrs_kernel']:.4f} ms, K3 "
           f"{ours['pairs_reduce_kernel']:.4f} ms, K4 "
-          f"{ours['pairs_mask_kernel']:.4f} ms, all device work "
+          f"{ours['pairs_mask_kernel']:.4f} ms, K5 "
+          f"{ours['pairs_nbrs_from_bits_kernel']:.4f} ms, all device work "
           f"{busy / N_PROFILED:.4f} ms, {len(dev_events) / N_PROFILED:.0f} "
           f"device events")
     print(f"{N_PROFILED} runs: device busy {busy:.3f} ms in a {window:.3f} "
@@ -150,6 +184,8 @@ def main() -> int:
     profile(make_engine(pts, RADIUS), "config 1", card)
     profile(config3_engine(*config3_data(dev)), "config 3", card)
     profile(config4_engine(*config4_data(dev)), "config 4", card)
+    profile(make_engine(pts, RADIUS), "config 1 run(), static positions",
+            card, moving=False)
     red = make_engine(pts, RADIUS)
     profile(red, "config 1 run_reduce (density, n_out 1)", card,
             call=lambda: red.run_reduce(density_fn, 1, payload=[mass]),
@@ -157,6 +193,22 @@ def main() -> int:
     msk = make_engine(pts, RADIUS)
     profile(msk, "config 1 run_mask", card, call=msk.run_mask,
             kernel="pairs_mask")
+    split = make_engine(pts, RADIUS)
+    split.set_split_stage(True)
+    profile(split, "config 1 run() split staging", card,
+            kernel="pairs_mask + pairs_nbrs_from_bits")
+    eng = make_engine(pts, RADIUS)
+    eng.run()
+    eng.run()   # settle the caps the step keeps
+    step, state = eng.make_step_fn(reuse=True)
+    carried = {"state": state}
+
+    def static_step():
+        sol, carried["state"] = step(carried["state"], pts)
+        return sol
+
+    profile(eng, "config 1 make_step_fn(reuse=True), static positions",
+            card, call=static_step, moving=False)
     return 0
 
 

@@ -46,7 +46,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
 9. small clouds against numpy brute force: three sets under an
    asymmetric active matrix with a payload (set 2 searches nothing), and
    one set with per-point radii and symmetric search, each through
-   ``run_reduce`` (with an int env term) and ``run_mask``.
+   ``run_reduce`` (with an int env term) and ``run_mask``;
+10. split staging at config 1: K5 against its plain version on K4's bits
+   of a settled engine's structures (counts equal, rows equal slot for
+   slot), and K4 then K5 against the fused K2a (every query's count and
+   row equal); ``run()`` with ``set_split_stage(True)``, a settling call
+   and 5 jittered calls (K1, K4 and K5 once each in every jittered call,
+   no K2), 32,759,462 pairs at seed 0 and the cKDTree sample; configs 3
+   and 4 with split staging equal to their fused ``run()`` per active
+   pair (config 3's boundary searches nothing);
+11. the temporal-coherence carry at config 1 through
+   ``make_step_fn(reuse=True)``: 6 steps at the same positions (steps
+   2-6 reuse the carry and run no prep; counts and rows equal ``run()``'s),
+   5 steps of moves below 1e-6 that leave every point in its cell (the
+   carry reused, the result a fresh engine's ``run()``), 5 steps jittered
+   by 1e-4 (the rebuilds counted, the last step against a fresh engine's
+   ``run()`` and the cKDTree sample); then the density step
+   (``make_step_fn(reduce=...)``) and the mask step on static positions,
+   equal to ``run_reduce`` and ``run_mask``.  Host ms per step, medians.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
@@ -91,7 +108,10 @@ FP32_OPS_PER_S = 67e12
 OPS_PER_TEST = 9
 SOURCE_LINES = {"expand_query_tiles": 276, "pairs_nbrs_fixed": 445,
                 "pairs_nbrs_sets": 445, "pairs_nbrs_variable": 445,
-                "pairs_reduce": 671, "pairs_mask": 779}
+                "pairs_reduce": 671, "pairs_mask": 779,
+                "pairs_nbrs_from_bits": 500}
+N_STEPS = 6             # phase 11: steps per workload (the first rebuilds)
+IN_CELL = 1e-6          # phase 11: the largest in-cell move
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the fused reduce (benchmarks/bench_reduce_1m.py): smoothing length h = r
 H2 = np.float32(RADIUS * RADIUS)
@@ -353,6 +373,19 @@ def k4_bound(a, n_rows: int) -> dict:
                   tests * (OPS_PER_TEST + int(a.symmetric)), moved)
 
 
+def k5_bound(a, n_rows: int) -> dict:
+    """K5's bound on these inputs: one 32-bit AND per query lane and
+    candidate row (counted at the float32 rate, the guide's table having
+    no int32 one); the bytes are the 16 B of bits per candidate row and
+    the row bases, each candidate's orig and set (8 B per record), the
+    descriptor words, and the counts and every block's rows written."""
+    slots = 128 * a.tiles_cap
+    moved = (16 * n_rows + 8 * (a.tiles_cap + 1) + 8 * a.recs_t.shape[1]
+             + 4 * (2 * a.n_win + 1) * a.tiles_cap
+             + 4 * slots * len(a.k8s) + 4 * slots * sum(a.k8s))
+    return _bound({"rows": n_rows}, 128 * n_rows, moved)
+
+
 def k1_bound(a) -> tuple:
     """(bytes, ms): each live slot's record read once (32 B), every
     slot's query record written once (32 B), two descriptor words per
@@ -564,6 +597,61 @@ def check_k4(a, allow, q) -> dict:
     return rec
 
 
+def _rows_of(nbrs, live):
+    """Tile-layout rows (tiles, k8, 128) as (live slots, k8)."""
+    return nbrs.transpose(1, 2).reshape(-1, nbrs.shape[1])[live]
+
+
+def check_k5(a, allow, q) -> dict:
+    """K5 against its plain version on K4's bits of these inputs (counts
+    equal on every slot, rows equal slot for slot on live slots), then K4
+    and K5 through ``run_pairs`` against the fused pairs kernel (one set,
+    every query active: counts and rows equal on every live slot); K5's
+    time in turns with its plain version, and its bound."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    _, bits, base = pairs.pairs_mask(a.desc, q, a.recs_t, a.n_win,
+                                     a.tiles_cap, a.cand_sets, allow,
+                                     **fp.active_args(a))
+    args = (a.desc, a.recs_t, bits, base, a.n_win, a.tiles_cap, a.cand_sets,
+            a.cand_offsets, a.k8s)
+
+    def kernel():
+        return pairs.pairs_nbrs_from_bits(*args)
+
+    def plain():
+        return pairs.pairs_nbrs_from_bits_plain(*args)
+
+    (c_k, nb_k), (c_p, nb_p) = kernel(), plain()
+    live = live_slots(a.desc, a.tiles_cap)
+    err = int((c_k.long() - c_p.long()).abs().max())
+    rows = sum(int((_rows_of(k, live) != _rows_of(p, live)).sum())
+               for k, p in zip(nb_k, nb_p))
+    if err or rows:
+        raise AssertionError(f"pairs_nbrs_from_bits: counts differ from "
+                             f"plain by up to {err}, {rows} row entries")
+    (c_s, nb_s), (c_f, nb_f) = fp.run_pairs(a, q, allow=allow), \
+        fp.run_pairs(a, q)
+    if not (torch.equal(c_s[:, live], c_f[:, live]) and all(
+            torch.equal(_rows_of(s, live), _rows_of(f, live))
+            for s, f in zip(nb_s, nb_f))):
+        raise AssertionError("split staging differs from the fused "
+                             f"{fp.pairs_kernel(a).__name__}")
+    rec = {"name": "pairs_nbrs_from_bits", "max_abs_err": err}
+    rec.update(k5_bound(a, bits.shape[0]))
+    print(f"pairs_nbrs_from_bits: counts and rows equal to plain over "
+          f"{int(live.sum())} live slots ({bits.shape[0]} candidate rows, "
+          f"{int(c_k.sum(dtype=torch.int64))} pairs, max count "
+          f"{int(c_k.max())}, k8 {a.k8s}); K4 then K5 equal to the fused "
+          f"{fp.pairs_kernel(a).__name__} on every live slot; {rec['bytes']}"
+          f" B, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
+          flush=True)
+    timed_turns(rec, kernel, plain, a.desc.device)
+    rec["library_ms"] = None   # no single PyTorch call computes it
+    return rec
+
+
 # ------------------------------------------------------- brute force
 def _d2(q, c):
     d = c[None, :, :] - q[:, None, :]
@@ -767,7 +855,7 @@ def pairs_kernels():
     from treensearch_tpu_torch.ops import reduce as red
     return (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed,
             pairs.pairs_nbrs_sets, pairs.pairs_nbrs_variable,
-            red.pairs_reduce, pairs.pairs_mask)
+            red.pairs_reduce, pairs.pairs_mask, pairs.pairs_nbrs_from_bits)
 
 
 def drive(eng, label: str, path: tuple, jitter_step, card: str, call=None,
@@ -1035,6 +1123,242 @@ def run_mask_path(pts_t, card: str) -> tuple:
     return rec, out
 
 
+def _path_launches(call, label: str, path: tuple) -> dict:
+    """One ``call()`` with every kernel's count set to 0 just before and
+    read just after; on the card each kernel of ``path`` must launch and
+    no other."""
+    import torch
+    kernels = pairs_kernels()
+    for k in kernels:
+        k.launches = 0
+    call()
+    launches = {k.__name__: k.launches for k in kernels}
+    names = {k.__name__ for k in path}
+    if torch.cuda.is_available() and (
+            min(launches[k] for k in names) < 1
+            or any(v for k, v in launches.items() if k not in names)):
+        raise AssertionError(f"{label}: launches off the path: {launches}")
+    return launches
+
+
+def check_split_config(make, label: str) -> None:
+    """Phase 10, configs 3 and 4: one ``run()`` with split staging (K1,
+    K4 and K5, no pairs kernel) against one fused ``run()``, counts and
+    rows equal per active pair."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    fused = make()
+    fused.run()
+    split = make()
+    split.set_split_stage(True)
+    launches = _path_launches(split.run, label, (
+        pairs.expand_query_tiles, pairs.pairs_mask,
+        pairs.pairs_nbrs_from_bits))
+    active = [(int(i), int(j)) for i, j in zip(*np.nonzero(split._active))]
+    total = 0
+    for i, j in active:
+        (c_s, nb_s), (c_f, nb_f) = split.get_neighbors(i, j), \
+            fused.get_neighbors(i, j)
+        if not (torch.equal(c_s, c_f) and torch.equal(nb_s, nb_f)):
+            raise AssertionError(f"{label}: pair ({i}, {j}) differs from "
+                                 "the fused run()")
+        total += int(c_s.sum(dtype=torch.int64))
+    print(f"{label}: split staging equal to the fused run() on active "
+          f"pairs {active} ({total} pairs); launches {launches}", flush=True)
+
+
+def run_split_path(pts_t, card: str, data3: tuple, data4: tuple) -> tuple:
+    """Phase 10: K5 against its plain version and K4 then K5 against the
+    fused K2a at config 1, the split ``run()`` path, then configs 3 and 4
+    (``data3``, ``data4``: ``config3_data``'s and ``config4_data``'s
+    tensors) with split staging against their fused ``run()``."""
+    from treensearch_tpu_torch.ops import pairs
+    n = pts_t.shape[0]
+    rec = check_k5(*active_inputs(make_engine(pts_t, RADIUS)))
+    eng = make_engine(pts_t, RADIUS)
+    eng.set_split_stage(True)
+    out = drive(eng, "config 1 split staging",
+                (pairs.expand_query_tiles, pairs.pairs_mask,
+                 pairs.pairs_nbrs_from_bits),
+                _jitter_one_set(eng, pts_t), card, once=True)
+    if n == N and out["pairs0"] != TPU_PAIRS_SEED0:
+        raise AssertionError(f"config 1 split staging: {out['pairs0']} "
+                             f"pairs, not {TPU_PAIRS_SEED0}")
+    counts, nbrs = eng.get_neighbors(0, 0)
+    p = eng._sets[0].points.cpu().numpy()
+    check_sample(p, p, counts, nbrs, RADIUS, fixed_rule(RADIUS), True,
+                 "config 1 split staging")
+    del eng, counts, nbrs
+    check_split_config(lambda: config3_engine(*data3),
+                       "config 3 split staging")
+    check_split_config(lambda: config4_engine(*data4),
+                       "config 4 split staging")
+    return rec, out
+
+
+def run_steps(step, state, points_of, label: str, card: str, path: tuple,
+              **kw) -> tuple:
+    """N_STEPS calls of ``step(state, points_of(k), **kw)``, each timed on
+    the host clock between synchronisations, with every kernel's count and
+    the prep's call count set to 0 just before; on the card each kernel of
+    ``path`` must launch exactly once per step and no other.  Returns
+    (the last solution, the state, {rebuilt, preps, ms, launches})."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    kernels = pairs_kernels()
+    for k in kernels:
+        k.launches = 0
+    fp._prep.calls = 0
+    dev = state[0].valid.device
+    rebuilt, preps, times, sol = [], [], [], None
+    for k in range(N_STEPS):
+        pts = points_of(k)
+        sol = None   # release the last step's rows first
+        calls = fp._prep.calls
+        sync(dev)
+        t0 = time.perf_counter()
+        sol, state = step(state, pts, **kw)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        rebuilt.append(int(sol["rebuilt"]))
+        preps.append(fp._prep.calls - calls)
+    launches = {k.__name__: k.launches for k in kernels}
+    names = {k.__name__ for k in path}
+    if dev.type == "cuda" and any(
+            v != (N_STEPS if k in names else 0) for k, v in launches.items()):
+        raise AssertionError(f"{label}: launches off the path: {launches}")
+    ms = statistics.median(times[1:])
+    print(f"{label}: rebuilt {rebuilt}, preps {preps}, launches {launches}",
+          flush=True)
+    print(f"{label}: ms per step {' '.join(f'{t:.3f}' for t in times)}; "
+          f"median of steps 2-{N_STEPS} {ms:.3f} ms/step ({card})",
+          flush=True)
+    return sol, state, {"rebuilt": rebuilt, "preps": preps, "ms": ms,
+                        "launches": launches}
+
+
+def same_lists(pair, eng, label: str) -> int:
+    """A step's pair 0-0 against ``eng``'s ``run()`` lists: counts equal
+    and rows equal as sets.  Returns the pair count."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    counts, nbrs = eng.get_neighbors(0, 0)
+    if not torch.equal(pair["counts"], counts):
+        raise AssertionError(f"{label}: counts differ from run()'s")
+    rows = fp.materialize_nbrs(pair)
+    width = max(rows.shape[1], nbrs.shape[1])
+    big = torch.iinfo(torch.int32).max
+
+    def as_sets(r):
+        j = torch.arange(r.shape[1], device=r.device)[None, :]
+        r = torch.sort(torch.where(j < counts[:, None], r, big), dim=1).values
+        return torch.nn.functional.pad(r, (0, width - r.shape[1]), value=big)
+
+    if not torch.equal(as_sets(rows), as_sets(nbrs)):
+        raise AssertionError(f"{label}: rows differ from run()'s as sets")
+    return int(counts.sum(dtype=torch.int64))
+
+
+def run_carry_path(pts_t, mass_t, card: str) -> dict:
+    """Phase 11: config 1 through ``make_step_fn(reuse=True)`` on static,
+    in-cell and jiggled positions, then the density and mask steps on
+    static positions against ``run_reduce`` and ``run_mask``."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
+    from treensearch_tpu_torch.utils.keys import quantize
+    dev = pts_t.device
+    n = pts_t.shape[0]
+    eng = make_engine(pts_t, RADIUS)
+    eng.run()
+    eng.run()   # the first run's snug resizes the caps: settle at them
+    path = (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed)
+    step, state = eng.make_step_fn(reuse=True)
+    out = {}
+
+    sol, state, out["static"] = run_steps(
+        step, state, lambda k: pts_t, "carry static", card, path)
+    if out["static"]["rebuilt"] != [1] + [0] * (N_STEPS - 1) \
+            or out["static"]["preps"] != out["static"]["rebuilt"]:
+        raise AssertionError("carry static: steps 2-6 did not reuse")
+    pairs0 = same_lists(sol["pairs"]["0-0"], eng, "carry static")
+    if n == N and pairs0 != TPU_PAIRS_SEED0:
+        raise AssertionError(f"carry static: {pairs0} pairs")
+
+    # moves below IN_CELL, zeroed where a point would change cells
+    grid = state[0]
+    inv_cell = 1.0 / grid.cell_size
+    cells = quantize(pts_t, grid.grid_min, inv_cell, grid.n_cells)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cur = {"pts": pts_t}
+
+    def in_cell(k):
+        step_pts = cur["pts"] + (torch.rand((n, 3), generator=gen, device=dev)
+                                 * 2 - 1) * IN_CELL
+        keep = (quantize(step_pts, grid.grid_min, inv_cell, grid.n_cells)
+                == cells).all(dim=1)
+        cur["pts"] = torch.where(keep[:, None], step_pts, cur["pts"])
+        return cur["pts"]
+
+    sol, state, out["in_cell"] = run_steps(
+        step, state, in_cell, "carry in-cell", card, path)
+    moved = int((cur["pts"] != pts_t).any(dim=1).sum())
+    if any(out["in_cell"]["rebuilt"]) or any(out["in_cell"]["preps"]) \
+            or not moved:
+        raise AssertionError("carry in-cell: a step rebuilt or nothing "
+                             "moved")
+    fresh = make_engine(cur["pts"].clone(), RADIUS)
+    fresh.run()
+    total = same_lists(sol["pairs"]["0-0"], fresh, "carry in-cell")
+    print(f"carry in-cell: {moved} points moved, the carry reused in every "
+          f"step, equal to a fresh engine's run() ({total} pairs)",
+          flush=True)
+    del fresh
+
+    def jiggle(k):
+        cur["pts"] = cur["pts"] + (torch.rand(
+            (n, 3), generator=gen, device=dev) * 2 - 1) * JITTER
+        return cur["pts"]
+
+    sol, state, out["jiggle"] = run_steps(
+        step, state, jiggle, "carry jiggle", card, path)
+    fresh = make_engine(cur["pts"].clone(), RADIUS)
+    fresh.run()
+    total = same_lists(sol["pairs"]["0-0"], fresh, "carry jiggle")
+    counts, nbrs = fresh.get_neighbors(0, 0)
+    p = cur["pts"].cpu().numpy()
+    check_sample(p, p, counts, nbrs, RADIUS, fixed_rule(RADIUS), True,
+                 "carry jiggle")
+    print(f"carry jiggle: {sum(out['jiggle']['rebuilt'])} of {N_STEPS} "
+          f"steps rebuilt, the last equal to a fresh engine's run() "
+          f"({total} pairs)", flush=True)
+    del fresh, counts, nbrs, sol, state, step
+
+    payload = torch.stack([mass_t, torch.zeros_like(mass_t)], dim=1)
+    rho = eng.run_reduce(density_fn, 1, payload=[mass_t])[0][:, 0]
+    step, state = eng.make_step_fn(reduce=(density_fn, 1))
+    sol, _, out["reduce"] = run_steps(
+        step, state, lambda k: pts_t, "carry density step", card,
+        (pairs.expand_query_tiles, red.pairs_reduce), payload=payload)
+    if out["reduce"]["rebuilt"] != [1] + [0] * (N_STEPS - 1) \
+            or not torch.equal(sol["reduce"]["s0"][0], rho):
+        raise AssertionError("carry density step differs from run_reduce")
+    del sol, step, state
+    mask, _ = eng.run_mask()
+    step, state = eng.make_step_fn(mask_output=True)
+    sol, _, out["mask"] = run_steps(
+        step, state, lambda k: pts_t, "carry mask step", card,
+        (pairs.expand_query_tiles, pairs.pairs_mask))
+    if out["mask"]["rebuilt"] != [1] + [0] * (N_STEPS - 1) or not all(
+            torch.equal(sol["mask"][k], mask[k])
+            for k in ("bits", "cand_base", "counts_flat", "qpos")):
+        raise AssertionError("carry mask step differs from run_mask")
+    print("carry: the density step equal to run_reduce and the mask step "
+          "to run_mask bit for bit, steps 2-6 reusing the carry",
+          flush=True)
+    return out
+
+
 def build_all() -> None:
     """Phase 2: ``csrc/pairs.cu`` and K3 for each of CALLBACKS, one nvcc
     each, all started together."""
@@ -1089,12 +1413,21 @@ def main() -> int:
         pts_t, torch.from_numpy(mass).to(dev), card)
     k4, main8 = run_mask_path(pts_t, card)                  # phase 8
     check_small_contracts(dev)                              # phase 9
-    kernels += [k2b, k2c, k3, k4]
+    k5, main10 = run_split_path(pts_t, card, config3_data(dev),  # 10
+                                config4_data(dev))
+    steps = run_carry_path(pts_t, torch.from_numpy(mass).to(dev),  # 11
+                           card)
+    kernels += [k2b, k2c, k3, k4, k5]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,
-                "pairs_reduce": main7, "pairs_mask": main8}
+                "pairs_reduce": main7, "pairs_mask": main8,
+                "pairs_nbrs_from_bits": main10}
     print(f"launches on the reduce paths: n_out=1 {main7['launches']}, "
           f"n_out=4 {main7b['launches']}", flush=True)
+    print(f"config 1 run(): split staging {main10['ms']:.3f} ms/call, fused "
+          f"{main1['ms']:.3f} ms/call; make_step_fn(reuse=True) ms/step: "
+          + ", ".join(f"{k} {v['ms']:.3f}" for k, v in steps.items())
+          + f" ({card})", flush=True)
     sources = {"pairs_reduce": red.TEMPLATE}
     out = []
     for rec in kernels:

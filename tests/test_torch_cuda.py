@@ -9,7 +9,9 @@ the repository's conftest:
 Tolerance: query tiles bit-equal; counts equal; rows equal slot for slot
 (both versions keep the first k8 survivors in window order, so rows agree
 exactly, truncated ones included), per candidate-set block for K2b and
-K2c; dead tiles count 0.  K4: bits equal word for word.  K3: integer-valued
+K2c; dead tiles count 0.  K4: bits equal word for word.  K5: counts equal
+on every slot, rows slot for slot on live tiles, and per active pair the
+fused kernel's.  K3: integer-valued
 legs equal, the others within 3e-5 of the sum of the terms' magnitudes
 (only the order of the float32 sum differs).
 """
@@ -433,3 +435,91 @@ def test_unsupported_callback_raises_on_card(dev):
     with pytest.raises(TypeError, match="outputs"):
         eng.run_reduce(lambda e: (e["d2"], e["d2"]), 1)
     assert red.pairs_reduce.launches == before
+
+
+# ------------------------------------------------------------------ K5
+def _k5_vs_plain(a, bits, cand_base, k8s=None):
+    """K5 on ``bits`` against its plain version: counts equal on every
+    slot (dead tiles 0), rows equal slot for slot on live tiles."""
+    args = (a.desc, a.recs_t, bits, cand_base, a.n_win, a.tiles_cap,
+            a.cand_sets, a.cand_offsets, k8s or a.k8s)
+    before = pairs.pairs_nbrs_from_bits.launches
+    c_k, nb_k = pairs.pairs_nbrs_from_bits(*args)
+    c_p, nb_p = pairs.pairs_nbrs_from_bits_plain(*args)
+    torch.cuda.synchronize()
+    assert pairs.pairs_nbrs_from_bits.launches == before + 1
+    live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+    assert (~live).any()   # the layout's slack tiles
+    assert torch.equal(c_k, c_p)
+    assert not c_k.view(len(c_k), a.tiles_cap, 128)[:, ~live].any()
+    for b in range(len(c_k)):
+        assert torch.equal(nb_k[b][live], nb_p[b][live]), b
+    return c_k
+
+
+def test_k5_eight_blocks_equals_plain_and_the_fused_kernel(dev):
+    rng = np.random.default_rng(14)
+    sizes = [300 + 40 * k for k in range(9)]
+    eng = _sets_engine(
+        dev, [(rng.uniform(0, 1, (m, 3)).astype(np.float32), None)
+              for m in sizes], r=0.12,
+        active=[(i, (3 * i + 1) % 8) for i in range(8)]
+        + [(i, i) for i in range(0, 8, 2)])   # set 8 searches nothing
+    a, allow, q, qpos = _active_inputs(eng)
+    assert a.cand_sets == tuple(range(8))
+    counts, bits, base = pairs.pairs_mask(a.desc, q, a.recs_t, a.n_win,
+                                          a.tiles_cap, a.cand_sets, allow,
+                                          r2=a.r2)
+    c = _k5_vs_plain(a, bits, base)
+    assert torch.equal(c.sum(0), counts) and (c.amax(dim=1) > 0).all()
+    # per active pair, split staging's slots are the fused kernel's
+    c_s, nb_s = fp.run_pairs(a, q, allow=allow)
+    c_f, nb_f = fp.run_pairs(a, q)
+    offs = np.cumsum([0] + sizes)
+    for si, sj in eng._make_cfg(1).active_pairs:
+        slots = qpos[offs[si]:offs[si + 1]]
+        assert torch.equal(c_s[sj, slots], c_f[sj, slots])
+        assert torch.equal(nb_s[sj][slots // 128, :, slots % 128],
+                           nb_f[sj][slots // 128, :, slots % 128])
+
+
+@pytest.mark.parametrize("word", [0, -1])
+def test_k5_all_zero_and_all_one_words(dev, word):
+    # synthetic bits over windows wider than a 256-row chunk: all zero
+    # (nothing hits) or all one (every lane hits every candidate, past a
+    # cap of 8)
+    rng = np.random.default_rng(15)
+    eng = _sets_engine(dev, [(_column(3000, rng).astype(np.float32), None)],
+                       r=0.02)
+    eng.set_cell_size(0.023)
+    a, _, _, _ = _active_inputs(eng)
+    base = pairs.mask_cand_base(a.desc, a.recs_t.shape[1], a.n_win,
+                                a.tiles_cap)
+    assert int(a.desc[:a.tiles_cap,
+                      pairs.LENS_OFF:pairs.LENS_OFF + 9].max()) > 256
+    bits = torch.full((int(base[-1]), pairs.MASK_WORDS), word,
+                      dtype=torch.int32, device=dev)
+    c = _k5_vs_plain(a, bits, base, k8s=(8,))
+    if word == 0:
+        assert not c.any()
+    else:
+        live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+        per_tile = (base[1:] - base[:-1])[live]
+        assert torch.equal(c[0].view(a.tiles_cap, 128)[live],
+                           per_tile[:, None].int().expand(-1, 128))
+        assert int(c.max()) > 8
+
+
+def test_k5_truncated_rows_wide_windows_and_short_bits(dev):
+    rng = np.random.default_rng(16)
+    eng = _sets_engine(dev, [(_column(3000, rng).astype(np.float32), None)],
+                       r=0.02)
+    eng.set_cell_size(0.023)
+    a, allow, q, _ = _active_inputs(eng)
+    _, bits, base = pairs.pairs_mask(a.desc, q, a.recs_t, a.n_win,
+                                     a.tiles_cap, a.cand_sets, allow,
+                                     r2=a.r2)
+    c = _k5_vs_plain(a, bits, base, k8s=(8,))
+    assert int(c.max()) > 8
+    # rows past the bits read as zero on the card as in the plain version
+    _k5_vs_plain(a, bits[:bits.shape[0] // 3].contiguous(), base, k8s=(8,))

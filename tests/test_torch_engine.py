@@ -282,7 +282,7 @@ NOT_PORTED = {
     "run_reduce": lambda e: (e.set_cell_size(0.05),
                              e.run_reduce(lambda env: env["d2"])),
     "run_mask": lambda e: (e.set_cell_size(0.05), e.run_mask()),
-    "make_step_fn": lambda e: e.make_step_fn(),
+    "make_step_fn": lambda e: e.make_step_fn(fast=False),
     "distribute": lambda e: e.distribute(object()),
     "mesh": lambda e: TreeNSearch(device="cpu", mesh=object()),
     "wide_stencil": lambda e: (e.set_cell_size(0.05), e.run()),
@@ -316,3 +316,50 @@ def test_domain_too_sparse_for_the_table_raises(monkeypatch):
                 cell=1.0, run=False)
     with pytest.raises(NotImplementedError, match="item 9"):
         eng.run()
+
+
+# the JAX package's setters without a GPU meaning: accepted, checked as
+# the JAX setters check them, and without effect
+NO_OP_SETTERS = [("set_n_threads", (4,)), ("set_recursion_cap", (1000,)),
+                 ("set_n_points_for_parallel_octree", ()),
+                 ("set_window_cap", (64,)), ("set_record_pack", (16,)),
+                 ("set_prestage_caps", (96, 48)),
+                 ("set_tiles_per_step", (2,)), ("set_brick", ((2, 2, 3),)),
+                 ("set_brick", (None,)), ("set_lane_batch", (True,))]
+BAD_SETTER_ARGS = [("set_n_threads", ("many",)),
+                   ("set_recursion_cap", (None,)),
+                   ("set_n_points_for_parallel_octree", ("all",)),
+                   ("set_window_cap", (8,)), ("set_record_pack", (3,)),
+                   ("set_prestage_caps", ("wide",)),
+                   ("set_prestage_caps", (96, "wide")),
+                   ("set_tiles_per_step", (3,)), ("set_brick", ((2, 2),)),
+                   ("set_brick", ((0, 1, 1),))]
+
+
+@pytest.mark.parametrize("name,args", NO_OP_SETTERS)
+def test_tpu_setters_are_accepted_without_effect(name, args):
+    pts = np.random.default_rng(0).uniform(0, 1, (200, 3)).astype(np.float32)
+    eng = _port(pts, 0.15)
+    counts = eng.get_counts(0, 0)
+    knobs, cfg = eng._knobs(), eng._make_cfg(1)
+    assert getattr(eng, name)(*args) is None
+    assert eng._knobs() == knobs and eng._make_cfg(1) == cfg
+    eng.run()
+    assert np.array_equal(eng.get_counts(0, 0), counts)
+
+
+@pytest.mark.parametrize("name,args", BAD_SETTER_ARGS)
+def test_tpu_setters_check_their_arguments_as_jax_does(name, args):
+    with pytest.raises((TypeError, ValueError)) as jax_err:
+        getattr(JaxTreeNSearch(), name)(*args)
+    with pytest.raises(jax_err.type):
+        getattr(_port(np.zeros((3, 3), np.float32), 0.4, run=False),
+                name)(*args)
+
+
+def test_split_stage_and_coherence_setters():
+    eng = _port(np.zeros((3, 3), np.float32), 0.4, run=False)
+    assert not eng._knobs().split_stage and eng._use_carry
+    eng.set_split_stage(True)
+    eng.set_coherence(False)
+    assert eng._knobs().split_stage and not eng._use_carry

@@ -3,9 +3,10 @@
 PyTorch counterpart of ``treensearch_tpu/api.py``: any number of point
 sets under a directed active-search matrix, at one fixed search radius or
 with per-point radii (symmetric search optional), ``run()`` and the
-neighbor-list queries, and the device contracts ``run_reduce`` (the fused
-neighbor-reduce) and ``run_mask`` (the bitmask).  The surface mirrors the
-reference
+neighbor-list queries, the device contracts ``run_reduce`` (the fused
+neighbor-reduce) and ``run_mask`` (the bitmask), the temporal-coherence
+carry they all ride by default, and ``make_step_fn`` for a simulation
+loop.  The surface mirrors the reference
 (``TreeNSearch/source/TreeNSearch.h:28-427``); float64 input is cast to
 float32 at ingest like the reference's cast-copy
 (``TreeNSearch.cpp:270-297``).
@@ -28,7 +29,9 @@ import torch
 
 from .config import SearchConfig, round_up
 from .neighborlist import NeighborList, NeighborSolution
-from .ops.fastpath import FastKnobs, build_and_search_fast, default_tiles_cap
+from .ops.fastpath import (FastKnobs, build_and_search_fast,
+                           build_and_search_fast_carry, default_tiles_cap,
+                           make_fast_carry0)
 from .ops.grid import fresh_state
 from .ops.pairs import MAX_BLOCKS
 from .ops.reduce import ReduceSpec
@@ -121,6 +124,10 @@ class TreeNSearch:
         self._tiles_auto = False   # tiles_cap was auto-sized (snug ok)
         self._dense_snug = False   # one-shot dense-table shrink to domain
         self._tiles_snug = False   # one-shot tile-slot shrink to layout
+        self._split_stage = False  # neighbor lists through K4 then K5
+        self._use_carry = True     # temporal-coherence carry in the runs
+        self._fast_carry = None    # the carried FastCarry ...
+        self._carry_key = None     # ... and the (cfg, knobs) it was built at
         self._grid_state = fresh_state(dev)
         self._solution: Optional[NeighborSolution] = None
         self._last_stats: dict = {}
@@ -219,6 +226,81 @@ class TreeNSearch:
 
     def _cap_of(self, set_j: int) -> int:
         return self._nbr_caps.get(set_j, self._nbr_cap)
+
+    def set_split_stage(self, enabled: bool) -> None:
+        """Neighbor lists in two passes (``treensearch_tpu/api.py:393-
+        403``): K4 writes the hit bits under the active matrix, K5 unpacks
+        them into the pairs kernel's blocks.  The lists are those of the
+        fused pairs kernel; off by default.  ``run_reduce`` and
+        ``run_mask`` do not use it."""
+        self._split_stage = bool(enabled)
+
+    def set_coherence(self, enabled: bool) -> None:
+        """The temporal-coherence carry (``treensearch_tpu/api.py:346-
+        354``), on by default: ``run()``, ``run_reduce`` and ``run_mask``
+        reuse the sort, table, layout and descriptors of the last call
+        while no point changed cells, at the cost of one cell-id check and
+        one host read per call.  Off drops the carry and rebuilds them on
+        every call."""
+        self._use_carry = bool(enabled)
+        if not enabled:
+            self._fast_carry = None
+            self._carry_key = None
+
+    # The JAX package's setters that have no meaning on the GPU
+    # (treensearch_tpu/api.py:287-391): each checks its arguments as the
+    # JAX setter does and changes nothing.  The reference's thread and
+    # octree knobs have no counterpart; the window cap, record pack,
+    # pre-stage caps, tiles per step, brick tiles and lane batching are
+    # TPU schedules of the pairs kernel, which here streams every window
+    # through shared memory whatever its width.
+    def set_n_threads(self, n: int) -> None:
+        """Accepted for compatibility; no meaning on the GPU."""
+        int(n)
+
+    def set_recursion_cap(self, cap: int) -> None:
+        """Accepted for compatibility; no meaning on the GPU."""
+        int(cap)
+
+    def set_n_points_for_parallel_octree(self, n: int = 200000) -> None:
+        """Accepted for compatibility; no meaning on the GPU."""
+        int(n)
+
+    def set_window_cap(self, wcap: int) -> None:
+        """Accepted for compatibility (a TPU window cap, at least 16); no
+        meaning on the GPU."""
+        if wcap < 16:
+            raise ValueError("window cap must be >= 16")
+
+    def set_record_pack(self, pack: int) -> None:
+        """Accepted for compatibility (a TPU record pack of 1, 2, 4, 8 or
+        16); no meaning on the GPU."""
+        if pack not in (1, 2, 4, 8, 16):
+            raise ValueError("pack must be one of 1, 2, 4, 8, 16")
+
+    def set_prestage_caps(self, center: int, edge: int = None) -> None:
+        """Accepted for compatibility (TPU staging widths); no meaning on
+        the GPU."""
+        int(center)
+        int(edge if edge is not None else center)
+
+    def set_tiles_per_step(self, tps: int) -> None:
+        """Accepted for compatibility (TPU tiles per grid step: 1, 2, 4 or
+        8); no meaning on the GPU."""
+        if tps not in (1, 2, 4, 8):
+            raise ValueError("tiles_per_step must be 1, 2, 4 or 8")
+
+    def set_brick(self, dims) -> None:
+        """Accepted for compatibility (TPU brick tiles: None, () or three
+        positive ints); no meaning on the GPU."""
+        dims = tuple(int(d) for d in (dims or ()))
+        if dims and (len(dims) != 3 or any(d < 1 for d in dims)):
+            raise ValueError("brick dims must be three positive ints")
+
+    def set_lane_batch(self, enabled: bool) -> None:
+        """Accepted for compatibility (the TPU lane-batched pipeline); no
+        meaning on the GPU."""
+        bool(enabled)
 
     # ---------------------------------------------------------------- run
     def run(self) -> None:
@@ -328,10 +410,13 @@ class TreeNSearch:
         """One search with overflow-regrow; returns the settled solution
         (``api._execute``, ``treensearch_tpu/api.py:632-869``, for the
         dense, rows, tile and neighbor caps).  ``mode`` selects the fused
-        reduce or the mask (``build_and_search_fast``'s keywords).  All
-        flags come to the host in one read per attempt; ``_last_stats``
-        keeps the settled run's occupied cells, largest count (0 without
-        neighbor lists), cell size and stencil."""
+        reduce or the mask (``build_and_search_fast``'s keywords).  With
+        coherence on, each attempt is a step of the carry
+        (``api.py:719-731``; the carry is keyed by the attempt's config
+        and caps, so a regrow rebuilds it).  All flags come to the host in
+        one read per attempt; ``_last_stats`` keeps the settled run's
+        occupied cells, largest count (0 without neighbor lists), cell
+        size, stencil and whether the structure was rebuilt."""
         n = self.get_total_n_points()
         if self._dense_cap is None:
             self._dense_cap = self._default_dense_cap()
@@ -340,15 +425,25 @@ class TreeNSearch:
             self._tiles_auto = True
         for _ in range(_MAX_GROW_ROUNDS):
             cfg = self._make_cfg(w)
-            sol, state = build_and_search_fast(
-                points, sr, cell, self._grid_state, cfg, self._knobs(),
-                radii=radii, **mode)
-            flags = torch.stack(
-                [sol[k] for k in ("error", "dense_overflow", "rows_overflow",
-                                  "tile_overflow", "n_cells")]
+            knobs = self._knobs()
+            if self._use_carry and n > 0:
+                sol, state, self._fast_carry = build_and_search_fast_carry(
+                    points, sr, cell, self._grid_state,
+                    self._get_carry(cfg, knobs), cfg, knobs, radii=radii,
+                    **mode)
+            else:
+                sol, state = build_and_search_fast(
+                    points, sr, cell, self._grid_state, cfg, knobs,
+                    radii=radii, **mode)
+            names = ["error", "dense_overflow", "rows_overflow",
+                     "tile_overflow", "n_cells"] \
+                + (["rebuilt"] if "rebuilt" in sol else [])
+            values = torch.stack(
+                [sol[k] for k in names]
                 + [p["max_count"] for p in sol["pairs"].values()]).tolist()
-            error, dense_of, rows_of, tile_of, n_cells = flags[:5]
-            max_counts = dict(zip(sol["pairs"], flags[5:]))
+            flags = dict(zip(names, values))
+            max_counts = dict(zip(sol["pairs"], values[len(names):]))
+            error, dense_of, rows_of, tile_of, n_cells = values[:5]
             if error:
                 self._grid_state = fresh_state(self.device)
                 raise RuntimeError(
@@ -389,14 +484,31 @@ class TreeNSearch:
             self._post_run_tune(sol, state, w)
             self._grid_state = state
             self._last_stats = {"n_cells": n_cells,
-                                "max_count": max(flags[5:], default=0),
-                                "cell_size": cell, "stencil_w": w}
+                                "max_count": max(max_counts.values(),
+                                                 default=0),
+                                "cell_size": cell, "stencil_w": w,
+                                "rebuilt": flags.get("rebuilt", 1)}
             return sol
         raise RuntimeError(
             "padding caps failed to converge "
             f"(nbr_cap={self._nbr_cap}, nbr_caps={self._nbr_caps}, "
             f"dense_cap={self._dense_cap}, "
             f"tiles_cap={self._tiles_cap})")
+
+    def _get_carry(self, cfg: SearchConfig, knobs: FastKnobs):
+        """The carried FastCarry when it was built at exactly this ``cfg``
+        and these ``knobs``, else a fresh invalid one
+        (``treensearch_tpu/api.py:871-887``).  The key covers every static
+        that shapes the carry's content (dense, tile and row caps, the
+        stencil, the neighbor caps, split staging), not only its shapes:
+        in the JAX package a carry that outlived a cap change lost 12,245
+        pairs at 1M.  Every regrow changes a cap and so rebuilds; points
+        that move under one key are caught by the step's own check."""
+        key = (cfg, knobs)
+        if self._carry_key != key or self._fast_carry is None:
+            self._fast_carry = make_fast_carry0(cfg, knobs, self.device)
+            self._carry_key = key
+        return self._fast_carry
 
     def _post_run_tune(self, sol: dict, state, w: int) -> None:
         """One-shot shrink of the dense table to the measured domain and of
@@ -465,12 +577,106 @@ class TreeNSearch:
     def does_set_exist(self, set_i: int) -> bool:
         return 0 <= set_i < len(self._sets)
 
+    # ------------------------------------------------------- the step
+    def make_step_fn(self, chunk: Optional[int] = None, fast: bool = True,
+                     reuse: bool = False, reduce=None,
+                     mask_output: bool = False):
+        """Return ``(step, state0)`` for a simulation loop
+        (``treensearch_tpu/api.py:1283-1392``):
+
+            step(state, points, radii=None) -> (solution, new_state)
+
+        ``points`` is the concatenation of the sets' points, an (n, 3)
+        float32 tensor on the engine's device (another device raises
+        ``ValueError``; nothing is copied), ``radii`` the (n,) float32
+        radii in variable mode.  The step's config and caps are the
+        engine's when the step is made, so call ``run()`` (or
+        ``run_reduce``/``run_mask`` for those steps) once first to settle
+        them.  The step does not regrow: the overflow flags
+        (``dense_overflow``, ``rows_overflow``, ``tile_overflow``,
+        ``error``) and each pair's ``max_count`` are in the solution for
+        the caller to read.  The pairs' solutions feed
+        ``ops.fastpath.materialize_nbrs`` and ``NeighborSolution`` as
+        ``run()``'s do.
+
+        With ``reuse``, ``reduce`` or ``mask_output`` the state is
+        ``(grid_state, carry)`` and each step reuses the carried cell
+        structure while no point changed cells (``solution["rebuilt"]``
+        says which); results are exact either way.  ``reduce`` is a
+        ``ReduceSpec`` or ``(fn, n_out)`` (see ``run_reduce``): the step
+        then takes ``payload=None`` or an (n, 2) float32 tensor and
+        returns ``solution["reduce"]`` {"s<i>": (n_out, n_i)}.
+        ``mask_output`` returns ``solution["mask"]`` (see ``run_mask``).
+        Without them the state is the grid state and every step rebuilds.
+        ``chunk`` is the JAX package's XLA chunk size and has no meaning
+        here; ``fast=False`` (the search-based pipeline) is not ported.
+        """
+        if not fast:
+            raise _not_ported("make_step_fn(fast=False) (the search-based "
+                              "pipeline)", 9)
+        _, _, sr, cell, w = self._setup()
+        cfg = self._make_cfg(w)
+        n = cfg.n_points
+        if self._dense_cap is None:
+            self._dense_cap = self._default_dense_cap()
+        if self._tiles_cap is None:
+            self._tiles_cap = default_tiles_cap(max(n, 1))
+        knobs = self._knobs()
+        dev = self.device
+        carried = reuse or reduce is not None or mask_output
+        if carried and n == 0:
+            raise ValueError("reuse, reduce and mask_output steps need at "
+                             "least one point")
+
+        def check(points, radii, payload=None):
+            args = [("points", points, (n, 3)), ("payload", payload, (n, 2))]
+            if cfg.variable:
+                if radii is None:
+                    raise ValueError("a variable-radius step needs radii")
+                args.append(("radii", radii, (n,)))
+            elif radii is not None:
+                raise ValueError("a fixed-radius step takes no radii")
+            for name, t, shape in args:
+                if t is None:
+                    continue
+                if not isinstance(t, torch.Tensor) or t.device != dev:
+                    raise ValueError(f"{name} must be a tensor on {dev}, "
+                                     f"got {getattr(t, 'device', type(t))}")
+                if tuple(t.shape) != shape or t.dtype != torch.float32:
+                    raise ValueError(f"{name} must be {shape} float32, got "
+                                     f"{tuple(t.shape)} {t.dtype}")
+
+        if reduce is not None:
+            spec = reduce if isinstance(reduce, ReduceSpec) \
+                else ReduceSpec(reduce[0], int(reduce[1]))
+
+            def step(state, points, radii=None, payload=None):
+                check(points, radii, payload)
+                grid, carry = state
+                sol, grid, carry = build_and_search_fast_carry(
+                    points, sr, cell, grid, carry, cfg, knobs, radii=radii,
+                    reduce=spec, payload=payload)
+                return sol, (grid, carry)
+        elif carried:
+            def step(state, points, radii=None):
+                check(points, radii)
+                grid, carry = state
+                sol, grid, carry = build_and_search_fast_carry(
+                    points, sr, cell, grid, carry, cfg, knobs, radii=radii,
+                    mask=mask_output)
+                return sol, (grid, carry)
+        else:
+            def step(state, points, radii=None):
+                check(points, radii)
+                return build_and_search_fast(points, sr, cell, state, cfg,
+                                             knobs, radii=radii)
+
+            return step, fresh_state(dev)
+        return step, (fresh_state(dev), make_fast_carry0(cfg, knobs, dev))
+
     # ------------------------------------------------- not yet ported
     def run_scalar(self) -> None:
         raise _not_ported("run_scalar (the search-based pipeline)", 9)
-
-    def make_step_fn(self, *args, **kwargs):
-        raise _not_ported("make_step_fn (the temporal-coherence step)", 6)
 
     def distribute(self, mesh, axis: str = "d") -> None:
         raise _not_ported("multi-GPU execution (distribute)", 14)
@@ -502,7 +708,8 @@ class TreeNSearch:
     def _knobs(self) -> FastKnobs:
         """The caps of the next run (settled after one ``run()``)."""
         return FastKnobs(dense_cap=self._dense_cap,
-                         tiles_cap=self._tiles_cap, rows_cap=self._rows_cap)
+                         tiles_cap=self._tiles_cap, rows_cap=self._rows_cap,
+                         split_stage=self._split_stage)
 
     def _assemble(self):
         """The sets' points, concatenated, as a contiguous (n, 3) float32

@@ -398,6 +398,103 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
   counts[slot] = cnt;
 }
 
+// K5 -- replaces make_pairs_call(stage_from_bits=True)
+// (treensearch_tpu/ops/pallas_pairs.py:500-514, body :897-913), the second
+// pass of split staging: K4's hit bits into K2b's output blocks.  It
+// computes what the JAX pass 2 computes (unpack the hits, read each
+// candidate's orig and set, append to its block); the pack phases,
+// compaction networks and MXU prefixes there exist because a TPU lane
+// cannot append.  K2's schedule: one block of 128 threads per tile, one
+// query lane per thread, the tile's clipped windows walked in order in
+// CHUNK-row passes.  Each pass stages coalesced the rows' 4 bit words
+// (contiguous from cand_base[t] + k) and each candidate's orig and block
+// index (its set looked up once); each thread tests bit l % 32 of word
+// l / 32 and appends orig - offset[b] to its own row of block b while
+// that block's count is below its k8, counting on past the cap.  The
+// rows come out in window order, K2's order, so an active pair's rows
+// equal the fused kernel's slot for slot.  No distance arithmetic.  Rows
+// at or past n_bits_rows read as zero.  Dead tiles return at once.
+// Bound: memory, the bits (16 B per candidate row) and the candidates'
+// orig and set read once, the rows written.
+__global__ void __launch_bounds__(TILE)
+pairs_nbrs_from_bits_kernel(const int* __restrict__ desc,
+                            const int* __restrict__ recs_t, int n_rec,
+                            int tiles_cap, int n_win,
+                            const int* __restrict__ bits,
+                            long long n_bits_rows,
+                            const long long* __restrict__ cand_base,
+                            Blocks blk) {
+  __shared__ unsigned sw[CHUNK * (TILE / 32)];
+  __shared__ int so[CHUNK];
+  __shared__ int sb[CHUNK];
+
+  const int t = blockIdx.x;
+  const int l = threadIdx.x;
+  const int* d = desc + (size_t)t * DESC_W;
+  const size_t n_slots = (size_t)tiles_cap * TILE;
+  const size_t slot = (size_t)t * TILE + l;
+  if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
+    for (int b = 0; b < blk.n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
+    return;
+  }
+  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
+  const int* rs = recs_t + F_SET * (size_t)n_rec;
+  const int word = l >> 5;
+  const unsigned lane_bit = 1u << (l & 31);
+  const long long n_words = n_bits_rows * (TILE / 32);
+
+  int cnt[MAX_BLOCKS];
+#pragma unroll
+  for (int b = 0; b < MAX_BLOCKS; ++b) cnt[b] = 0;
+  long long row = cand_base[t];
+  for (int w = 0; w < n_win; ++w) {
+    const int s = d[w];
+    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
+    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
+      const int m = min(CHUNK, ln - c0);
+      const long long w0 = row * (TILE / 32);
+      for (int k = l; k < m * (TILE / 32); k += TILE)
+        sw[k] = (w0 + k < n_words) ? (unsigned)bits[w0 + k] : 0u;
+      for (int j = l; j < m; j += TILE) {
+        const size_t src = (size_t)s + c0 + j;
+        so[j] = ro[src];
+        const int set = rs[src];
+        int bi = -1;
+#pragma unroll
+        for (int b = 0; b < MAX_BLOCKS; ++b)
+          if (b < blk.n_blocks && set == blk.set_of[b]) bi = b;
+        sb[j] = bi;
+      }
+      __syncthreads();
+      for (int j = 0; j < m; ++j) {
+        const int bi = sb[j];
+        if ((sw[j * (TILE / 32) + word] & lane_bit) && bi >= 0) {
+          const int o = so[j];
+#pragma unroll
+          for (int b = 0; b < MAX_BLOCKS; ++b) {
+            if (b == bi) {
+              if (cnt[b] < blk.k8[b])
+                blk.nbrs[b][((size_t)t * blk.k8[b] + cnt[b]) * TILE + l] =
+                    o - blk.offset[b];
+              ++cnt[b];
+            }
+          }
+        }
+      }
+      __syncthreads();
+      row += m;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < MAX_BLOCKS; ++b) {
+    if (b < blk.n_blocks) {
+      blk.counts[b * n_slots + slot] = cnt[b];
+      int* out = blk.nbrs[b] + (size_t)t * blk.k8[b] * TILE + l;
+      for (int k = cnt[b]; k < blk.k8[b]; ++k) out[(size_t)k * TILE] = -1;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tns_expand_query_tiles(const int* desc, const int* recs_t,
@@ -485,6 +582,34 @@ extern "C" int tns_pairs_mask(const int* desc, const int* q_t,
       pairs_mask_kernel<true, true><<<tiles_cap, TILE, 0, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
           n_allow, cand_base, counts, bits);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tns_pairs_nbrs_from_bits(const int* desc, const int* recs_t,
+                                        int n_rec, int tiles_cap, int n_win,
+                                        const int* bits, long long n_bits_rows,
+                                        const long long* cand_base,
+                                        int n_blocks, const int* set_of,
+                                        const int* offset, const int* k8,
+                                        int* const* nbrs, int* counts,
+                                        void* stream) {
+  if (n_blocks < 1 || n_blocks > MAX_BLOCKS)
+    return (int)cudaErrorInvalidValue;
+  Blocks blk{};
+  blk.n_blocks = n_blocks;
+  for (int b = 0; b < n_blocks; ++b) {
+    blk.set_of[b] = set_of[b];
+    blk.offset[b] = offset[b];
+    blk.k8[b] = k8[b];
+    blk.nbrs[b] = nbrs[b];
+  }
+  blk.counts = counts;
+  if (tiles_cap > 0) {
+    pairs_nbrs_from_bits_kernel<<<tiles_cap, TILE, 0,
+                                  (cudaStream_t)stream>>>(
+        desc, recs_t, n_rec, tiles_cap, n_win, bits, n_bits_rows, cand_base,
+        blk);
   }
   return (int)cudaGetLastError();
 }

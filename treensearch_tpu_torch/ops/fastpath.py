@@ -3,8 +3,10 @@ windows in sorted space, and the pairs kernels.
 
 PyTorch counterpart of the neighbor-list branch of
 ``treensearch_tpu/ops/fastpath.py`` (``build_and_search_fast``,
-``fastpath.py:1690-1711``) for any number of point sets, at a fixed radius
-or with per-point radii, rebuilt on every call:
+``fastpath.py:1690-1711``, rebuilt on every call, and
+``build_and_search_fast_carry``, ``fastpath.py:1609-1655``, which skips
+step 2 while no point changes cells) for any number of point sets, at a
+fixed radius or with per-point radii:
 
 1. ``update_grid`` (``ops/grid.py``) fixes the world box;
 2. ``_prep`` (counterpart of ``_pallas_prep``, row layout) sorts points by
@@ -17,9 +19,10 @@ or with per-point radii, rebuilt on every call:
    field-major records, lays out the query tiles (kernel K1), runs the
    pairs kernel (K2a for one set at a fixed radius, K2b for several sets,
    K2c for per-point radii) with one output block per distinct candidate
-   set, and gathers per-point counts through ``qpos``; in place of the
-   pairs kernel, ``_search_reduce`` runs the fused reduce (K3) and
-   ``_search_mask`` the bitmask kernel (K4), each with its epilogue;
+   set, and gathers per-point counts through ``qpos``; split staging runs
+   K4 then K5 for the pairs kernel, and in its place ``_search_reduce``
+   runs the fused reduce (K3) and ``_search_mask`` the bitmask kernel
+   (K4), each with its epilogue;
 4. ``materialize_nbrs`` turns a pair's tile-layout rows into (n_i, k8)
    padded-CSR rows on demand, and ``decode_mask`` turns a mask into
    per-query neighbor sets.
@@ -46,8 +49,9 @@ from .grid import GridState, update_grid
 from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Z,
                     FAT_COL, LENS_OFF, N_FIELDS, TILE,
                     clipped_windows, expand_query_tiles, pairs_mask,
-                    pairs_nbrs_fixed, pairs_nbrs_fixed_plain, pairs_nbrs_plain,
-                    pairs_nbrs_sets, pairs_nbrs_variable)
+                    pairs_mask_plain, pairs_nbrs_fixed, pairs_nbrs_fixed_plain,
+                    pairs_nbrs_from_bits, pairs_nbrs_from_bits_plain,
+                    pairs_nbrs_plain, pairs_nbrs_sets, pairs_nbrs_variable)
 from .reduce import ReduceSpec, pairs_reduce
 
 F_P0, F_P1 = 6, 7   # the payload fields of the records
@@ -59,14 +63,19 @@ class FastKnobs(NamedTuple):
     dense_cap: int = 1 << 22   # dense cell-table slots
     tiles_cap: int = 0         # row-aligned 128-slot tiles (0 = from n)
     rows_cap: int = 0          # grid-row array slots (0 = from dense_cap)
+    # neighbor lists in two passes: K4's hit bits, then K5 unpacks them
+    # into the pairs kernel's blocks (``run_pairs``)
+    split_stage: bool = False
 
 
 class FastCarry(NamedTuple):
     """Everything derived from the points' cell assignment (counterpart
-    of the JAX ``FastCarry`` without the fat-tier routing)."""
+    of the JAX ``FastCarry`` without the fat-tier routing), carried across
+    steps by ``build_and_search_fast_carry``."""
     valid: torch.Tensor        # () bool
     lin_s: torch.Tensor        # (n,) sorted linear cell ids
-    lin_chk: torch.Tensor      # (n,) cell ids by original index
+    lin_chk: torch.Tensor      # (n,) cell ids by original index, from the
+    #                            reuse check's own computation
     r_chk: torch.Tensor        # (n,) sorted radii ((0,) at a fixed radius)
     idx_s: torch.Tensor        # (n,) sorted slot -> original index
     inv_perm: torch.Tensor     # (n,) original index -> sorted slot
@@ -146,7 +155,9 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     ``win_sorted`` branch that production ``rec_expand`` uses).  In
     variable mode (``cfg.variable``, ``radii`` (n,) float32) each window
     reaches only as far as the larger of the tile's and the neighbor
-    row's largest radius.  Requires ``cfg.n_points > 0``."""
+    row's largest radius.  Requires ``cfg.n_points > 0``.  ``_prep.calls``
+    counts its calls."""
+    _prep.calls += 1
     st = _statics(cfg, knobs)
     n = cfg.n_points
     dev = points.device
@@ -275,6 +286,30 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
         win_max=_i32(lens.max()), n_cells_stat=n_cells_stat)
 
 
+_prep.calls = 0
+
+
+def make_fast_carry0(cfg: SearchConfig, knobs: FastKnobs,
+                     device) -> FastCarry:
+    """A fresh, invalid carry with the shapes ``_prep`` gives
+    (``fastpath.py:452-474`` of the JAX package): the first step of
+    ``build_and_search_fast_carry`` rebuilds it."""
+    st = _statics(cfg, knobs)
+    n = cfg.n_points
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    return FastCarry(
+        valid=torch.zeros((), dtype=torch.bool, device=device),
+        lin_s=z(n), lin_chk=z(n),
+        r_chk=torch.zeros(n if cfg.variable else 0, dtype=torch.float32,
+                          device=device),
+        idx_s=z(n), inv_perm=z(n), pp=z(n), qpos=z(n),
+        desc=z(st["nt8"], DESC_W), dense_overflow=z(), tile_overflow=z(),
+        rows_overflow=z(), win_max=z(), n_cells_stat=z())
+
+
 def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
                    radii: torch.Tensor | None = None,
                    set_ids: torch.Tensor | None = None,
@@ -368,10 +403,26 @@ def pairs_kernel(a: KernelInputs):
     return pairs_nbrs_sets if a.multi_set else pairs_nbrs_fixed
 
 
-def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False):
+def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False,
+              allow: torch.Tensor | None = None):
     """The pairs kernel (or, with ``plain``, its plain version) on these
     inputs: counts (n_blocks, tiles_cap * 128) and one tile-layout row
-    array per candidate set."""
+    array per candidate set.
+
+    With ``allow`` (the active matrix, ``allow_table``), split staging in
+    its place (``fastpath.py:1303-1334`` of the JAX package): K4's hit
+    bits under the active matrix, then K5 unpacks them into the same
+    blocks (each pass's plain version with ``plain``).  Only the slots of
+    active pairs are the pairs kernel's: a query whose set does not search
+    a block's candidate set counts 0 there."""
+    if allow is not None:
+        mask, unpack = (pairs_mask_plain, pairs_nbrs_from_bits_plain) \
+            if plain else (pairs_mask, pairs_nbrs_from_bits)
+        _, bits, cand_base = mask(a.desc, q_t, a.recs_t, a.n_win,
+                                  a.tiles_cap, a.cand_sets, allow,
+                                  **active_args(a))
+        return unpack(a.desc, a.recs_t, bits, cand_base, a.n_win,
+                      a.tiles_cap, a.cand_sets, a.cand_offsets, a.k8s)
     kernel = pairs_kernel(a)
     if kernel is pairs_nbrs_fixed:
         fn = pairs_nbrs_fixed_plain if plain else pairs_nbrs_fixed
@@ -446,9 +497,11 @@ def _search_mask(points, radii, search_radius, state, carry, cfg, knobs,
 
 def _search(points: torch.Tensor, radii: torch.Tensor | None,
             search_radius: float, state: GridState, carry: FastCarry,
-            cfg: SearchConfig, knobs: FastKnobs) -> dict:
+            cfg: SearchConfig, knobs: FastKnobs,
+            allow: torch.Tensor | None = None) -> dict:
     """Record build, K1, the pairs kernel and the counts epilogue
-    (``_pallas_search``, neighbor-list branch, ``fastpath.py:1465-1589``).
+    (``_pallas_search``, neighbor-list branch, ``fastpath.py:1465-1589``);
+    with ``allow`` (split staging), K4 and K5 in the pairs kernel's place.
 
     One output block per distinct candidate set: pairs (si, sj) that share
     sj share its tile-layout rows, each through its own slice of ``qpos``
@@ -456,7 +509,7 @@ def _search(points: torch.Tensor, radii: torch.Tensor | None,
     A pair whose query set is empty gets empty arrays."""
     a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii)
     q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
-    counts_t, nbrs_t = run_pairs(a, q_t)
+    counts_t, nbrs_t = run_pairs(a, q_t, allow=allow)
     # every block's counts through one gather
     gathered = counts_t[:, carry.qpos.long()]
     offs = cfg.set_offsets
@@ -501,28 +554,95 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
                           reduce: ReduceSpec | None = None,
                           payload: torch.Tensor | None = None,
                           mask: bool = False) -> tuple[dict, GridState]:
-    """One full search: grid update, prep, records, K1, the pairs kernel,
-    counts.  ``radii`` (n,) float32 in variable mode, else None.  With
-    ``reduce`` the fused reduce (K3, ``payload`` (n, 2) float32 or None)
-    and with ``mask`` the bitmask kernel (K4) take the pairs kernel's
-    place; both need ``cfg.n_points > 0``."""
-    allow = None
-    if reduce is not None or mask:
-        # copied to the device before this call queues any work
-        allow = allow_table(cfg, _statics(cfg, knobs)["cand_sets"],
-                            points.device)
+    """One full search, rebuilt on every call: grid update, prep,
+    records, K1, the pairs kernel, counts.  ``radii`` (n,) float32 in
+    variable mode, else None.  With ``reduce`` the fused reduce (K3,
+    ``payload`` (n, 2) float32 or None) and with ``mask`` the bitmask
+    kernel (K4) take the pairs kernel's place; both need ``cfg.n_points >
+    0``.  ``knobs.split_stage`` runs K4 and K5 for the pairs kernel."""
+    allow = _allow(cfg, knobs, points.device, reduce, mask)
     state = update_grid(state, points, cell_size)
-    if allow is None and (cfg.n_points == 0 or not cfg.active_pairs):
+    if not (reduce is not None or mask) \
+            and (cfg.n_points == 0 or not cfg.active_pairs):
         return _empty_solution(cfg, state), state
     carry = _prep(points, state, cfg, knobs, radii)
+    return _search_any(points, radii, payload, search_radius, state, carry,
+                       cfg, knobs, reduce, mask, allow), state
+
+
+def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
+                                cell_size: float, state: GridState,
+                                carry: FastCarry, cfg: SearchConfig,
+                                knobs: FastKnobs,
+                                radii: torch.Tensor | None = None,
+                                reduce: ReduceSpec | None = None,
+                                payload: torch.Tensor | None = None,
+                                mask: bool = False
+                                ) -> tuple[dict, GridState, FastCarry]:
+    """One step of ``build_and_search_fast`` that reuses the carried cell
+    structure when no point changed cells (``fastpath.py:1609-1655`` of
+    the JAX package; the reference's coherence, ``TreeNSearch.cpp:417-
+    424``).  Returns ``(sol, state, carry)``; ``sol["rebuilt"]`` is an
+    int32 tensor, 1 when the carry was rebuilt.
+
+    The carry is reused when it is valid, the updated grid is the previous
+    one (box, cells and cell size), every point's padded linear cell id
+    equals the one stored at the last rebuild, and in variable mode every
+    radius is unchanged.  A stable re-sort of equal keys reproduces the
+    carried order, so the table, layout and descriptors are those a
+    rebuild would give; the records are built from the new points either
+    way, so results are exact.  The decision costs one host read: on
+    reuse the prep does not run at all.  ``carry`` must come from
+    ``make_fast_carry0`` or an earlier step with the same ``cfg`` and
+    ``knobs``.  Needs ``cfg.n_points > 0``."""
+    if cfg.n_points == 0:
+        raise ValueError("the carried step needs at least one point")
+    allow = _allow(cfg, knobs, points.device, reduce, mask)
+    prev = state
+    state = update_grid(state, points, cell_size)
+    same_grid = (prev.valid & torch.all(state.grid_min == prev.grid_min)
+                 & torch.all(state.n_cells == prev.n_cells)
+                 & (state.cell_size == prev.cell_size))
+    lin = _padded_lin(points, state, cfg, knobs)[0]
+    same = carry.valid & same_grid & torch.all(lin == carry.lin_chk)
+    if cfg.variable:
+        same = same & torch.all(radii[carry.idx_s.long()] == carry.r_chk)
+    rebuilt = not bool(same)
+    if rebuilt:
+        carry = _prep(points, state, cfg, knobs, radii)._replace(lin_chk=lin)
+    if not (reduce is not None or mask) and not cfg.active_pairs:
+        sol = _empty_solution(cfg, state)
+    else:
+        sol = _search_any(points, radii, payload, search_radius, state,
+                          carry, cfg, knobs, reduce, mask, allow)
+    # a fill, not a copy from the host, so the step does not wait on it
+    sol["rebuilt"] = (torch.ones if rebuilt else torch.zeros)(
+        (), dtype=torch.int32, device=points.device)
+    return sol, state, carry
+
+
+def _allow(cfg: SearchConfig, knobs: FastKnobs, device, reduce,
+           mask: bool) -> torch.Tensor | None:
+    """The active matrix for K3, K4 or split staging (K4 then K5), else
+    None; made first, so its copy to the device precedes the step's
+    work."""
+    if reduce is not None or mask or knobs.split_stage:
+        return allow_table(cfg, _statics(cfg, knobs)["cand_sets"], device)
+    return None
+
+
+def _search_any(points, radii, payload, search_radius, state, carry, cfg,
+                knobs, reduce, mask, allow) -> dict:
+    """The search on a prep's structures: the fused reduce, the mask or
+    the neighbor lists."""
     if reduce is not None:
         return _search_reduce(points, radii, payload, search_radius, state,
-                              carry, cfg, knobs, reduce, allow), state
+                              carry, cfg, knobs, reduce, allow)
     if mask:
         return _search_mask(points, radii, search_radius, state, carry, cfg,
-                            knobs, allow), state
-    return _search(points, radii, search_radius, state, carry, cfg,
-                   knobs), state
+                            knobs, allow)
+    return _search(points, radii, search_radius, state, carry, cfg, knobs,
+                   allow)
 
 
 def materialize_nbrs(pair: dict) -> torch.Tensor:

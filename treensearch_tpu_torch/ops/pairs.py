@@ -20,6 +20,9 @@ PyTorch counterpart of ``treensearch_tpu/ops/pallas_pairs.py``:
 - ``pairs_mask`` (K4) replaces ``make_pairs_call(mask_mode=True)``
   (``pallas_pairs.py:779-859``): per-pair hit bits plus exact counts, the
   active matrix applied, in the port's own layout (``mask_cand_base``).
+- ``pairs_nbrs_from_bits`` (K5) replaces
+  ``make_pairs_call(stage_from_bits=True)`` (``pallas_pairs.py:500``), the
+  second pass of split staging: K4's bits into K2b's output blocks.
 
 The fused reduce (K3) is in ``reduce.py``; it shares this module's window
 clipping, candidate loop and build.  The kernels live in ``csrc/`` behind
@@ -172,6 +175,10 @@ def load_library(build_dir: Path | None = None) -> _Library:
     lib.tns_pairs_mask.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, ci,
                                    pi, vp, ci, vp, vp, vp, vp]
     lib.tns_pairs_mask.restype = ci
+    lib.tns_pairs_nbrs_from_bits.argtypes = [vp, vp, ci, ci, ci, vp,
+                                             ctypes.c_longlong, vp, ci, pi,
+                                             pi, pi, pv, vp, vp]
+    lib.tns_pairs_nbrs_from_bits.restype = ci
     loaded.configured = True
     _PAIRS[str(build_dir)] = loaded
     return loaded
@@ -311,6 +318,16 @@ def f32_field(a: torch.Tensor, f: int) -> torch.Tensor:
     return a[f].view(torch.float32)
 
 
+def _chunk_slots(starts: torch.Tensor, lens: torch.Tensor, t0: int, t1: int,
+                 off: torch.Tensor):
+    """The candidate slots of tiles [t0, t1) in window order, each window
+    padded to ``off``'s length: the record index (0 where padded) and
+    ``ok`` (nt, n_win * len(off))."""
+    ok = off[None, None, :] < lens[t0:t1, :, None]
+    idx = torch.where(ok, starts[t0:t1, :, None] + off[None, None, :], 0)
+    return idx.reshape(t1 - t0, -1).long(), ok.reshape(t1 - t0, -1)
+
+
 def _plain_chunks(desc: torch.Tensor, q_t: torch.Tensor,
                   recs_t: torch.Tensor, n_win: int, tiles_cap: int,
                   r2: float | None, symmetric: bool):
@@ -337,10 +354,7 @@ def _plain_chunks(desc: torch.Tensor, q_t: torch.Tensor,
         r2_t = torch.tensor(r2, dtype=torch.float32, device=dev)
     for t0 in range(0, tiles_cap, per):
         t1 = min(t0 + per, tiles_cap)
-        nt = t1 - t0
-        ok = (off[None, None, :] < lens[t0:t1, :, None]).reshape(nt, width)
-        idx = (starts[t0:t1, :, None] + off[None, None, :]).reshape(nt, width)
-        idx = torch.where(ok, idx, 0).long()
+        idx, ok = _chunk_slots(starts, lens, t0, t1, off)
 
         def query(q):
             return _query_rows(q, t0, t1)
@@ -389,34 +403,45 @@ def pairs_nbrs_plain(desc: torch.Tensor, q_t: torch.Tensor,
     ``r2=None``, K2a through ``pairs_nbrs_fixed_plain``) over the
     candidates of ``_plain_chunks``.
 
-    Block b keeps the hits whose F_SET is ``cand_sets[b]`` (all of them
-    for ``None``), front-packs ``orig - cand_offsets[b]`` into rows of
-    ``k8s[b]`` with -1 fill, and counts exactly past the cap.  Dead tiles
-    (``FAT_COL == 2``) count 0.  Returns counts (n_blocks, tiles_cap *
-    128) and one (tiles_cap, k8, 128) array per block.
+    The hits go to ``_front_pack_blocks``.  Returns counts (n_blocks,
+    tiles_cap * 128) and one (tiles_cap, k8, 128) array per block.
     """
-    dev = desc.device
+    co, cs = recs_t[F_ORIG], recs_t[F_SET]
+    chunks = ((ch.t0, ch.t1, ch.hit, ch.cand(co), ch.cand(cs))
+              for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap,
+                                      r2, symmetric))
+    return _front_pack_blocks(chunks, tiles_cap, cand_sets, cand_offsets,
+                              k8s, desc.device)
+
+
+def _front_pack_blocks(chunks, tiles_cap: int, cand_sets, cand_offsets, k8s,
+                       dev):
+    """The output blocks of K2 and K5 from their hits, chunk by chunk:
+    ``chunks`` yields (t0, t1, hit, orig, set), the hits (nt, 128, width)
+    bool of tiles [t0, t1) and the candidates' orig and F_SET (nt, 1,
+    width), width in window order.  Block b keeps the hits whose F_SET is
+    ``cand_sets[b]`` (all of them for ``None``), front-packs ``orig -
+    cand_offsets[b]`` into rows of ``k8s[b]`` with -1 fill, and counts
+    exactly past the cap; tiles no chunk covers (the dead ones) count 0.
+    Returns counts (n_blocks, tiles_cap * 128) and one (tiles_cap, k8,
+    128) array per block."""
     blocks = list(zip(cand_sets, cand_offsets, k8s))
     counts = torch.zeros((len(blocks), tiles_cap * TILE), dtype=torch.int32,
                          device=dev)
     nbrs = [torch.full((tiles_cap, k8, TILE), -1, dtype=torch.int32,
                        device=dev) for k8 in k8s]
-    co, cs = recs_t[F_ORIG], recs_t[F_SET]
-    for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap, r2,
-                            symmetric):
-        nt = ch.t1 - ch.t0
-        sl = slice(ch.t0 * TILE, ch.t1 * TILE)
-        cand = ch.cand(co)
+    for t0, t1, hit, orig, c_set in chunks:
         for b, (set_id, offset, k8) in enumerate(blocks):
-            mb = ch.hit if set_id is None else ch.hit & (ch.cand(cs) == set_id)
-            counts[b, sl] = mb.sum(dim=2, dtype=torch.int32).reshape(-1)
+            mb = hit if set_id is None else hit & (c_set == set_id)
+            counts[b, t0 * TILE:t1 * TILE] = \
+                mb.sum(dim=2, dtype=torch.int32).reshape(-1)
             pos = torch.cumsum(mb, dim=2, dtype=torch.int32) - 1
             keep = mb & (pos < k8)
-            rows = torch.full((nt, TILE, k8 + 1), -1, dtype=torch.int32,
+            rows = torch.full((t1 - t0, TILE, k8 + 1), -1, dtype=torch.int32,
                               device=dev)
             rows.scatter_(2, torch.where(keep, pos, k8).long(),
-                          torch.where(keep, cand - offset, -1))
-            nbrs[b][ch.t0:ch.t1] = rows[:, :, :k8].transpose(1, 2)
+                          torch.where(keep, orig - offset, -1))
+            nbrs[b][t0:t1] = rows[:, :, :k8].transpose(1, 2)
     return counts, nbrs
 
 
@@ -485,6 +510,27 @@ def _pairs_nbrs(wrapper, desc, q_t, recs_t, n_win, tiles_cap, cand_sets,
     n_rec = _check_recs(recs_t, desc.device)
     _require(q_t, "q_t", (N_FIELDS, tiles_cap * TILE), desc.device)
     _check_n_win(n_win)
+    blocks = _check_blocks(cand_sets, cand_offsets, k8s)
+    if desc.device.type == "cpu":
+        return pairs_nbrs_plain(desc, q_t, recs_t, n_win, tiles_cap, *blocks,
+                                r2=r2, symmetric=symmetric)
+    lib = _cuda_lib(desc)
+    counts, nbrs, args = _block_outputs(blocks, tiles_cap, desc.device)
+    stream = torch.cuda.current_stream(desc.device).cuda_stream
+    err = lib.tns_pairs_nbrs(
+        desc.data_ptr(), q_t.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap,
+        n_win, float(r2 if r2 is not None else 0.0), int(r2 is None),
+        int(symmetric), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{err}")
+    wrapper.launches += 1
+    return counts, nbrs
+
+
+def _check_blocks(cand_sets, cand_offsets, k8s) -> tuple:
+    """The output blocks of K2b, K2c and K5 as three tuples of ints: 1 to
+    8 distinct candidate sets, each with an offset and a k8."""
     cand_sets, cand_offsets, k8s = (tuple(int(v) for v in a)
                                     for a in (cand_sets, cand_offsets, k8s))
     nb = len(cand_sets)
@@ -495,12 +541,16 @@ def _pairs_nbrs(wrapper, desc, q_t, recs_t, n_win, tiles_cap, cand_sets,
             f"one k8 each, got {cand_sets}, {cand_offsets}, {k8s}")
     for k8 in k8s:
         _check_k8(k8)
-    if desc.device.type == "cpu":
-        return pairs_nbrs_plain(desc, q_t, recs_t, n_win, tiles_cap,
-                                cand_sets, cand_offsets, k8s, r2=r2,
-                                symmetric=symmetric)
-    lib = _cuda_lib(desc)
-    dev = desc.device
+    return cand_sets, cand_offsets, k8s
+
+
+def _block_outputs(blocks: tuple, tiles_cap: int, dev) -> tuple:
+    """The outputs of a block kernel on the card and the launcher's block
+    arguments: counts (n_blocks, tiles_cap * 128), one row array per
+    block, and (n_blocks, set ids, offsets, k8s, row pointers, counts
+    pointer) as C values."""
+    cand_sets, cand_offsets, k8s = blocks
+    nb = len(cand_sets)
     counts = torch.empty((nb, tiles_cap * TILE), dtype=torch.int32,
                          device=dev)
     nbrs = [torch.empty((tiles_cap, k8, TILE), dtype=torch.int32, device=dev)
@@ -510,17 +560,8 @@ def _pairs_nbrs(wrapper, desc, q_t, recs_t, n_win, tiles_cap, cand_sets,
         return (ctypes.c_int * nb)(*vals)
 
     ptrs = (ctypes.c_void_p * nb)(*[t.data_ptr() for t in nbrs])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.tns_pairs_nbrs(
-        desc.data_ptr(), q_t.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap,
-        n_win, float(r2 if r2 is not None else 0.0), int(r2 is None),
-        int(symmetric), nb, ints(cand_sets), ints(cand_offsets), ints(k8s),
-        ptrs, counts.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
-                           f"{err}")
-    wrapper.launches += 1
-    return counts, nbrs
+    return counts, nbrs, (nb, ints(cand_sets), ints(cand_offsets), ints(k8s),
+                          ptrs, counts.data_ptr())
 
 
 def pairs_nbrs_sets(desc: torch.Tensor, q_t: torch.Tensor,
@@ -656,3 +697,91 @@ def pairs_mask(desc: torch.Tensor, q_t: torch.Tensor, recs_t: torch.Tensor,
 
 
 pairs_mask.launches = 0
+
+
+# ---------------------------------------------------------------- K5
+def pairs_nbrs_from_bits_plain(desc: torch.Tensor, recs_t: torch.Tensor,
+                               bits: torch.Tensor, cand_base: torch.Tensor,
+                               n_win: int, tiles_cap: int, cand_sets,
+                               cand_offsets, k8s):
+    """Plain version of K5: K4's hit bits (``pairs_mask_plain`` has the
+    layout) unpacked into K2b's output blocks.  Candidate k of live tile
+    t, in window order over the clipped windows, is record ``desc[t, w] +
+    o`` and owns row ``cand_base[t] + k``; query lane l hits it when bit
+    ``l % 32`` of the row's word ``l // 32`` is set (rows past ``bits``
+    read as zero).  The hits go to ``_front_pack_blocks``: block b keeps
+    those whose F_SET is ``cand_sets[b]``, front-packs ``orig -
+    cand_offsets[b]`` in window order with -1 fill and counts exactly
+    past the cap; dead tiles count 0."""
+    dev = desc.device
+    n_rows = bits.shape[0]
+    starts, lens = clipped_windows(desc, recs_t.shape[1], n_win, tiles_cap)
+    lmax = int(lens.max()) if tiles_cap > 0 else 0
+    # a zero row past the last, read by padding and by rows past ``bits``
+    words = torch.cat([bits, bits.new_zeros((1, MASK_WORDS))])
+    win_base = cand_base[:tiles_cap, None] \
+        + (torch.cumsum(lens, 1, dtype=torch.int64) - lens)
+    off = torch.arange(lmax, dtype=torch.int32, device=dev)
+    shift = torch.arange(32, dtype=torch.int32, device=dev)
+    co, cs = recs_t[F_ORIG], recs_t[F_SET]
+    per = max(1, _PLAIN_CHUNK_ELEMS // (TILE * n_win * max(lmax, 1)))
+
+    def chunks():
+        for t0 in range(0, tiles_cap if lmax else 0, per):
+            t1 = min(t0 + per, tiles_cap)
+            idx, ok = _chunk_slots(starts, lens, t0, t1, off)
+            row = (win_base[t0:t1, :, None] + off[None, None, :]) \
+                .reshape(t1 - t0, -1)
+            row = torch.where(ok & (row < n_rows), row, n_rows)
+            lanes = (words[row][..., None] >> shift) & 1
+            hit = (lanes.reshape(*row.shape, TILE) != 0).transpose(1, 2) \
+                & ok[:, None, :]
+            yield t0, t1, hit, co[idx][:, None, :], cs[idx][:, None, :]
+
+    return _front_pack_blocks(chunks(), tiles_cap, cand_sets, cand_offsets,
+                              k8s, dev)
+
+
+def pairs_nbrs_from_bits(desc: torch.Tensor, recs_t: torch.Tensor,
+                         bits: torch.Tensor, cand_base: torch.Tensor,
+                         n_win: int, tiles_cap: int, cand_sets, cand_offsets,
+                         k8s):
+    """K5, the second pass of split staging: K4's ``bits`` and
+    ``cand_base`` (from ``pairs_mask`` on the same descriptors and
+    records) into K2b's contract, counts (n_blocks, tiles_cap * 128) int32
+    and per block rows (tiles_cap, k8s[b], 128) int32 of set-local
+    indices.  The rows of an active pair equal the fused kernel's slot for
+    slot; a query whose set does not search ``cand_sets[b]`` has no bits,
+    so it counts 0 there where K2b would fill its block.  Rows of dead
+    tiles are undefined on the card, as with K2."""
+    _check_desc(desc, tiles_cap)
+    n_rec = _check_recs(recs_t, desc.device)
+    _check_n_win(n_win)
+    if bits.dim() != 2 or bits.shape[1] != MASK_WORDS:
+        raise ValueError(f"bits must be (rows, {MASK_WORDS}), got "
+                         f"{tuple(bits.shape)}")
+    _require(bits, "bits", tuple(bits.shape), desc.device)
+    if cand_base.dtype != torch.int64 \
+            or tuple(cand_base.shape) != (tiles_cap + 1,) \
+            or not cand_base.is_contiguous() \
+            or cand_base.device != desc.device:
+        raise ValueError(f"cand_base must be a contiguous int64 "
+                         f"({tiles_cap + 1},) tensor on {desc.device}")
+    blocks = _check_blocks(cand_sets, cand_offsets, k8s)
+    if desc.device.type == "cpu":
+        return pairs_nbrs_from_bits_plain(desc, recs_t, bits, cand_base,
+                                          n_win, tiles_cap, *blocks)
+    lib = _cuda_lib(desc)
+    counts, nbrs, args = _block_outputs(blocks, tiles_cap, desc.device)
+    stream = torch.cuda.current_stream(desc.device).cuda_stream
+    err = lib.tns_pairs_nbrs_from_bits(
+        desc.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap, n_win,
+        bits.data_ptr(), bits.shape[0], cand_base.data_ptr(), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_nbrs_from_bits launch failed: CUDA error "
+                           f"{err}")
+    pairs_nbrs_from_bits.launches += 1
+    return counts, nbrs
+
+
+pairs_nbrs_from_bits.launches = 0
