@@ -14,14 +14,17 @@ then K5) at config 1, each call with every set's points moved by up to
 beforehand), so the temporal-coherence carry rebuilds in every call as
 in ``chip_smoke.py``'s paths; and for config 1's ``run()`` and
 ``make_step_fn(reuse=True)`` step at static positions (the carry reused,
-no prep), after two settling calls, it prints:
+no prep); and for the fallbacks, config 1's ``run()`` on the tile path
+(``set_use_pallas(False)``), ten candidate sets (config 3's boundary as
+9 rigid bodies) and config 1's ``run_scalar()``, each moving, after two
+settling calls, it prints:
 
 - the call's host time, synchronised, median over 10 calls;
 - ``torch.profiler``'s device time over 5 calls, by kernel name and per
   call, the device's busy time in that window and its idle share;
-- the pairs kernel's work: live tiles and distance tests (128 lanes times
-  the windowed candidates of each live tile), from the path's
-  descriptors;
+- the pairs kernel's work (the tile path's too): live tiles and distance
+  tests (128 lanes times the windowed candidates of each live tile),
+  from the path's descriptors; none for the pipeline;
 - the peak device memory.
 
 Every time is the engine's own entry point; nothing re-sequences its
@@ -85,7 +88,7 @@ def profile(eng, label: str, card: str, call=None,
     the engine's own ``call`` (``run()`` by default), after two settling
     calls; with ``moving`` each call first moves the points
     (``moved_sets``).  ``kernel`` names the pairs kernel of the path (by
-    default the one ``run()`` takes)."""
+    default the one ``run()`` takes; an empty name: no window work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -140,8 +143,10 @@ def profile(eng, label: str, card: str, call=None,
             / N_PROFILED
             for k in ("expand_query_tiles_kernel", "pairs_nbrs_fixed_kernel",
                       "pairs_nbrs_kernel", "pairs_reduce_kernel",
-                      "pairs_mask_kernel", "pairs_nbrs_from_bits_kernel")}
-    print(f"per call: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K2a "
+                      "pairs_mask_kernel", "pairs_nbrs_from_bits_kernel",
+                      "expand_records_kernel")}
+    print(f"per call: K1 {ours['expand_query_tiles_kernel']:.4f} ms, K1r "
+          f"{ours['expand_records_kernel']:.4f} ms, K2a "
           f"{ours['pairs_nbrs_fixed_kernel']:.4f} ms, K2b/K2c "
           f"{ours['pairs_nbrs_kernel']:.4f} ms, K3 "
           f"{ours['pairs_reduce_kernel']:.4f} ms, K4 "
@@ -154,6 +159,8 @@ def profile(eng, label: str, card: str, call=None,
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
 
+    if kernel == "":
+        return
     _, a = settled_inputs(eng)
     live = int((a.desc[:a.tiles_cap, FAT_COL] != 2).sum())
     tests = window_tests(a)
@@ -169,9 +176,9 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import (card_line, config3_data, config3_engine,
-                            config4_data, config4_engine, density_fn,
-                            make_engine)
+    from chip_smoke import (N_BODIES, bodies_engine, card_line, config3_data,
+                            config3_engine, config4_data, config4_engine,
+                            density_fn, make_engine)
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -209,6 +216,18 @@ def main() -> int:
 
     profile(eng, "config 1 make_step_fn(reuse=True), static positions",
             card, call=static_step, moving=False)
+    del eng, step, state, carried
+    tile = make_engine(pts, RADIUS)
+    tile.set_use_pallas(False)
+    profile(tile, "config 1 run(), tile path", card, kernel="tile search")
+    del tile
+    fluid, boundary = config3_data(dev)
+    profile(bodies_engine(fluid, torch.tensor_split(boundary, N_BODIES)),
+            f"{N_BODIES + 1} candidate sets, tile path", card,
+            kernel="tile search")
+    scalar = make_engine(pts, RADIUS)
+    profile(scalar, "config 1 run_scalar()", card, call=scalar.run_scalar,
+            kernel="")
     return 0
 
 

@@ -63,7 +63,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    by 1e-4 (the rebuilds counted, the last step against a fresh engine's
    ``run()`` and the cKDTree sample); then the density step
    (``make_step_fn(reduce=...)``) and the mask step on static positions,
-   equal to ``run_reduce`` and ``run_mask``.  Host ms per step, medians.
+   equal to ``run_reduce`` and ``run_mask``.  Host ms per step, medians;
+12. the tile path at config 1 (``set_use_pallas(False)``): K1r against
+   its plain version bit for bit on a settled tile-path engine's
+   padded-layout structures, its query tiles equal to K1's, with its time,
+   the plain time, one ``index_select`` of the same records and its bound;
+   a settling ``run()`` and 5 jittered ones (K1r once in each, no pairs
+   kernel), 32,759,462 pairs at seed 0, and every point's count and row
+   equal to the fused ``run()``'s on the last positions;
+13. ten candidate sets (config 3's data with its boundary split by index
+   into 9 sets, one per rigid body; the fluid searches itself and all 9):
+   the tile path, a settling and 3 jittered ``run()``s, the fluid->fluid
+   rows equal to config 3's fused rows and the union of the 9
+   fluid->body rows, rebased, equal to config 3's fluid->boundary rows,
+   as sets, for every fluid point, and cKDTree samples of both;
+14. the search-based pipeline: ``run_scalar()`` at config 1 (a settling
+   and 3 jittered calls, 32,759,462 pairs, every point equal to the
+   fused ``run()``) and at config 4 (equal to its fused ``run()``); a
+   variable cloud at a stencil of 4 cells (``run()`` raises, ``run_scalar``
+   holds a cKDTree sample; ``make_step_fn(fast=False)`` equals it); a
+   sparse cloud whose dense table overflows at its cap and takes the
+   pipeline (a cKDTree sample); ``set_scalar_double_accum`` on a small
+   cloud against float64 and float32 numpy predicates.  No kernel
+   launches on the pipeline.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
@@ -106,7 +128,8 @@ FP32_OPS_PER_S = 67e12
 # float32 operations per distance test: 3 sub, 3 mul, 2 add, 1 compare;
 # symmetric search adds the compare against r_j^2
 OPS_PER_TEST = 9
-SOURCE_LINES = {"expand_query_tiles": 276, "pairs_nbrs_fixed": 445,
+SOURCE_LINES = {"expand_query_tiles": 276, "expand_records": 276,
+                "pairs_nbrs_fixed": 445,
                 "pairs_nbrs_sets": 445, "pairs_nbrs_variable": 445,
                 "pairs_reduce": 671, "pairs_mask": 779,
                 "pairs_nbrs_from_bits": 500}
@@ -118,6 +141,12 @@ H2 = np.float32(RADIUS * RADIUS)
 REDUCE_RTOL = 3e-5      # kernel vs plain: float32 sums in another order
 DENSITY_RTOL = 5e-5     # vs a float64 sum over run()'s lists (the bench's)
 N_SMALL_SETS = (1500, 1000, 800)
+N_SLOW_RUNS = 3         # phases 13, 14: jittered calls of the slower paths
+N_BODIES = 9            # phase 13: boundary sets, one per rigid body
+N_WIDE = 50_000         # phase 14: radii uniform in R_WIDE, cell 1.5 r_min
+R_WIDE = (0.02, 0.1)
+N_CLUSTER = 50_000      # phase 14: points per cluster of the sparse cloud
+BOX_CELLS = 1000        # ... at opposite corners of a box this many cells
 
 
 # ------------------------------------------------ the reduce callbacks
@@ -289,11 +318,11 @@ def config4_engine(pts_t, radii_t):
     return eng
 
 
-def settled_inputs(eng, payload=None):
+def settled_inputs(eng, payload=None, padded: bool = False):
     """The kernels' inputs at a settled engine's caps: one ``run()``
     settles them, then its prep is rebuilt at those caps (``payload``
-    (n, 2) rides the records).  Returns (carry,
-    ``fastpath.KernelInputs``)."""
+    (n, 2) rides the records; ``padded``: the tile path's layout).
+    Returns (carry, ``fastpath.KernelInputs``)."""
     from treensearch_tpu_torch.ops import fastpath as fp
     eng.run()
     points, radii = eng._assemble()
@@ -301,7 +330,7 @@ def settled_inputs(eng, payload=None):
     cell = eng._effective_cell_size(bounds)
     cfg = eng._make_cfg(eng._stencil_w(cell, bounds))
     knobs = eng._knobs()
-    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii)
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii, padded)
     flags = [int(carry.dense_overflow), int(carry.rows_overflow),
              int(carry.tile_overflow)]
     if any(flags):
@@ -855,17 +884,19 @@ def pairs_kernels():
     from treensearch_tpu_torch.ops import reduce as red
     return (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed,
             pairs.pairs_nbrs_sets, pairs.pairs_nbrs_variable,
-            red.pairs_reduce, pairs.pairs_mask, pairs.pairs_nbrs_from_bits)
+            red.pairs_reduce, pairs.pairs_mask, pairs.pairs_nbrs_from_bits,
+            pairs.expand_records)
 
 
 def drive(eng, label: str, path: tuple, jitter_step, card: str, call=None,
-          pairs_of=None, once: bool = False) -> dict:
-    """One settling call and N_RUNS jittered calls of a user's entry point
-    (``call``, by default ``eng.run``), with every kernel's count set to 0
-    just before and read just after; on the card each kernel of ``path``
-    must launch in every call (exactly once in each jittered call with
-    ``once``) and no other kernel at all.  ``pairs_of(result)`` is a
-    call's pair total (by default from ``run()``'s counts)."""
+          pairs_of=None, once: bool = False, runs: int = N_RUNS) -> dict:
+    """One settling call and ``runs`` jittered calls of a user's entry
+    point (``call``, by default ``eng.run``), with every kernel's count
+    set to 0 just before and read just after; on the card each kernel of
+    ``path`` must launch in every call (exactly once in each jittered call
+    with ``once``) and no other kernel at all (an empty ``path``: no
+    kernel).  ``pairs_of(result)`` is a call's pair total (by default from
+    ``run()``'s counts)."""
     import torch
     kernels = pairs_kernels()
     dev = eng.device
@@ -886,7 +917,7 @@ def drive(eng, label: str, path: tuple, jitter_step, card: str, call=None,
         sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
         grew = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
-        on_path = [grew[k.__name__] for k in path]
+        on_path = [grew[k.__name__] for k in path] or [1]
         if dev.type == "cuda" and (min(on_path) < 1 or (
                 once and jittered and max(on_path) != 1)):
             raise AssertionError(f"{label}: a kernel did not launch (once) "
@@ -898,7 +929,7 @@ def drive(eng, label: str, path: tuple, jitter_step, card: str, call=None,
     settle_ms, pairs0 = timed_run(False)
     gen = torch.Generator(device=dev).manual_seed(3)
     times, pair_counts = [], []
-    for _ in range(N_RUNS):
+    for _ in range(runs):
         jitter_step(lambda shape: ((torch.rand(shape, generator=gen,
                                                device=dev) * 2 - 1)
                                    * JITTER).to(torch.float32))
@@ -1240,23 +1271,29 @@ def run_steps(step, state, points_of, label: str, card: str, path: tuple,
 def same_lists(pair, eng, label: str) -> int:
     """A step's pair 0-0 against ``eng``'s ``run()`` lists: counts equal
     and rows equal as sets.  Returns the pair count."""
-    import torch
     from treensearch_tpu_torch.ops import fastpath as fp
-    counts, nbrs = eng.get_neighbors(0, 0)
-    if not torch.equal(pair["counts"], counts):
-        raise AssertionError(f"{label}: counts differ from run()'s")
-    rows = fp.materialize_nbrs(pair)
-    width = max(rows.shape[1], nbrs.shape[1])
-    big = torch.iinfo(torch.int32).max
+    return equal_as_sets((pair["counts"], fp.materialize_nbrs(pair)),
+                         eng.get_neighbors(0, 0), f"{label} vs run()")
 
-    def as_sets(r):
+
+def equal_as_sets(a, b, label: str) -> int:
+    """Two ``(counts, rows)`` of the same queries: counts equal and rows
+    equal as sets for every query.  Returns the pair count."""
+    import torch
+    (c_a, n_a), (c_b, n_b) = a, b
+    if not torch.equal(c_a, c_b):
+        raise AssertionError(f"{label}: counts differ")
+    big = torch.iinfo(torch.int32).max
+    width = max(n_a.shape[1], n_b.shape[1])
+
+    def as_sets(c, r):
         j = torch.arange(r.shape[1], device=r.device)[None, :]
-        r = torch.sort(torch.where(j < counts[:, None], r, big), dim=1).values
+        r = torch.sort(torch.where(j < c[:, None], r, big), dim=1).values
         return torch.nn.functional.pad(r, (0, width - r.shape[1]), value=big)
 
-    if not torch.equal(as_sets(rows), as_sets(nbrs)):
-        raise AssertionError(f"{label}: rows differ from run()'s as sets")
-    return int(counts.sum(dtype=torch.int64))
+    if not torch.equal(as_sets(c_a, n_a), as_sets(c_b, n_b)):
+        raise AssertionError(f"{label}: rows differ as sets")
+    return int(c_a.sum(dtype=torch.int64))
 
 
 def run_carry_path(pts_t, mass_t, card: str) -> dict:
@@ -1359,6 +1396,311 @@ def run_carry_path(pts_t, mass_t, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------- phases 12-14: fallbacks
+def k1r_bound(desc, tiles_cap: int, slack: int) -> tuple:
+    """(bytes, ms): each live slot's record read once (32 B), every
+    slot's query record and padded record written (64 B), the slack's
+    padded records (32 B each) and two descriptor words per tile; HBM."""
+    live = int(live_slots(desc, tiles_cap).sum())
+    moved = 32 * live + 64 * 128 * tiles_cap + 32 * slack + 8 * tiles_cap
+    return moved, moved / HBM_BYTES_PER_S * 1e3
+
+
+def check_k1r(eng, dev) -> dict:
+    """Phase 12: K1r against its plain version, bit for bit, on a settled
+    tile-path engine's padded-layout structures; its query tiles against
+    K1's; its time, the plain time, one ``index_select`` of the same
+    records into the padded layout and its bound."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops import pairs
+    _, a = settled_inputs(eng, padded=True)
+    n = eng.get_total_n_points()
+    desc, recs, tiles_cap = a.desc, a.recs_t, a.tiles_cap
+    slack = fp._statics(eng._make_cfg(1), eng._knobs())["slack"]
+
+    def k1r():
+        return pairs.expand_records(desc, recs, tiles_cap, n, slack)
+
+    def k1r_plain():
+        return pairs.expand_records_plain(desc, recs, tiles_cap, n, slack)
+
+    (q_k, r_k), (q_p, r_p) = k1r(), k1r_plain()
+    if not (torch.equal(q_k, q_p) and torch.equal(r_k, r_p)):
+        raise AssertionError(
+            f"expand_records: {int((q_k != q_p).sum())} query words and "
+            f"{int((r_k != r_p).sum())} record words differ")
+    if not torch.equal(q_k, pairs.expand_query_tiles(desc, recs, tiles_cap,
+                                                      n)):
+        raise AssertionError("expand_records: query tiles differ from K1's")
+    err = max(int((q_k.long() - q_p.long()).abs().max()),
+              int((r_k.long() - r_p.long()).abs().max()))
+    rec = {"name": "expand_records", "max_abs_err": err}
+    print(f"expand_records: q_t and rec_pad bit-equal to the plain version "
+          f"and q_t to K1's over {tiles_cap} tiles ({int(live_slots(desc, tiles_cap).sum())} "
+          f"live slots, slack {slack})", flush=True)
+    timed_turns(rec, k1r, k1r_plain, dev)
+    # the yardstick: one gather of the slot-major records (and a sentinel
+    # row) into the padded layout, its index made beforehand
+    lane = torch.arange(128, device=dev)
+    src = desc[:tiles_cap, 62, None].long() + lane[None, :]
+    src = torch.where(live_slots(desc, tiles_cap).view(tiles_cap, 128), src,
+                      n).reshape(-1)
+    src = torch.cat([src, src.new_full((slack,), n)])
+    rows = torch.cat([recs, pairs._sentinel(n, dev)[:, None]], 1).t() \
+        .contiguous()
+    if not torch.equal(torch.index_select(rows, 0, src), r_k):
+        raise AssertionError("expand_records: index_select yardstick "
+                             "differs")
+    rec["library_ms"] = median_ms(lambda: torch.index_select(rows, 0, src),
+                                  dev)
+    moved, rec["bound_ms"] = k1r_bound(desc, tiles_cap, slack)
+    rec["bound_by"] = "bytes"
+    print(f"expand_records: index_select {rec['library_ms']:.4f} ms; bound "
+          f"{rec['bound_ms']:.4f} ms ({moved} B over HBM)", flush=True)
+    return rec
+
+
+def run_tile_path(pts_t, card: str) -> tuple:
+    """Phase 12: K1r, then config 1's ``run()`` on the tile path against
+    the fused ``run()``."""
+    from treensearch_tpu_torch.ops import pairs
+    n = pts_t.shape[0]
+    eng = make_engine(pts_t, RADIUS)
+    eng.set_use_pallas(False)
+    rec = check_k1r(eng, pts_t.device)
+    eng = make_engine(pts_t, RADIUS)
+    eng.set_use_pallas(False)
+    out = drive(eng, "config 1 tile path", (pairs.expand_records,),
+                _jitter_one_set(eng, pts_t), card, once=True)
+    if n == N and out["pairs0"] != TPU_PAIRS_SEED0:
+        raise AssertionError(f"config 1 tile path: {out['pairs0']} pairs, "
+                             f"not {TPU_PAIRS_SEED0}")
+    fused = make_engine(eng._sets[0].points, RADIUS)
+    fused.run()
+    total = equal_as_sets(eng.get_neighbors(0, 0), fused.get_neighbors(0, 0),
+                          "config 1 tile path")
+    print(f"config 1 tile path: every point's count and row equal to the "
+          f"fused run()'s on the last positions ({total} pairs; window cap "
+          f"{eng._wcap}, tiles {eng._tiles_cap})", flush=True)
+    return rec, out
+
+
+def bodies_engine(fluid_t, bodies):
+    """Phase 13: the fluid and one boundary set per rigid body; the fluid
+    searches itself and every body, the bodies search nothing."""
+    from treensearch_tpu_torch import TreeNSearch
+    eng = TreeNSearch(device=fluid_t.device)
+    eng.add_point_set(fluid_t)
+    for b in bodies:
+        eng.add_point_set(b)
+    eng.set_search_radius(R3)
+    for j in range(len(bodies) + 1):
+        eng.set_active_search(0, j, True)
+    return eng
+
+
+def run_bodies(fluid_t, boundary_t, card: str) -> dict:
+    """Phase 13: ten candidate sets on the tile path against config 3's
+    fused ``run()``, per point, and cKDTree samples."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    state = {"f": fluid_t,
+             "b": list(torch.tensor_split(boundary_t, N_BODIES))}
+    eng = bodies_engine(state["f"], state["b"])
+
+    def jitter(noise):
+        state["f"] = state["f"] + noise(tuple(state["f"].shape))
+        state["b"] = [b + noise(tuple(b.shape)) for b in state["b"]]
+        eng.resize_point_set(0, state["f"])
+        for k, b in enumerate(state["b"]):
+            eng.resize_point_set(k + 1, b)
+
+    out = drive(eng, f"{N_BODIES + 1} candidate sets", (pairs.expand_records,),
+                jitter, card, once=True, runs=N_SLOW_RUNS)
+    boundary = torch.cat(state["b"])
+    ref = config3_engine(state["f"], boundary)
+    ref.run()
+    n_ff = equal_as_sets(eng.get_neighbors(0, 0), ref.get_neighbors(0, 0),
+                         "bodies fluid->fluid")
+    # the union of the fluid->body rows, rebased to the whole boundary
+    counts, rows, off = 0, [], 0
+    for k, b in enumerate(state["b"]):
+        c, r = eng.get_neighbors(0, k + 1)
+        j = torch.arange(r.shape[1], device=r.device)[None, :]
+        rows.append(torch.where(j < c[:, None], r + off, -1))
+        counts = counts + c
+        off += b.shape[0]
+    rows = torch.sort(torch.cat(rows, dim=1), dim=1, descending=True).values
+    union = (counts, rows)
+    n_fb = equal_as_sets(union, ref.get_neighbors(0, 1),
+                         "bodies fluid->boundary")
+    f, bd = state["f"].cpu().numpy(), boundary.cpu().numpy()
+    check_sample(f, f, *eng.get_neighbors(0, 0), R3, fixed_rule(R3), True,
+                 "bodies fluid->fluid")
+    check_sample(f, bd, *union, R3, fixed_rule(R3), False,
+                 "bodies fluid->boundary (union of 9)")
+    print(f"{N_BODIES + 1} candidate sets: fluid->fluid ({n_ff} pairs) and "
+          f"the union of the {N_BODIES} fluid->body pairs ({n_fb} pairs) "
+          f"equal to config 3's fused run() for all {f.shape[0]} fluid "
+          "points", flush=True)
+    return out
+
+
+def check_double_accum(device) -> None:
+    """Phase 14: ``run_scalar`` with and without float64 d^2 on a small
+    cloud holding a pair that the two precisions decide differently,
+    against the numpy predicates of each."""
+    from treensearch_tpu_torch import TreeNSearch
+    r = 0.1
+    r2 = np.float32(r) * np.float32(r)
+    p0 = np.float32(0.25)
+    rng = np.random.default_rng(42)
+    off = None
+    while off is None:
+        d = rng.normal(size=(100_000, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        scale = np.float64(r) * (1 + rng.uniform(-6e-8, 6e-8, (d.shape[0], 1)))
+        o = (p0 + (d * scale).astype(np.float32)).astype(np.float32) - p0
+        in32 = (o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]) + o[:, 2] * o[:, 2] \
+            <= r2
+        o64 = o.astype(np.float64)
+        in64 = (o64[:, 0] * o64[:, 0] + o64[:, 1] * o64[:, 1]) \
+            + o64[:, 2] * o64[:, 2] <= np.float64(r2)
+        flip = np.nonzero(in32 != in64)[0]
+        off = o[flip[0]] if flip.size else None
+    pts = np.concatenate([[np.full(3, p0, np.float32),
+                           np.full(3, p0, np.float32) + off],
+                          rng.uniform(0, 1, (N_SMALL, 3))]).astype(np.float32)
+    flips = 0
+    for f64 in (False, True):
+        eng = TreeNSearch(device=device)
+        eng.add_point_set(pts)
+        eng.set_search_radius(r)
+        eng.set_all_searches(True)
+        eng.set_scalar_double_accum(f64)
+        eng.run_scalar()
+        counts, nbrs = (t.cpu().numpy() for t in eng.get_neighbors(0, 0))
+        # float64: the coordinates promoted, r^2 the float32 square
+        # promoted, as the pipeline computes it
+        p = pts.astype(np.float64) if f64 else pts
+        m = _d2(p, p) <= (np.float64(r2) if f64 else r2)
+        np.fill_diagonal(m, False)
+        for i, row in enumerate(m):
+            if counts[i] != row.sum() or not np.array_equal(
+                    np.sort(nbrs[i, :counts[i]]), np.nonzero(row)[0]):
+                raise AssertionError(f"double accum {f64}: point {i} differs "
+                                     "from its numpy predicate")
+        flips += int(1 in nbrs[0, :counts[0]])
+    if flips != 1:
+        raise AssertionError("double accum: the boundary pair was not "
+                             "decided differently by the two modes")
+    print(f"set_scalar_double_accum: {N_SMALL + 2} points equal to the "
+          "float32 and float64 numpy predicates, the boundary pair "
+          "decided differently", flush=True)
+
+
+def run_pipeline_path(pts_t, card: str, data4: tuple) -> dict:
+    """Phase 14: ``run_scalar`` at configs 1 and 4 against the fused
+    ``run()``, the wide-stencil and sparse clouds against cKDTree, the
+    pipeline's step and the float64 mode."""
+    import torch
+    from treensearch_tpu_torch import TreeNSearch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    dev = pts_t.device
+    n = pts_t.shape[0]
+    out = {}
+    eng = make_engine(pts_t, RADIUS)
+    out["config 1"] = drive(eng, "config 1 run_scalar", (),
+                            _jitter_one_set(eng, pts_t), card,
+                            call=eng.run_scalar, runs=N_SLOW_RUNS)
+    if n == N and out["config 1"]["pairs0"] != TPU_PAIRS_SEED0:
+        raise AssertionError("config 1 run_scalar: pair count "
+                             f"{out['config 1']['pairs0']}")
+    fused = make_engine(eng._sets[0].points, RADIUS)
+    fused.run()
+    total = equal_as_sets(eng.get_neighbors(0, 0), fused.get_neighbors(0, 0),
+                          "config 1 run_scalar")
+    print(f"config 1 run_scalar: every point equal to the fused run() on the "
+          f"last positions ({total} pairs; candidate cap {eng._cand_cap}, "
+          f"path {eng._last_stats['path']})", flush=True)
+    del eng, fused
+
+    p4, r4 = data4
+    eng = config4_engine(p4, r4)
+    state = {"p": p4}
+
+    def jitter4(noise):
+        state["p"] = state["p"] + noise(tuple(state["p"].shape))
+        eng.resize_point_set(0, state["p"], r4)
+
+    out["config 4"] = drive(eng, "config 4 run_scalar", (), jitter4, card,
+                            call=eng.run_scalar, runs=N_SLOW_RUNS)
+    fused = config4_engine(state["p"], r4)
+    fused.run()
+    total = equal_as_sets(eng.get_neighbors(0, 0), fused.get_neighbors(0, 0),
+                          "config 4 run_scalar")
+    print(f"config 4 run_scalar: every point equal to the fused run() "
+          f"({total} pairs)", flush=True)
+    del eng, fused
+
+    rng = np.random.default_rng(6)
+    pts = rng.uniform(0, 1, (N_WIDE, 3)).astype(np.float32)
+    rad = rng.uniform(*R_WIDE, N_WIDE).astype(np.float32)
+    eng = TreeNSearch(device=dev)
+    eng.add_point_set(torch.from_numpy(pts).to(dev),
+                      torch.from_numpy(rad).to(dev))
+    eng.set_all_searches(True)
+    try:
+        eng.run()
+    except ValueError as e:
+        if "run_scalar()" not in str(e):
+            raise
+        print(f"wide stencil: run() raises: {e}", flush=True)
+    else:
+        raise AssertionError("wide stencil: run() did not raise")
+    eng.run_scalar()
+    w = eng._last_stats["stencil_w"]
+    if w < 4:
+        raise AssertionError(f"wide stencil: W = {w}")
+    counts, nbrs = eng.get_neighbors(0, 0)
+    r2 = rad * rad
+    check_sample(pts, pts, counts, nbrs, float(rad.max()),
+                 lambda i, c, d2: (d2 <= r2[i]) | (d2 <= r2[c]), True,
+                 f"wide stencil (W = {w}) run_scalar")
+    step, sstate = eng.make_step_fn(fast=False)
+    sol, _ = step(sstate, eng._assemble()[0], eng._assemble()[1])
+    fp_pair = sol["pairs"]["0-0"]
+    if not (torch.equal(fp_pair["counts"], counts)
+            and torch.equal(fp_pair["nbrs"], nbrs)):
+        raise AssertionError("make_step_fn(fast=False) differs from "
+                             "run_scalar()")
+    print("make_step_fn(fast=False): counts and rows equal to run_scalar()'s "
+          "slot for slot", flush=True)
+    del eng, step, sol
+
+    cell = 1.5 * RADIUS
+    side = BOX_CELLS * cell
+    lo = rng.uniform(0, 10 * cell, (N_CLUSTER, 3))
+    pts = np.concatenate([lo, side - lo]).astype(np.float32)
+    eng = make_engine(torch.from_numpy(pts).to(dev), RADIUS)
+    eng.set_cell_size(cell)
+    before = fp._prep.calls
+    eng.run()
+    if eng._last_stats["path"] != "reference":
+        raise AssertionError(f"sparse cloud: path {eng._last_stats}")
+    counts, nbrs = eng.get_neighbors(0, 0)
+    check_sample(pts, pts, counts, nbrs, RADIUS, fixed_rule(RADIUS), True,
+                 "sparse cloud (pipeline after the dense cap)")
+    print(f"sparse cloud: {pts.shape[0]} points in a box {BOX_CELLS} cells "
+          f"wide, dense table at its cap {eng._dense_cap} after "
+          f"{fp._prep.calls - before} preps, then the pipeline "
+          f"({int(counts.sum(dtype=torch.int64))} pairs)", flush=True)
+    del eng
+    check_double_accum(dev)
+    return out
+
+
 def build_all() -> None:
     """Phase 2: ``csrc/pairs.cu`` and K3 for each of CALLBACKS, one nvcc
     each, all started together."""
@@ -1417,17 +1759,24 @@ def main() -> int:
                                 config4_data(dev))
     steps = run_carry_path(pts_t, torch.from_numpy(mass).to(dev),  # 11
                            card)
-    kernels += [k2b, k2c, k3, k4, k5]
+    k1r, main12 = run_tile_path(pts_t, card)                # phase 12
+    main13 = run_bodies(*config3_data(dev), card)           # phase 13
+    main14 = run_pipeline_path(pts_t, card, config4_data(dev))  # 14
+    kernels += [k2b, k2c, k3, k4, k5, k1r]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,
                 "pairs_reduce": main7, "pairs_mask": main8,
-                "pairs_nbrs_from_bits": main10}
+                "pairs_nbrs_from_bits": main10, "expand_records": main12}
     print(f"launches on the reduce paths: n_out=1 {main7['launches']}, "
           f"n_out=4 {main7b['launches']}", flush=True)
     print(f"config 1 run(): split staging {main10['ms']:.3f} ms/call, fused "
           f"{main1['ms']:.3f} ms/call; make_step_fn(reuse=True) ms/step: "
           + ", ".join(f"{k} {v['ms']:.3f}" for k, v in steps.items())
           + f" ({card})", flush=True)
+    print(f"fallbacks ms/call: config 1 tile path {main12['ms']:.3f}, "
+          f"{N_BODIES + 1} candidate sets {main13['ms']:.3f}, run_scalar "
+          f"config 1 {main14['config 1']['ms']:.3f}, run_scalar config 4 "
+          f"{main14['config 4']['ms']:.3f} ({card})", flush=True)
     sources = {"pairs_reduce": red.TEMPLATE}
     out = []
     for rec in kernels:

@@ -327,8 +327,18 @@ def test_variable_step_needs_radii_and_fast_false_is_not_ported():
     step, state = eng.make_step_fn(reuse=True)
     with pytest.raises(ValueError, match="radii"):
         step(state, torch.from_numpy(pts))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.make_step_fn(fast=False)
+    # make_step_fn(fast=False), once not ported, is the search-based
+    # pipeline's step: it needs the radii too, and with them it gives
+    # run_scalar's lists
+    pstep, pstate = eng.make_step_fn(fast=False)
+    with pytest.raises(ValueError, match="radii"):
+        pstep(pstate, torch.from_numpy(pts))
+    sol, _ = pstep(pstate, torch.from_numpy(pts),
+                   torch.from_numpy(np.asarray(eng._sets[0].radii)))
+    eng.run_scalar()
+    counts, nbrs = eng.get_neighbors(0, 0)
+    assert torch.equal(sol["pairs"]["0-0"]["counts"], counts)
+    assert torch.equal(sol["pairs"]["0-0"]["nbrs"], nbrs)
 
 
 def test_carried_step_of_no_points_raises():

@@ -13,7 +13,10 @@ K2c; dead tiles count 0.  K4: bits equal word for word.  K5: counts equal
 on every slot, rows slot for slot on live tiles, and per active pair the
 fused kernel's.  K3: integer-valued
 legs equal, the others within 3e-5 of the sum of the terms' magnitudes
-(only the order of the float32 sum differs).
+(only the order of the float32 sum differs).  K1r: query tiles and
+padded records bit-equal.  The tile path and the search-based pipeline
+on the card: neighbor sets equal to brute force, and to the CPU engine's
+rows slot for slot.
 """
 
 import numpy as np
@@ -523,3 +526,84 @@ def test_k5_truncated_rows_wide_windows_and_short_bits(dev):
     assert int(c.max()) > 8
     # rows past the bits read as zero on the card as in the plain version
     _k5_vs_plain(a, bits[:bits.shape[0] // 3].contiguous(), base, k8s=(8,))
+
+
+# ------------------------------------------------------- K1r, fallbacks
+def test_k1r_partial_dead_and_late_tiles_match_plain_on_card(dev):
+    # tile 0 full, 1 partial, 2 ends exactly at n, 3 starts near n and
+    # runs past it (clipped), 4 dead, 5 a negative start; records of
+    # random words, so every field is checked bit for bit
+    n = 300
+    recs = torch.from_numpy(np.random.default_rng(3).integers(
+        -2**31, 2**31 - 1, (pairs.N_FIELDS, n)).astype(np.int32)).to(dev)
+    desc = torch.zeros((8, pairs.DESC_W), dtype=torch.int32)
+    for t, (a, cnt, dead) in enumerate([(0, 128, 0), (128, 5, 0),
+                                        (n - 3, 3, 0), (n - 2, 128, 0),
+                                        (0, 0, 2), (-1, 4, 0)]):
+        desc[t, pairs.A_COL], desc[t, pairs.CNT_COL] = a, cnt
+        desc[t, pairs.FAT_COL] = dead
+    desc = desc.to(dev)
+    for slack in (0, 131):
+        before = pairs.expand_records.launches
+        q_k, rec_k = pairs.expand_records(desc, recs, 6, n, slack)
+        q_p, rec_p = pairs.expand_records_plain(desc, recs, 6, n, slack)
+        torch.cuda.synchronize()
+        assert pairs.expand_records.launches == before + 1
+        assert rec_k.shape == (6 * 128 + slack, pairs.N_FIELDS)
+        assert torch.equal(q_k, q_p) and torch.equal(rec_k, rec_p)
+        assert torch.equal(q_k, pairs.expand_query_tiles(desc, recs, 6, n))
+
+
+def _brute(pts, r):
+    d = pts[None, :, :] - pts[:, None, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    m = d2 <= np.float32(r) * np.float32(r)
+    np.fill_diagonal(m, False)
+    return m
+
+
+@pytest.mark.parametrize("path", ["tile", "scalar"])
+def test_fallback_paths_on_card_match_brute_force(dev, path):
+    # the tile path (K1r and no pairs kernel) and the search-based
+    # pipeline on the card
+    pts = np.random.default_rng(6).uniform(0, 1, (2500, 3)).astype(np.float32)
+    r = 0.08
+    eng = TreeNSearch(device="cuda")
+    eng.add_point_set(torch.from_numpy(pts).to(dev))
+    eng.set_search_radius(r)
+    eng.set_all_searches(True)
+    kernels = (pairs.expand_records, pairs.expand_query_tiles,
+               pairs.pairs_nbrs_fixed)
+    before = [k.launches for k in kernels]
+    if path == "tile":
+        eng.set_use_pallas(False)
+        eng.run()
+    else:
+        eng.run_scalar()
+    grew = [k.launches - b for k, b in zip(kernels, before)]
+    assert grew == ([1, 0, 0] if path == "tile" else [0, 0, 0])
+    counts, nbrs = (t.cpu().numpy() for t in eng.get_neighbors(0, 0))
+    m = _brute(pts, r)
+    assert np.array_equal(counts, m.sum(1))
+    for i in range(pts.shape[0]):
+        assert np.array_equal(np.sort(nbrs[i, :counts[i]]),
+                              np.nonzero(m[i])[0])
+
+
+def test_ten_candidate_sets_on_card_equal_the_cpu(dev):
+    rng = np.random.default_rng(7)
+    sets = [rng.uniform(0, 1, (2000, 3)).astype(np.float32)] + [
+        rng.uniform(0, 1, (200, 3)).astype(np.float32) for _ in range(9)]
+    engines = []
+    for d in (dev, torch.device("cpu")):
+        eng = TreeNSearch(device=d)
+        for p in sets:
+            eng.add_point_set(torch.from_numpy(p).to(d))
+        eng.set_search_radius(0.07)
+        for j in range(10):
+            eng.set_active_search(0, j, True)
+        eng.run()
+        engines.append(eng)
+    for j in range(10):
+        (c_g, n_g), (c_c, n_c) = (e.get_neighbors(0, j) for e in engines)
+        assert torch.equal(c_g.cpu(), c_c) and torch.equal(n_g.cpu(), n_c)

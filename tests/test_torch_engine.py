@@ -19,7 +19,7 @@ import torch
 from helpers import grid_for_n
 from treensearch_tpu import TreeNSearch as JaxTreeNSearch
 from treensearch_tpu.oracle import BruteforceNSearch
-from treensearch_tpu_torch import NeighborList, TreeNSearch
+from treensearch_tpu_torch import NeighborList, NeighborSolution, TreeNSearch
 from treensearch_tpu_torch import api as tapi
 
 
@@ -255,37 +255,38 @@ def test_active_search_overloads_and_symmetric_flag():
     _oracle(pts, 0.3).compare(eng)
 
 
-def _variable_wide_stencil():
+def _variable_wide_stencil(eng):
     # radii spread 1..10: the stencil from r_max at a cell of 1.5 r_min
     # is 7 cells, past the descriptor's 3
     eng = TreeNSearch(device="cpu")
     eng.add_point_set(np.random.default_rng(0).uniform(0, 1, (5, 3)),
                       np.array([0.01, 0.02, 0.05, 0.08, 0.1]))
     eng.set_all_searches(True)
-    eng.run()
+    return eng
 
 
-def _nine_candidate_sets(eng):
-    for _ in range(8):
-        eng.add_point_set(np.zeros((3, 3)))
-    eng.set_all_searches(True)
-    eng.run()
+def _wide_cell_stencil(eng):
+    eng.set_cell_size(0.05)   # r = 0.4 spans 8 cells
+    return eng
 
 
+# the JAX package's Pallas gate, which run_reduce and run_mask keep
+# (treensearch_tpu/api.py:667-690)
+FUSED_GATE = "requires the Pallas fast path"
 NOT_PORTED = {
-    "variable_radii": lambda e: _variable_wide_stencil(),
-    "second_set": _nine_candidate_sets,
-    "run_scalar": lambda e: e.run_scalar(),
-    "zsort": lambda e: e.prepare_zsort(),
-    "apply_zsort": lambda e: e.apply_zsort(0, np.zeros((5, 3))),
-    # the device contracts share run()'s gates (here a 9-cell stencil)
-    "run_reduce": lambda e: (e.set_cell_size(0.05),
-                             e.run_reduce(lambda env: env["d2"])),
-    "run_mask": lambda e: (e.set_cell_size(0.05), e.run_mask()),
-    "make_step_fn": lambda e: e.make_step_fn(fast=False),
-    "distribute": lambda e: e.distribute(object()),
-    "mesh": lambda e: TreeNSearch(device="cpu", mesh=object()),
-    "wide_stencil": lambda e: (e.set_cell_size(0.05), e.run()),
+    "zsort": (lambda e: e.prepare_zsort(), "ROADMAP.md Queue 1 item 10"),
+    "apply_zsort": (lambda e: e.apply_zsort(0, np.zeros((5, 3))),
+                    "ROADMAP.md Queue 1 item 10"),
+    # the device contracts need the fused route (here a 9-cell stencil)
+    "run_reduce": (lambda e: (e.set_cell_size(0.05),
+                              e.run_reduce(lambda env: env["d2"])),
+                   FUSED_GATE),
+    "run_mask": (lambda e: (e.set_cell_size(0.05), e.run_mask()),
+                 FUSED_GATE),
+    "distribute": (lambda e: e.distribute(object()),
+                   "ROADMAP.md Queue 1 item 14"),
+    "mesh": (lambda e: TreeNSearch(device="cpu", mesh=object()),
+             "ROADMAP.md Queue 1 item 14"),
 }
 
 
@@ -293,15 +294,87 @@ NOT_PORTED = {
 def test_outside_the_slice_raises_not_implemented(what):
     eng = _port(np.random.default_rng(0).uniform(0, 1, (5, 3))
                 .astype(np.float32), 0.4, run=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        NOT_PORTED[what](eng)
+    call, match = NOT_PORTED[what]
+    with pytest.raises(NotImplementedError, match=match):
+        call(eng)
 
 
-def test_nine_candidate_sets_name_the_search_based_pipeline():
-    eng = _port(np.random.default_rng(0).uniform(0, 1, (5, 3))
-                .astype(np.float32), 0.4, run=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _nine_candidate_sets(eng)
+WIDE_STENCIL = {"variable_radii": _variable_wide_stencil,
+                "wide_stencil": _wide_cell_stencil}
+
+
+@pytest.mark.parametrize("what", list(WIDE_STENCIL))
+def test_wide_stencil_run_raises_naming_run_scalar(what):
+    eng = WIDE_STENCIL[what](_port(np.random.default_rng(0).uniform(
+        0, 1, (5, 3)).astype(np.float32), 0.4, run=False))
+    with pytest.raises(ValueError, match=r"run_scalar\(\)"):
+        eng.run()
+    with pytest.raises(ValueError, match=r"run_scalar\(\)"):
+        eng.make_step_fn()
+    eng.run_scalar()   # the pipeline serves any stencil
+    assert eng._last_stats["path"] == "reference"
+
+
+def _second_set(rng):
+    # two candidate sets under set_use_pallas(False): the tile path
+    a = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+    b = rng.uniform(0, 1, (200, 3)).astype(np.float32)
+    return [a, b], 0.15, lambda e: (e.set_use_pallas(False), e.run())
+
+
+def _nine_sets(rng):
+    # nine candidate sets: more than the fused kernels' 8, the tile path
+    return ([rng.uniform(0, 1, (60, 3)).astype(np.float32)
+             for _ in range(9)], 0.2, lambda e: e.run())
+
+
+def _scalar(rng):
+    return ([rng.uniform(0, 1, (400, 3)).astype(np.float32)], 0.12,
+            lambda e: e.run_scalar())
+
+
+def _pipeline_step(rng):
+    def call(e):
+        step, state = e.make_step_fn(fast=False)
+        points = torch.from_numpy(np.concatenate(
+            [np.asarray(s.points, np.float32) for s in e._sets]))
+        sol, _ = step(state, points)
+        e._solution = NeighborSolution(sol["pairs"])
+    return ([rng.uniform(0, 1, (400, 3)).astype(np.float32)], 0.12, call)
+
+
+def _sparse_domain(rng):
+    # two clusters 100 cells apart on every axis need ~1e6 table slots,
+    # past the (here lowered) dense cap: the pipeline serves them
+    def call(e):
+        e.run()
+        assert e._last_stats["path"] == "reference"
+    return ([np.concatenate([rng.uniform(0, 1, (150, 3)),
+                             rng.uniform(99, 100, (150, 3))])
+             .astype(np.float32)], 0.3, call)
+
+
+FALLBACKS = {"second_set": _second_set, "nine_candidate_sets": _nine_sets,
+             "run_scalar": _scalar, "make_step_fn": _pipeline_step,
+             "sparse_domain": _sparse_domain}
+
+
+@pytest.mark.parametrize("what", list(FALLBACKS))
+def test_fallbacks_match_the_oracle(what, monkeypatch):
+    monkeypatch.setattr(tapi, "_MAX_DENSE_CAP", 1 << 17)
+    sets, r, call = FALLBACKS[what](np.random.default_rng(1))
+    eng = TreeNSearch(device="cpu")
+    orc = BruteforceNSearch(search_radius=r)
+    for p in sets:
+        eng.add_point_set(p)
+        orc.add_point_set(p)
+    eng.set_search_radius(r)
+    eng.set_cell_size(r)
+    eng.set_all_searches(True)
+    orc.set_all_searches(True)
+    orc.run()
+    call(eng)
+    orc.compare(eng)
 
 
 def test_adding_a_variable_set_to_a_fixed_engine_raises():
@@ -310,19 +383,11 @@ def test_adding_a_variable_set_to_a_fixed_engine_raises():
         eng.add_point_set(np.zeros((3, 3)), np.ones(3))
 
 
-def test_domain_too_sparse_for_the_table_raises(monkeypatch):
-    monkeypatch.setattr(tapi, "_MAX_DENSE_CAP", 1 << 17)
-    eng = _port(np.array([[0, 0, 0], [100, 100, 100]], np.float32), 1.0,
-                cell=1.0, run=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.run()
-
-
 # the JAX package's setters without a GPU meaning: accepted, checked as
 # the JAX setters check them, and without effect
 NO_OP_SETTERS = [("set_n_threads", (4,)), ("set_recursion_cap", (1000,)),
                  ("set_n_points_for_parallel_octree", ()),
-                 ("set_window_cap", (64,)), ("set_record_pack", (16,)),
+                 ("set_record_pack", (8,)), ("set_record_pack", (16,)),
                  ("set_prestage_caps", (96, 48)),
                  ("set_tiles_per_step", (2,)), ("set_brick", ((2, 2, 3),)),
                  ("set_brick", (None,)), ("set_lane_batch", (True,))]
@@ -333,7 +398,7 @@ BAD_SETTER_ARGS = [("set_n_threads", ("many",)),
                    ("set_prestage_caps", ("wide",)),
                    ("set_prestage_caps", (96, "wide")),
                    ("set_tiles_per_step", (3,)), ("set_brick", ((2, 2),)),
-                   ("set_brick", ((0, 1, 1),))]
+                   ("set_brick", ((0, 1, 1),)), ("set_chunk_size", (4,))]
 
 
 @pytest.mark.parametrize("name,args", NO_OP_SETTERS)
@@ -355,6 +420,25 @@ def test_tpu_setters_check_their_arguments_as_jax_does(name, args):
     with pytest.raises(jax_err.type):
         getattr(_port(np.zeros((3, 3), np.float32), 0.4, run=False),
                 name)(*args)
+
+
+def test_window_cap_sizes_the_tile_path_and_regrows():
+    # 16 slots cut most windows: the tile path reports the widest, the
+    # host regrows wcap and re-runs; the fused route ignores the cap
+    pts = np.random.default_rng(10).uniform(0, 1, (1500, 3)) \
+        .astype(np.float32)
+    eng = _port(pts, 0.1, run=False)
+    eng.set_window_cap(16)
+    assert eng._knobs().wcap == 16
+    eng.set_use_pallas(False)
+    eng.run()
+    assert eng._wcap > 16 and eng._last_stats["cand_max"] <= eng._wcap
+    _oracle(pts, 0.1).compare(eng)
+    fused = _port(pts, 0.1, run=False)
+    fused.set_window_cap(16)
+    fused.run()
+    assert fused._wcap == 16
+    _oracle(pts, 0.1).compare(fused)
 
 
 def test_split_stage_and_coherence_setters():

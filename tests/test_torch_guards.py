@@ -20,7 +20,11 @@ PKG = ROOT / "treensearch_tpu_torch"
 
 def test_import_leaves_jax_out():
     code = ("import sys, treensearch_tpu_torch, treensearch_tpu_torch.interop,"
-            " treensearch_tpu_torch.ops.fastpath; "
+            " treensearch_tpu_torch.ops.fastpath,"
+            " treensearch_tpu_torch.ops.pipeline,"
+            " treensearch_tpu_torch.ops.reduce,"
+            " treensearch_tpu_torch.utils.compact,"
+            " treensearch_tpu_torch.utils.keys; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'treensearch_tpu' or m.startswith("
             "'treensearch_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
@@ -83,3 +87,17 @@ def test_kernel_route_does_not_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         pairs.pairs_nbrs_fixed(desc, q, recs, 0.01, 9, 8, 1)
     assert pairs.expand_query_tiles.launches == before
+
+
+def test_k1r_route_does_not_fall_back(monkeypatch, tmp_path):
+    # K1r, the tile path's record kernel, on a tensor off the CPU: with no
+    # toolchain it raises instead of running expand_records_plain
+    _no_nvcc(monkeypatch, tmp_path)
+    monkeypatch.setattr(pairs, "BUILD_DIR", tmp_path / "build")
+    desc = torch.zeros((8, pairs.DESC_W), dtype=torch.int32, device="meta")
+    recs = torch.zeros((pairs.N_FIELDS, 4), dtype=torch.int32,
+                       device="meta")
+    before = pairs.expand_records.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pairs.expand_records(desc, recs, 1, 4, 128)
+    assert pairs.expand_records.launches == before

@@ -5,8 +5,12 @@ sets under a directed active-search matrix, at one fixed search radius or
 with per-point radii (symmetric search optional), ``run()`` and the
 neighbor-list queries, the device contracts ``run_reduce`` (the fused
 neighbor-reduce) and ``run_mask`` (the bitmask), the temporal-coherence
-carry they all ride by default, and ``make_step_fn`` for a simulation
-loop.  The surface mirrors the reference
+carry they all ride by default, ``make_step_fn`` for a simulation loop,
+and ``run_scalar``, the search-based pipeline.  ``run()`` takes the fused
+kernels where they apply (1 to 8 candidate sets, a stencil of at most 3
+cells, ``set_use_pallas`` on), the tile path elsewhere, and the pipeline
+for a domain too sparse for the dense cell table, as the JAX package
+routes.  The surface mirrors the reference
 (``TreeNSearch/source/TreeNSearch.h:28-427``); float64 input is cast to
 float32 at ingest like the reference's cast-copy
 (``TreeNSearch.cpp:270-297``).
@@ -29,24 +33,42 @@ import torch
 
 from .config import SearchConfig, round_up
 from .neighborlist import NeighborList, NeighborSolution
-from .ops.fastpath import (FastKnobs, build_and_search_fast,
-                           build_and_search_fast_carry, default_tiles_cap,
-                           make_fast_carry0)
+from .ops.fastpath import (MAX_STENCIL_W, FastKnobs, applicable,
+                           build_and_search_fast,
+                           build_and_search_fast_carry, contracts_applicable,
+                           default_tiles_cap, make_fast_carry0)
 from .ops.grid import fresh_state
 from .ops.pairs import MAX_BLOCKS
+from .ops.pipeline import build_and_search
 from .ops.reduce import ReduceSpec
 from .utils.keys import MAX_CELLS_PER_DIM
 
 _DEFAULT_NBR_CAP = 80
+_DEFAULT_CAND_CAP = 512
+_DEFAULT_CHUNK = 1024
+_DEFAULT_CHUNK_SCALAR = 128
 _MAX_GROW_ROUNDS = 16
-_MAX_DENSE_CAP = 1 << 26   # 256 MB table; sparser domains need item 9
-_MAX_STENCIL_W = 3         # (2W+1)^2 <= 49 windows fit the descriptor
+_MAX_DENSE_CAP = 1 << 26   # 256 MB table; sparser domains take the pipeline
+_FUSED_GATE = (f"the fused kernels: set_use_pallas on, <= {MAX_BLOCKS} "
+               f"candidate sets, a stencil of at most {MAX_STENCIL_W} cells")
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to treensearch_tpu_torch yet "
         f"(ROADMAP.md Queue 1 item {item})")
+
+
+def _require_descriptor_stencil(w: int) -> None:
+    """``run()`` and the fast steps hold (2W+1)^2 <= 49 stencil windows
+    per tile; the JAX ``run()`` fails past that with a broadcasting error
+    (``LENS_OFF = 64``), the port with this one."""
+    if w > MAX_STENCIL_W:
+        raise ValueError(
+            f"a stencil of {w} cells (the largest radius spans more than "
+            f"{MAX_STENCIL_W} cell sizes): run() and make_step_fn(fast="
+            f"True) serve at most {MAX_STENCIL_W}; run_scalar() and "
+            "make_step_fn(fast=False) serve any stencil")
 
 
 class _PointSet:
@@ -125,6 +147,11 @@ class TreeNSearch:
         self._dense_snug = False   # one-shot dense-table shrink to domain
         self._tiles_snug = False   # one-shot tile-slot shrink to layout
         self._split_stage = False  # neighbor lists through K4 then K5
+        self._fused = True         # the fused kernels where they apply
+        self._wcap = FastKnobs._field_defaults["wcap"]   # the tile path's
+        self._cand_cap = _DEFAULT_CAND_CAP   # the pipeline's candidates
+        self._chunk = _DEFAULT_CHUNK         # its chunk under run()
+        self._scalar_f64 = False   # run_scalar's d^2 in float64
         self._use_carry = True     # temporal-coherence carry in the runs
         self._fast_carry = None    # the carried FastCarry ...
         self._carry_key = None     # ... and the (cfg, knobs) it was built at
@@ -267,10 +294,45 @@ class TreeNSearch:
         int(n)
 
     def set_window_cap(self, wcap: int) -> None:
-        """Accepted for compatibility (a TPU window cap, at least 16); no
-        meaning on the GPU."""
+        """The tile path's candidate slots per stencil window (at least
+        16); a wider window is cut, reported as ``cand_max`` and regrown,
+        so this only sizes the first run.  The fused kernels stream every
+        window whatever its width and do not read it."""
         if wcap < 16:
             raise ValueError("window cap must be >= 16")
+        self._wcap = int(wcap)
+
+    def set_chunk_size(self, chunk: int) -> None:
+        """Query rows per chunk of the search-based pipeline when
+        ``run()`` falls back to it (``run_scalar`` keeps 128); results do
+        not depend on it."""
+        if chunk < 8:
+            raise ValueError("chunk must be >= 8")
+        self._chunk = int(chunk)
+
+    def set_candidate_cap(self, cap: int) -> None:
+        """Candidate slots per query of the search-based pipeline; it
+        grows by itself when a query has more."""
+        self._cand_cap = int(cap)
+
+    def set_use_pallas(self, enabled: bool, interpret: bool = False) -> None:
+        """The fused kernels (the JAX package's Pallas kernels; on by
+        default).  Off sends ``run()`` down the tile path, and
+        ``run_reduce``, ``run_mask`` and the carried steps raise.
+        ``interpret`` (the JAX package's Pallas interpreter) is accepted
+        and has no meaning here."""
+        self._fused = bool(enabled)
+        bool(interpret)
+
+    def set_scalar_double_accum(self, enabled: bool) -> None:
+        """``run_scalar``'s distance test with d^2 accumulated in float64,
+        the reference scalar path's ``double squared_distance``
+        (``TreeNSearch.cpp:2080-2086``), as the JAX package computes it
+        (``ops/pipeline.py:202-227`` there): the float32 coordinates
+        promoted and subtracted in float64, r_i^2 (or r^2) the float32
+        square promoted, r_j squared in float64.  ``run()`` keeps the
+        float32 rule of the reference's SIMD path."""
+        self._scalar_f64 = bool(enabled)
 
     def set_record_pack(self, pack: int) -> None:
         """Accepted for compatibility (a TPU record pack of 1, 2, 4, 8 or
@@ -305,10 +367,27 @@ class TreeNSearch:
     # ---------------------------------------------------------------- run
     def run(self) -> None:
         """Search and build all active neighbor lists (reference
-        ``run()``, ``TreeNSearch.cpp:138-149``)."""
-        sol = self._execute(*self._setup())
+        ``run()``, ``TreeNSearch.cpp:138-149``): the fused kernels where
+        they apply, else the tile path; a domain too sparse for the dense
+        cell table falls back to the search-based pipeline
+        (``_last_stats["path"]`` is then ``"reference"``, else
+        ``"fast"``).  A stencil wider than 3 cells raises ``ValueError``:
+        ``run_scalar()`` serves it."""
+        points, radii, sr, cell, w = self._setup()
+        _require_descriptor_stencil(w)
+        sol = self._execute(points, radii, sr, cell, w)
         self._solution = NeighborSolution(sol["pairs"])
-        self._last_stats["path"] = "fast"
+        self._last_stats["path"] = "fast" if "dense_overflow" in sol \
+            else "reference"
+
+    def run_scalar(self) -> None:
+        """The same neighbor sets through the search-based pipeline
+        (``ops/pipeline.py``; the role of the reference's scalar
+        implementation, ``TreeNSearch.cpp:150-160``), at any stencil
+        width; ``set_scalar_double_accum`` selects float64 d^2."""
+        sol = self._execute(*self._setup(), fast=False)
+        self._solution = NeighborSolution(sol["pairs"])
+        self._last_stats["path"] = "reference"
 
     def run_reduce(self, fn: Callable, n_out: int = 1,
                    payload=None) -> dict:
@@ -394,82 +473,103 @@ class TreeNSearch:
         self._check(bounds)
         cell = self._effective_cell_size(bounds)
         w = self._stencil_w(cell, bounds)
-        if w > _MAX_STENCIL_W:
-            raise _not_ported(
-                f"a stencil of {w} cells (search radius > 3 cell sizes, "
-                "served by the search-based pipeline)", 9)
-        n_cand = len({int(j) for j in np.nonzero(self._active)[1]})
-        if n_cand > MAX_BLOCKS:
-            raise _not_ported(
-                f"{n_cand} distinct candidate sets (more than {MAX_BLOCKS}, "
-                "served by the search-based pipeline)", 9)
         sr = 0.0 if self._variable else self._search_radius
         return points, radii, sr, cell, w
 
-    def _execute(self, points, radii, sr, cell, w, **mode) -> dict:
+    def _execute(self, points, radii, sr, cell, w, fast: bool = True,
+                 **mode) -> dict:
         """One search with overflow-regrow; returns the settled solution
         (``api._execute``, ``treensearch_tpu/api.py:632-869``, for the
-        dense, rows, tile and neighbor caps).  ``mode`` selects the fused
-        reduce or the mask (``build_and_search_fast``'s keywords).  With
-        coherence on, each attempt is a step of the carry
+        dense, rows, tile, window, candidate and neighbor caps).  ``fast``
+        routes as ``build_and_search_fast`` does (the fused kernels where
+        ``applicable``, else the tile path); without it, or after a dense
+        overflow at ``_MAX_DENSE_CAP``, the search-based pipeline runs.
+        ``mode`` selects the fused reduce or the mask
+        (``build_and_search_fast``'s keywords), which raise
+        ``NotImplementedError`` off the fused route.  With coherence on,
+        each attempt of the fused route is a step of the carry
         (``api.py:719-731``; the carry is keyed by the attempt's config
         and caps, so a regrow rebuilds it).  All flags come to the host in
         one read per attempt; ``_last_stats`` keeps the settled run's
-        occupied cells, largest count (0 without neighbor lists), cell
-        size, stencil and whether the structure was rebuilt."""
+        occupied cells, largest count (0 without neighbor lists), widest
+        cut window or candidate count (``cand_max``), cell size, stencil
+        and whether the structure was rebuilt."""
         n = self.get_total_n_points()
+        contract = mode.get("reduce") is not None or mode.get("mask", False)
+        use_fast = fast
         if self._dense_cap is None:
             self._dense_cap = self._default_dense_cap()
         if self._tiles_cap is None:
             self._tiles_cap = default_tiles_cap(max(n, 1))
             self._tiles_auto = True
         for _ in range(_MAX_GROW_ROUNDS):
-            cfg = self._make_cfg(w)
+            cfg = self._make_cfg(w, self._chunk if fast
+                                 else _DEFAULT_CHUNK_SCALAR)
             knobs = self._knobs()
-            if self._use_carry and n > 0:
+            if contract and not (use_fast
+                                 and contracts_applicable(cfg, knobs)):
+                what = "run_reduce" if mode.get("reduce") is not None \
+                    else "run_mask"
+                raise NotImplementedError(
+                    f"{what} requires the Pallas fast path ({_FUSED_GATE})")
+            fused = use_fast and (contract or applicable(cfg, knobs))
+            if fused and self._use_carry and n > 0:
                 sol, state, self._fast_carry = build_and_search_fast_carry(
                     points, sr, cell, self._grid_state,
                     self._get_carry(cfg, knobs), cfg, knobs, radii=radii,
                     **mode)
-            else:
+            elif use_fast:
                 sol, state = build_and_search_fast(
                     points, sr, cell, self._grid_state, cfg, knobs,
                     radii=radii, **mode)
-            names = ["error", "dense_overflow", "rows_overflow",
-                     "tile_overflow", "n_cells"] \
-                + (["rebuilt"] if "rebuilt" in sol else [])
+            else:
+                sol, state = build_and_search(points, radii, sr, cell,
+                                              self._grid_state, cfg)
+            names = [k for k in ("error", "dense_overflow", "rows_overflow",
+                                 "tile_overflow", "n_cells", "cand_max",
+                                 "rebuilt") if k in sol]
             values = torch.stack(
                 [sol[k] for k in names]
                 + [p["max_count"] for p in sol["pairs"].values()]).tolist()
             flags = dict(zip(names, values))
             max_counts = dict(zip(sol["pairs"], values[len(names):]))
-            error, dense_of, rows_of, tile_of, n_cells = values[:5]
-            if error:
+            if flags["error"]:
                 self._grid_state = fresh_state(self.device)
                 raise RuntimeError(
                     f"the world box exceeds {MAX_CELLS_PER_DIM} cells per "
                     "axis; increase the cell size (reference aborts here, "
                     "TreeNSearch.cpp:510-515)")
-            if dense_of:
-                if self._dense_cap >= _MAX_DENSE_CAP:
-                    raise _not_ported(
-                        "a domain too sparse for the dense cell table "
-                        "(the search-based fallback)", 9)
-                self._dense_cap = min(self._dense_cap * 8, _MAX_DENSE_CAP)
+            if flags.get("dense_overflow"):
+                if self._dense_cap < _MAX_DENSE_CAP:
+                    self._dense_cap = min(self._dense_cap * 8, _MAX_DENSE_CAP)
+                else:
+                    use_fast = False   # too sparse for a dense table
                 continue
-            if rows_of:
+            if flags.get("rows_overflow"):
                 auto = max(1 << 14, self._dense_cap >> 3)
                 self._rows_cap = 2 * (auto if self._rows_cap == 0
                                       else self._rows_cap)
                 self._rows_cap = min(self._rows_cap, self._dense_cap + 1)
                 continue
-            if tile_of:
+            if flags.get("tile_overflow"):
                 self._tiles_cap = int(self._tiles_cap * 1.5) + 64
                 continue
+            # the tile path cut a window wider than wcap, or a pipeline
+            # query had more candidates than cand_cap: both report the
+            # true size (api.py:834-847 of the JAX package)
+            grew = False
+            cand_max = flags.get("cand_max", 0)
+            tile_route = "dense_overflow" in sol
+            if cand_max > (self._wcap if tile_route else self._cand_cap):
+                grown = round_up(int(cand_max * 1.25) + 1, 64)
+                if tile_route:
+                    self._wcap = grown
+                else:
+                    self._cand_cap = grown
+                grew = True
             # per candidate set: a pair's lists live in the block of its
             # set_j (api.py:848-858 of the JAX package); the reduce and
             # the mask have no lists and no neighbor caps
-            grew = False
             for (si, sj) in cfg.active_pairs:
                 mc = max_counts.get(f"{si}-{sj}", 0)
                 if mc > self._cap_of(sj):
@@ -481,9 +581,11 @@ class TreeNSearch:
                     grew = True
             if grew:
                 continue
-            self._post_run_tune(sol, state, w)
+            if fused:
+                self._post_run_tune(sol, state, w)
             self._grid_state = state
-            self._last_stats = {"n_cells": n_cells,
+            self._last_stats = {"n_cells": flags["n_cells"],
+                                "cand_max": cand_max,
                                 "max_count": max(max_counts.values(),
                                                  default=0),
                                 "cell_size": cell, "stencil_w": w,
@@ -492,6 +594,7 @@ class TreeNSearch:
         raise RuntimeError(
             "padding caps failed to converge "
             f"(nbr_cap={self._nbr_cap}, nbr_caps={self._nbr_caps}, "
+            f"wcap={self._wcap}, cand_cap={self._cand_cap}, "
             f"dense_cap={self._dense_cap}, "
             f"tiles_cap={self._tiles_cap})")
 
@@ -607,15 +710,18 @@ class TreeNSearch:
         then takes ``payload=None`` or an (n, 2) float32 tensor and
         returns ``solution["reduce"]`` {"s<i>": (n_out, n_i)}.
         ``mask_output`` returns ``solution["mask"]`` (see ``run_mask``).
-        Without them the state is the grid state and every step rebuilds.
-        ``chunk`` is the JAX package's XLA chunk size and has no meaning
-        here; ``fast=False`` (the search-based pipeline) is not ported.
+        Without them the state is the grid state and every step rebuilds:
+        with ``fast`` it routes as ``run()`` does (the fused kernels where
+        they apply, else the tile path; a stencil wider than 3 cells
+        raises ``ValueError``), without it each step runs the search-based
+        pipeline of ``run_scalar`` (its solution has ``cand_max``, the
+        most candidates of a query, to hold against the candidate cap).
+        The carried steps need the fused route and raise ``ValueError``
+        elsewhere.  ``chunk`` is the pipeline's chunk size (results do not
+        depend on it).
         """
-        if not fast:
-            raise _not_ported("make_step_fn(fast=False) (the search-based "
-                              "pipeline)", 9)
         _, _, sr, cell, w = self._setup()
-        cfg = self._make_cfg(w)
+        cfg = self._make_cfg(w, chunk or self._chunk)
         n = cfg.n_points
         if self._dense_cap is None:
             self._dense_cap = self._default_dense_cap()
@@ -627,6 +733,13 @@ class TreeNSearch:
         if carried and n == 0:
             raise ValueError("reuse, reduce and mask_output steps need at "
                              "least one point")
+        if carried and not (fast and contracts_applicable(cfg, knobs)):
+            what = "mask_output steps require" if mask_output else \
+                "reduce steps require" if reduce is not None else \
+                "reuse=True requires"
+            raise ValueError(f"{what} the Pallas fast path ({_FUSED_GATE})")
+        if fast and not carried:
+            _require_descriptor_stencil(w)
 
         def check(points, radii, payload=None):
             args = [("points", points, (n, 3)), ("payload", payload, (n, 2))]
@@ -665,19 +778,22 @@ class TreeNSearch:
                     points, sr, cell, grid, carry, cfg, knobs, radii=radii,
                     mask=mask_output)
                 return sol, (grid, carry)
-        else:
+        elif fast:
             def step(state, points, radii=None):
                 check(points, radii)
                 return build_and_search_fast(points, sr, cell, state, cfg,
                                              knobs, radii=radii)
 
             return step, fresh_state(dev)
+        else:
+            def step(state, points, radii=None):
+                check(points, radii)
+                return build_and_search(points, radii, sr, cell, state, cfg)
+
+            return step, fresh_state(dev)
         return step, (fresh_state(dev), make_fast_carry0(cfg, knobs, dev))
 
     # ------------------------------------------------- not yet ported
-    def run_scalar(self) -> None:
-        raise _not_ported("run_scalar (the search-based pipeline)", 9)
-
     def distribute(self, mesh, axis: str = "d") -> None:
         raise _not_ported("multi-GPU execution (distribute)", 14)
 
@@ -694,7 +810,7 @@ class TreeNSearch:
         raise _not_ported("z-sort", 10)
 
     # -------------------------------------------------------------- helpers
-    def _make_cfg(self, w: int) -> SearchConfig:
+    def _make_cfg(self, w: int, chunk: Optional[int] = None) -> SearchConfig:
         pairs = tuple((int(i), int(j))
                       for i, j in zip(*np.nonzero(self._active)))
         caps = tuple(self._cap_of(j) for j in range(len(self._sets)))
@@ -703,13 +819,17 @@ class TreeNSearch:
                             nbr_cap=max(caps, default=self._nbr_cap),
                             variable=bool(self._variable),
                             symmetric=bool(self._symmetric and self._variable),
-                            nbr_caps=caps if self._nbr_caps else None)
+                            nbr_caps=caps if self._nbr_caps else None,
+                            chunk=chunk or self._chunk,
+                            cand_cap=self._cand_cap,
+                            scalar_f64=self._scalar_f64)
 
     def _knobs(self) -> FastKnobs:
         """The caps of the next run (settled after one ``run()``)."""
         return FastKnobs(dense_cap=self._dense_cap,
                          tiles_cap=self._tiles_cap, rows_cap=self._rows_cap,
-                         split_stage=self._split_stage)
+                         split_stage=self._split_stage, fused=self._fused,
+                         wcap=self._wcap)
 
     def _assemble(self):
         """The sets' points, concatenated, as a contiguous (n, 3) float32

@@ -1,5 +1,6 @@
 """Static configuration of one search: set sizes, active pairs, radius
-mode, stencil width and the neighbor caps.
+mode, stencil width, the neighbor caps and the search-based pipeline's
+chunk, candidate cap and float64 switch.
 
 PyTorch counterpart of ``treensearch_tpu/config.py``.  PyTorch runs
 eagerly, so nothing here keys a compile cache; the fields still fix every
@@ -24,6 +25,14 @@ class SearchConfig(NamedTuple):
     symmetric: bool = False              # OR d^2 <= r_j^2 (variable only)
     # per-candidate-set caps (len n_sets); None = nbr_cap for every set
     nbr_caps: Optional[Tuple[int, ...]] = None
+    # the search-based pipeline (ops/pipeline.py): query rows per chunk
+    # (results do not depend on it), candidates kept per query (the host
+    # regrows it from ``cand_max``), and d^2 in float64 (``run_scalar``
+    # after ``set_scalar_double_accum(True)``); the defaults are the JAX
+    # package's run_scalar values (treensearch_tpu/api.py:60-62)
+    chunk: int = 128
+    cand_cap: int = 512
+    scalar_f64: bool = False
 
     @property
     def n_sets(self) -> int:

@@ -70,6 +70,44 @@ __global__ void expand_query_tiles_kernel(const int* __restrict__ desc,
   }
 }
 
+// K1r -- replaces make_expand_call(build_rec=True)
+// (treensearch_tpu/ops/pallas_pairs.py:276-442).  K1's query tiles, and the
+// same records slot-major in rec_pad (n_slots + slack, 8): slot 128 t + l
+// holds sorted record a_t + l when l < cnt_t, every other slot and the
+// slack tail the sentinel record.  One thread per padded slot; each reads
+// its record's 8 fields from the field-major recs_t (consecutive threads,
+// consecutive records: coalesced), writes them field-major into q_t and
+// as one 32-byte record (two int4 stores) into rec_pad.  Bound: memory,
+// 32 bytes read per live slot and 64 written per slot.  The TPU kernel's
+// DMA banks and lane rotations make unaligned tile starts cheap there;
+// the per-thread loads do that here.
+__global__ void expand_records_kernel(const int* __restrict__ desc,
+                                      const int* __restrict__ recs_t,
+                                      int n_rec, int n_slots, int n_total,
+                                      int sentinel_orig,
+                                      int* __restrict__ q_t,
+                                      int4* __restrict__ rec_pad) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= n_total) return;
+  int v[N_FIELDS] = {SENTINEL_BITS, SENTINEL_BITS, SENTINEL_BITS, 0,
+                     sentinel_orig, -1, 0, 0};
+  if (slot < n_slots) {
+    const int t = slot / TILE;
+    const int l = slot % TILE;
+    const int a = desc[(size_t)t * DESC_W + A_COL];
+    const int cnt = desc[(size_t)t * DESC_W + CNT_COL];
+    if (l < cnt && a >= 0 && (long long)a + l < n_rec) {
+      const size_t src = (size_t)a + l;
+#pragma unroll
+      for (int f = 0; f < N_FIELDS; ++f) v[f] = recs_t[(size_t)f * n_rec + src];
+    }
+#pragma unroll
+    for (int f = 0; f < N_FIELDS; ++f) q_t[(size_t)f * n_slots + slot] = v[f];
+  }
+  rec_pad[2 * (size_t)slot] = make_int4(v[0], v[1], v[2], v[3]);
+  rec_pad[2 * (size_t)slot + 1] = make_int4(v[4], v[5], v[6], v[7]);
+}
+
 // K2a -- replaces make_pairs_call in neighbor-list mode, fixed radius, one
 // candidate set (treensearch_tpu/ops/pallas_pairs.py:445), narrow and fat
 // tier alike.  One block of 128 threads per query tile, one query per
@@ -508,6 +546,22 @@ extern "C" int tns_expand_query_tiles(const int* desc, const int* recs_t,
     expand_query_tiles_kernel<<<blocks, threads, 0,
                                 (cudaStream_t)stream>>>(
         desc, recs_t, n_rec, n_slots, sentinel_orig, q_t);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tns_expand_records(const int* desc, const int* recs_t,
+                                  int n_rec, int tiles_cap, int slack,
+                                  int sentinel_orig, int* q_t, int* rec_pad,
+                                  void* stream) {
+  const int n_slots = tiles_cap * TILE;
+  const int n_total = n_slots + slack;
+  if (n_total > 0) {
+    const int threads = 256;
+    const int blocks = (n_total + threads - 1) / threads;
+    expand_records_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        desc, recs_t, n_rec, n_slots, n_total, sentinel_orig, q_t,
+        reinterpret_cast<int4*>(rec_pad));
   }
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,15 @@ the port's tensors, so tests can feed structures the JAX prep built
 straight into the port's kernels: the search engine's counterpart of
 carrying weights across.  Multi-set and variable-radius structures carry
 over the same way: the sorted radii ride ``r_chk``, and the records are
-rebuilt from the points, radii and set sizes.  This module imports neither JAX nor the JAX
-package; pass ``{k: np.asarray(v) for k, v in state._asdict().items()}``.
+rebuilt from the points, radii and set sizes.  The tile path's
+padded-layout carry (the JAX prep with ``use_pallas=False``) converts
+with the same ``carry_from_numpy``: its window starts are padded-slot
+indices, which the port's padded prep computes too, and its ``opad`` map
+is dropped (K1r builds the padded records from the descriptors).  The
+search-based pipeline's ``SortedStructure`` converts with
+``sorted_structure_from_numpy``.  This module imports neither JAX nor the
+JAX package; pass ``{k: np.asarray(v) for k, v in
+state._asdict().items()}``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import torch
 from .ops.fastpath import FastCarry
 from .ops.grid import GridState
 from .ops.pairs import FAT_COL
+from .ops.pipeline import SortedStructure
+from .utils.keys import key64
 
 
 def _fields(d) -> Mapping:
@@ -66,3 +75,23 @@ def carry_from_numpy(d, device="cpu") -> FastCarry:
         tile_overflow=i32("tile_overflow"),
         rows_overflow=i32("rows_overflow"), win_max=i32("win_max"),
         n_cells_stat=i32("n_cells_stat"))
+
+
+def sorted_structure_from_numpy(d, device="cpu") -> SortedStructure:
+    """JAX pipeline ``SortedStructure`` fields -> the port's (its int64
+    key is made from the two words; ``r_s`` may be None)."""
+    d = _fields(d)
+
+    def i32(k):
+        return _t(d[k], torch.int32, device)
+
+    hi_s, lo_s = i32("hi_s"), i32("lo_s")
+    r_s = d.get("r_s")
+    return SortedStructure(
+        hi_s=hi_s, lo_s=lo_s, idx_s=i32("idx_s"),
+        pts_s=_t(d["pts_s"], torch.float32, device), set_id_s=i32("set_id_s"),
+        r_s=None if r_s is None else _t(r_s, torch.float32, device),
+        ijk_s=i32("ijk_s"), n_cells_xyz=i32("n_cells_xyz"),
+        r2_fixed=_t(d["r2_fixed"], torch.float32, device),
+        offsets_arr=i32("offsets_arr"), n_cells_stat=i32("n_cells_stat"),
+        key_s=key64(hi_s, lo_s))

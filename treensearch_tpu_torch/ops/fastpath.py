@@ -1,5 +1,5 @@
 """The fast path: dense cell table, row-aligned query tiles, stencil
-windows in sorted space, and the pairs kernels.
+windows, and the fused pairs kernels or the tile path.
 
 PyTorch counterpart of the neighbor-list branch of
 ``treensearch_tpu/ops/fastpath.py`` (``build_and_search_fast``,
@@ -27,6 +27,13 @@ fixed radius or with per-point radii:
    padded-CSR rows on demand, and ``decode_mask`` turns a mask into
    per-query neighbor sets.
 
+Where ``applicable`` refuses the fused kernels (more than 8 candidate
+sets, or ``FastKnobs.fused`` off), ``build_and_search_fast`` takes the
+tile path instead (``fastpath.py:1712-1886`` of the JAX package): the
+same prep with window starts in padded-slot space, the padded records
+built by K1r, and ``_tile_search``, which tests each tile's windows with
+plain tensor operations and front-packs the hits with ``compact_rows``.
+
 Every structure the JAX prep computes by arithmetic is computed here by
 the same integer arithmetic, so it is bit-identical (tests/
 test_torch_prep.py).  The JAX package's blocked scans exist only for
@@ -45,16 +52,22 @@ import torch
 
 from ..config import SearchConfig, round_up
 from ..utils import keys as K
+from ..utils.compact import compact_rows
 from .grid import GridState, update_grid
-from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Z,
-                    FAT_COL, LENS_OFF, N_FIELDS, TILE,
-                    clipped_windows, expand_query_tiles, pairs_mask,
+from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Y,
+                    F_Z, FAT_COL, LENS_OFF, MAX_BLOCKS, N_FIELDS, TILE,
+                    clipped_windows, expand_query_tiles, expand_records,
+                    pairs_mask,
                     pairs_mask_plain, pairs_nbrs_fixed, pairs_nbrs_fixed_plain,
                     pairs_nbrs_from_bits, pairs_nbrs_from_bits_plain,
                     pairs_nbrs_plain, pairs_nbrs_sets, pairs_nbrs_variable)
 from .reduce import ReduceSpec, pairs_reduce
 
 F_P0, F_P1 = 6, 7   # the payload fields of the records
+MAX_STENCIL_W = 3   # (2W+1)^2 <= 49 windows fit the descriptor
+# (query, candidate) slots per group of tiles of the tile path: its
+# temporaries stay near a GB whatever the point count
+_TILE_SLOTS = 1 << 25
 
 
 class FastKnobs(NamedTuple):
@@ -66,6 +79,12 @@ class FastKnobs(NamedTuple):
     # neighbor lists in two passes: K4's hit bits, then K5 unpacks them
     # into the pairs kernel's blocks (``run_pairs``)
     split_stage: bool = False
+    # the fused pairs kernels where ``applicable`` (the JAX use_pallas);
+    # off sends every neighbor-list search down the tile path
+    fused: bool = True
+    # the tile path only: candidate slots per window (a wider window is
+    # cut, and ``cand_max`` makes the host regrow it)
+    wcap: int = 288
 
 
 class FastCarry(NamedTuple):
@@ -102,10 +121,15 @@ def _statics(cfg: SearchConfig, knobs: FastKnobs) -> dict:
     w = cfg.stencil_w
     tiles_cap = knobs.tiles_cap if knobs.tiles_cap > 0 else \
         default_tiles_cap(cfg.n_points)
+    wcap = round_up(knobs.wcap, 8)
     return {
         "w": w,
         "tiles_cap": tiles_cap,
         "NPAD": tiles_cap * TILE,
+        # the tile path's window cap and the sentinel tail past NPAD that
+        # a window load of wcap slots from a start <= NPAD may read
+        "wcap": wcap,
+        "slack": round_up(wcap, TILE),
         # descriptor rows: one spare past tiles_cap, rounded to 8, so the
         # descriptor array has the JAX prep's shape
         "nt8": -(-(tiles_cap + 1) // 8) * 8,
@@ -149,14 +173,19 @@ def _i32(x) -> torch.Tensor:
 
 
 def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
-          knobs: FastKnobs, radii: torch.Tensor | None = None) -> FastCarry:
+          knobs: FastKnobs, radii: torch.Tensor | None = None,
+          padded: bool = False) -> FastCarry:
     """Sort, dense table, row-aligned layout and window descriptors
     (``_pallas_prep``, row layout, window starts in sorted space: the
-    ``win_sorted`` branch that production ``rec_expand`` uses).  In
-    variable mode (``cfg.variable``, ``radii`` (n,) float32) each window
-    reaches only as far as the larger of the tile's and the neighbor
-    row's largest radius.  Requires ``cfg.n_points > 0``.  ``_prep.calls``
-    counts its calls."""
+    ``win_sorted`` branch that production ``rec_expand`` uses).  With
+    ``padded`` (the tile path) the window starts are in padded-slot space
+    instead, each shifted by its grid row's padding and clipped to NPAD
+    (the JAX prep with ``use_pallas=False, rec_expand=False``): a
+    window's k-run lies in one grid row, so it stays contiguous and keeps
+    its length.  In variable mode (``cfg.variable``, ``radii`` (n,)
+    float32) each window reaches only as far as the larger of the tile's
+    and the neighbor row's largest radius.  Requires ``cfg.n_points >
+    0``.  ``_prep.calls`` counts its calls."""
     _prep.calls += 1
     st = _statics(cfg, knobs)
     n = cfg.n_points
@@ -260,7 +289,11 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     s = table[torch.clamp(base + k0[:, None] - wk, 0, dense_cap).long()]
     e = table[torch.clamp(base + k1[:, None] + wk + 1, 0, dense_cap).long()]
     lens = torch.clamp(e - s, min=0) * (has[:, None] & ok)
-    starts = torch.clamp(s, 0, n)
+    if padded:
+        starts = torch.clamp(
+            s + pads_exc[torch.clamp(rp, max=rows_cap - 1).long()], 0, NPAD)
+    else:
+        starts = torch.clamp(s, 0, n)
     n_win = len(st["offs_2d"])
 
     desc = torch.zeros((nt8, DESC_W), dtype=torch.int32, device=dev)
@@ -452,6 +485,8 @@ def _flags(state: GridState, carry: FastCarry, tiles_cap: int) -> dict:
         # dead tiles (FAT_COL = 2) are a suffix of the layout
         "tiles_used": _i32((carry.desc[:tiles_cap, FAT_COL] != 2).sum()),
         "win_max": carry.win_max,
+        # no window is cut on the fused route
+        "cand_max": torch.zeros_like(carry.win_max),
     }
 
 
@@ -544,7 +579,26 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
             "max_count": zero}
     return {"pairs": pairs, "n_cells": zero, "error": state.error,
             "dense_overflow": zero, "tile_overflow": zero,
-            "rows_overflow": zero, "tiles_used": zero, "win_max": zero}
+            "rows_overflow": zero, "tiles_used": zero, "win_max": zero,
+            "cand_max": zero}
+
+
+def applicable(cfg: SearchConfig, knobs: FastKnobs) -> bool:
+    """The gate of the fused pairs kernels (``_pallas_applicable``,
+    ``fastpath.py:1592-1606`` of the JAX package): 1 to 8 distinct
+    candidate sets, a stencil of at most 3 cells and ``knobs.fused``.
+    ``build_and_search_fast`` takes the tile path where it refuses."""
+    n_cand = len({sj for (_, sj) in cfg.active_pairs})
+    return knobs.fused and 1 <= n_cand <= MAX_BLOCKS \
+        and cfg.stencil_w <= MAX_STENCIL_W
+
+
+def contracts_applicable(cfg: SearchConfig, knobs: FastKnobs) -> bool:
+    """The gate of the fused reduce (K3), the mask (K4) and the carry:
+    ``applicable``, where no active search at all is also accepted."""
+    return applicable(cfg, knobs) or (
+        knobs.fused and not cfg.active_pairs
+        and cfg.stencil_w <= MAX_STENCIL_W)
 
 
 def build_and_search_fast(points: torch.Tensor, search_radius: float,
@@ -555,19 +609,133 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
                           payload: torch.Tensor | None = None,
                           mask: bool = False) -> tuple[dict, GridState]:
     """One full search, rebuilt on every call: grid update, prep,
-    records, K1, the pairs kernel, counts.  ``radii`` (n,) float32 in
+    records, K1, the pairs kernel, counts; where ``applicable`` refuses,
+    the tile path (``_tile_search``) instead.  ``radii`` (n,) float32 in
     variable mode, else None.  With ``reduce`` the fused reduce (K3,
     ``payload`` (n, 2) float32 or None) and with ``mask`` the bitmask
     kernel (K4) take the pairs kernel's place; both need ``cfg.n_points >
-    0``.  ``knobs.split_stage`` runs K4 and K5 for the pairs kernel."""
+    0`` and ``contracts_applicable``.  ``knobs.split_stage`` runs K4 and
+    K5 for the pairs kernel."""
+    contract = reduce is not None or mask
+    if contract and not contracts_applicable(cfg, knobs):
+        raise ValueError("the fused reduce and the mask need the fused "
+                         "route (knobs.fused, <= 8 candidate sets, a "
+                         "stencil of at most 3 cells)")
     allow = _allow(cfg, knobs, points.device, reduce, mask)
     state = update_grid(state, points, cell_size)
-    if not (reduce is not None or mask) \
-            and (cfg.n_points == 0 or not cfg.active_pairs):
+    if not contract and (cfg.n_points == 0 or not cfg.active_pairs):
         return _empty_solution(cfg, state), state
-    carry = _prep(points, state, cfg, knobs, radii)
-    return _search_any(points, radii, payload, search_radius, state, carry,
-                       cfg, knobs, reduce, mask, allow), state
+    if contract or applicable(cfg, knobs):
+        carry = _prep(points, state, cfg, knobs, radii)
+        return _search_any(points, radii, payload, search_radius, state,
+                           carry, cfg, knobs, reduce, mask, allow), state
+    carry = _prep(points, state, cfg, knobs, radii, padded=True)
+    return _tile_search(points, radii, search_radius, state, carry, cfg,
+                        knobs), state
+
+
+def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
+                 search_radius: float, state: GridState, carry: FastCarry,
+                 cfg: SearchConfig, knobs: FastKnobs) -> dict:
+    """The tile path on a padded-layout prep (``_xla_tile_search``,
+    ``fastpath.py:1730-1886`` of the JAX package; the role of the
+    reference's scalar pipeline, ``TreeNSearch.cpp:1873-2160``).
+
+    K1r lays the sorted records out as ``rec_pad``, slot-major with a
+    sentinel tail of ``slack`` >= wcap slots, and every query and window
+    is read from it: tile t's queries are slots [128 t, 128 t + 128), its
+    window w the ``wcap`` slots from ``desc[t, w]``.  A candidate hits
+    when d^2 = (dx*dx + dy*dy) + dz*dz <= r^2 in float32 (variable: <=
+    r_i^2; symmetric: also <= r_j^2), it lies inside the window's length
+    and its orig differs from the query's (windows are disjoint runs, so
+    one compare is the self-exclusion).  Per active pair the hits of the
+    query set si in candidate set sj are counted exactly and their
+    set-local indices front-packed in window order into ``cfg.nbr_cap``
+    slots, then gathered per point through ``qpos``.  A window wider than
+    wcap is cut and ``cand_max`` reports its length, so the host regrows
+    wcap and re-runs.
+
+    Tiles go in groups sized so a group holds about ``_TILE_SLOTS``
+    (query, candidate) slots (the role of the JAX ``group`` knob and its
+    ``lax.map``); only the live tiles (a prefix of the layout) run, and
+    windows load only as wide as the widest window needs (the slots past
+    a window's length are masked either way), so none of this changes a
+    result."""
+    st = _statics(cfg, knobs)
+    dev = points.device
+    n = cfg.n_points
+    tiles_cap, n_win, wcap = st["tiles_cap"], len(st["offs_2d"]), st["wcap"]
+    multi = cfg.n_sets > 1
+    recs_t = sorted_records(points, carry.idx_s,
+                            radii if cfg.variable else None,
+                            set_ids_of(cfg, dev) if multi else None)
+    _, rec_pad = expand_records(carry.desc, recs_t, tiles_cap, n, st["slack"])
+    flags = _flags(state, carry, tiles_cap)
+    used, win_max = torch.stack([flags["tiles_used"],
+                                 carry.win_max]).tolist()
+    width = max(1, min(wcap, win_max))
+    k = cfg.nbr_cap
+    n_slots = tiles_cap * TILE
+    names = [f"{si}-{sj}" for (si, sj) in cfg.active_pairs]
+    counts = {p: torch.zeros(n_slots, dtype=torch.int32, device=dev)
+              for p in names}
+    nbrs = {p: torch.full((n_slots, k), -1, dtype=torch.int32, device=dev)
+            for p in names}
+    fields = rec_pad.view(torch.float32)
+    r = np.float32(search_radius)
+    r2 = torch.tensor(r * r, dtype=torch.float32, device=dev)
+    # set-local rebase by the candidate's set (the sentinel's -1 reads 0)
+    set_off = torch.tensor(cfg.set_offsets[:-1], dtype=torch.int32,
+                           device=dev)
+    lane = torch.arange(width, dtype=torch.int32, device=dev)
+    group = max(1, _TILE_SLOTS // (TILE * n_win * width))
+    for t0 in range(0, used, group):
+        t1 = min(t0 + group, used)
+        g = t1 - t0
+        q = rec_pad[t0 * TILE:t1 * TILE].view(g, TILE, 1, N_FIELDS)
+        qf = fields[t0 * TILE:t1 * TILE].view(g, TILE, 1, N_FIELDS)
+        starts = carry.desc[t0:t1, :n_win]
+        lens = carry.desc[t0:t1, LENS_OFF:LENS_OFF + n_win]
+        idx = (starts[:, :, None] + lane).reshape(g, 1, -1).long()
+        in_win = (lane < lens[:, :, None]).reshape(g, 1, -1)
+        c = rec_pad[idx]              # (g, 1, n_win * width, 8)
+        cf = c.view(torch.float32)
+        dx, dy, dz = (cf[..., f] - qf[..., f] for f in (F_X, F_Y, F_Z))
+        d2 = (dx * dx + dy * dy) + dz * dz
+        del dx, dy, dz
+        if cfg.variable:
+            q_r = qf[..., F_R]
+            crit = d2 <= q_r * q_r
+            if cfg.symmetric:
+                c_r = cf[..., F_R]
+                crit |= d2 <= c_r * c_r
+        else:
+            crit = d2 <= r2
+        del d2
+        hit = crit & in_win & (c[..., F_ORIG] != q[..., F_ORIG])
+        del crit
+        c_set, q_set = c[..., F_SET], q[..., F_SET]
+        loc = c[..., F_ORIG] - set_off[c_set.clamp(min=0).long()] \
+            if multi else c[..., F_ORIG]
+        for (si, sj), p in zip(cfg.active_pairs, names):
+            pm = hit & (q_set == si)
+            if multi:
+                pm &= c_set == sj
+            counts[p][t0 * TILE:t1 * TILE] = \
+                pm.sum(dim=-1, dtype=torch.int32).reshape(-1)
+            nbrs[p][t0 * TILE:t1 * TILE] = \
+                compact_rows(pm, loc, k).reshape(-1, k)
+    pairs = {}
+    offs = cfg.set_offsets
+    for (si, sj), p in zip(cfg.active_pairs, names):
+        n_i = cfg.set_sizes[si]
+        slots = carry.qpos[offs[si]:offs[si] + n_i].long()
+        c_i = counts[p][slots]
+        pairs[p] = {"counts": c_i, "nbrs": nbrs[p][slots],
+                    "max_count": c_i.max() if n_i > 0 else
+                    torch.zeros((), dtype=torch.int32, device=dev)}
+    flags["cand_max"] = torch.where(carry.win_max > wcap, carry.win_max, 0)
+    return {"pairs": pairs, **flags}
 
 
 def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
@@ -597,6 +765,10 @@ def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
     ``knobs``.  Needs ``cfg.n_points > 0``."""
     if cfg.n_points == 0:
         raise ValueError("the carried step needs at least one point")
+    if not contracts_applicable(cfg, knobs):
+        raise ValueError("the carried step needs the fused route "
+                         "(knobs.fused, <= 8 candidate sets, a stencil of "
+                         "at most 3 cells)")
     allow = _allow(cfg, knobs, points.device, reduce, mask)
     prev = state
     state = update_grid(state, points, cell_size)

@@ -6,6 +6,9 @@ PyTorch counterpart of ``treensearch_tpu/ops/pallas_pairs.py``:
 - ``expand_query_tiles`` (K1) replaces ``make_expand_call(build_rec=False)``
   (``pallas_pairs.py:276``): it lays the sorted records out as 128-slot
   query tiles, sentinel-padded.
+- ``expand_records`` (K1r) replaces ``make_expand_call(build_rec=True)``
+  (``pallas_pairs.py:276-442``): K1's query tiles and, slot-major, the
+  padded record array that the tile path reads queries and windows from.
 - ``pairs_nbrs_fixed`` (K2a) replaces ``make_pairs_call`` in neighbor-list
   mode, fixed radius, one candidate set (``pallas_pairs.py:445``), both its
   narrow and its fat tier: it streams every stencil window through shared
@@ -165,6 +168,8 @@ def load_library(build_dir: Path | None = None) -> _Library:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tns_expand_query_tiles.argtypes = [vp, vp, ci, ci, ci, vp, vp]
     lib.tns_expand_query_tiles.restype = ci
+    lib.tns_expand_records.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    lib.tns_expand_records.restype = ci
     lib.tns_pairs_nbrs_fixed.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf,
                                          vp, vp, vp]
     lib.tns_pairs_nbrs_fixed.restype = ci
@@ -223,6 +228,13 @@ def _check_recs(recs_t: torch.Tensor, device) -> int:
 
 
 # ---------------------------------------------------------------- K1
+def _sentinel(sentinel_orig: int, device) -> torch.Tensor:
+    """The padding record: NaN x y z, r 0, orig ``sentinel_orig``, set -1,
+    payload 0."""
+    return torch.tensor([SENTINEL_BITS] * 3 + [0, sentinel_orig, -1, 0, 0],
+                        dtype=torch.int32, device=device)
+
+
 def expand_query_tiles_plain(desc: torch.Tensor, recs_t: torch.Tensor,
                              tiles_cap: int,
                              sentinel_orig: int) -> torch.Tensor:
@@ -237,8 +249,7 @@ def expand_query_tiles_plain(desc: torch.Tensor, recs_t: torch.Tensor,
     ok = (lane[None, :] < cnt[:, None]) & (a[:, None] >= 0) & (src < n_rec)
     src = torch.where(ok, src, 0)
     vals = recs_t[:, src.reshape(-1)].view(N_FIELDS, tiles_cap, TILE)
-    sent = torch.tensor([SENTINEL_BITS] * 3 + [0, sentinel_orig, -1, 0, 0],
-                        dtype=torch.int32, device=desc.device)
+    sent = _sentinel(sentinel_orig, desc.device)
     out = torch.where(ok[None], vals, sent[:, None, None])
     return out.reshape(N_FIELDS, tiles_cap * TILE).contiguous()
 
@@ -268,6 +279,53 @@ def expand_query_tiles(desc: torch.Tensor, recs_t: torch.Tensor,
 
 
 expand_query_tiles.launches = 0
+
+
+# ---------------------------------------------------------------- K1r
+def expand_records_plain(desc: torch.Tensor, recs_t: torch.Tensor,
+                         tiles_cap: int, sentinel_orig: int, slack: int):
+    """Plain version of K1r: ``(q_t, rec_pad)``.  ``q_t`` is K1's query
+    tiles (``expand_query_tiles_plain``); ``rec_pad[128 t + l]`` is the
+    same slot's record, slot-major, and the ``slack`` rows past the tiles
+    hold the sentinel."""
+    q_t = expand_query_tiles_plain(desc, recs_t, tiles_cap, sentinel_orig)
+    tail = _sentinel(sentinel_orig, desc.device)[None, :].expand(slack, -1)
+    return q_t, torch.cat([q_t.t(), tail]).contiguous()
+
+
+def expand_records(desc: torch.Tensor, recs_t: torch.Tensor, tiles_cap: int,
+                   sentinel_orig: int, slack: int):
+    """K1r: the query tiles ``q_t`` (8, tiles_cap * 128) int32, field-major
+    (K1's), and the padded records ``rec_pad`` (tiles_cap * 128 + slack,
+    8) int32, slot-major: slot 128 t + l holds sorted record a_t + l for
+    l < cnt_t (``desc`` A_COL/CNT_COL), every other slot and the
+    ``slack`` tail the sentinel (NaN x y z, r 0, orig ``sentinel_orig``,
+    set -1).  It is the JAX array at pack 16 reshaped to (-1, 8), written
+    past the live tiles too."""
+    _check_desc(desc, tiles_cap)
+    n_rec = _check_recs(recs_t, desc.device)
+    if slack < 0:
+        raise ValueError(f"slack must be >= 0, got {slack}")
+    if desc.device.type == "cpu":
+        return expand_records_plain(desc, recs_t, tiles_cap, sentinel_orig,
+                                    slack)
+    lib = _cuda_lib(desc)
+    n_slots = tiles_cap * TILE
+    q_t = torch.empty((N_FIELDS, n_slots), dtype=torch.int32,
+                      device=desc.device)
+    rec_pad = torch.empty((n_slots + slack, N_FIELDS), dtype=torch.int32,
+                          device=desc.device)
+    stream = torch.cuda.current_stream(desc.device).cuda_stream
+    err = lib.tns_expand_records(
+        desc.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap, int(slack),
+        int(sentinel_orig), q_t.data_ptr(), rec_pad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"expand_records launch failed: CUDA error {err}")
+    expand_records.launches += 1
+    return q_t, rec_pad
+
+
+expand_records.launches = 0
 
 
 # ------------------------------------------ the candidates of every pairs kernel

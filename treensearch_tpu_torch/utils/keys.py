@@ -1,9 +1,16 @@
-"""Point quantization onto the uniform cell grid.
+"""Point quantization onto the uniform cell grid, and the two-word cell
+keys of the search-based pipeline.
 
-PyTorch counterpart of ``treensearch_tpu/utils/keys.py:32-46``.  Points
-are quantized to at most 2**15 cells per axis, the reference's domain
-limit (``TreeNSearch.cpp:510-515``).  Morton keys and the two-word search
-belong to the z-sort and scalar slices.
+PyTorch counterpart of ``treensearch_tpu/utils/keys.py:32-101, 136-139``.
+Points are quantized to at most 2**15 cells per axis, the reference's
+domain limit (``TreeNSearch.cpp:510-515``).  The row-major key is two
+int32 words, ``hi = i << 15 | j`` and ``lo = k``; sorting by (hi, lo)
+makes the k-run of every (i + di, j + dj) one contiguous range.  The JAX
+package sorts and searches the two words as such (a two-key sort and a
+fixed-trip binary search); here both words go into one int64,
+``key64(hi, lo)``, whose order is their lexicographic order, so
+``torch.sort(stable=True)`` and ``torch.searchsorted`` give the same
+permutation and the same indices.  Morton keys belong to z-sort.
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from __future__ import annotations
 import torch
 
 MAX_CELLS_PER_DIM = 1 << 15
+_KEY_SHIFT = 15
 
 
 def quantize(points: torch.Tensor, grid_min: torch.Tensor,
@@ -26,3 +34,39 @@ def quantize(points: torch.Tensor, grid_min: torch.Tensor,
     f = torch.floor((points - grid_min[None, :]) * inv_cell)
     hi = (n_cells - 1).to(torch.float32)
     return torch.minimum(torch.clamp(f, min=0.0), hi[None, :]).to(torch.int32)
+
+
+def cell_keys(ijk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major two-word key of int32 cell coords (N, 3): hi = i << 15 |
+    j, lo = k."""
+    return key_hi(ijk[:, 0], ijk[:, 1]), ijk[:, 2]
+
+
+def key_hi(i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    return (i << _KEY_SHIFT) | j
+
+
+def key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The words as one int64 in the same order: ``hi * 2**32 + (lo +
+    2**31)``, exact and order-preserving for any two int32 words."""
+    return hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) + (1 << 31))
+
+
+def searchsorted_2word(hi: torch.Tensor, lo: torch.Tensor,
+                       q_hi: torch.Tensor, q_lo: torch.Tensor,
+                       side: str) -> torch.Tensor:
+    """numpy ``searchsorted`` over the lexicographically sorted words
+    ``hi``/``lo`` (M,) for the query words (any equal shapes): int32
+    insertion indices, equal to the JAX binary search's."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    return torch.searchsorted(key64(hi, lo), key64(q_hi, q_lo), side=side,
+                              out_int32=True)
+
+
+def sort_by_2word_key(hi: torch.Tensor, lo: torch.Tensor,
+                      *payload: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Stable sort by lexicographic (hi, lo); the payload arrays ride
+    along.  Returns (hi_s, lo_s, *payload_s)."""
+    order = torch.sort(key64(hi, lo), stable=True).indices
+    return tuple(a[order] for a in (hi, lo) + payload)
