@@ -11,11 +11,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build: ``csrc/pairs.cu`` and the fused reduce's kernel for each of the
    five callbacks below (``csrc/reduce.cu`` with the traced callback),
    compiled by nvcc for sm_90a, one nvcc each, all started together, with
-   their times;
+   their times and each kernel's registers, shared memory and spills;
 3. BASELINE config 1 (1,000,000 uniform points from ``default_rng(0)``,
    r = 0.02, cell = 1.15 r): K1 and K2a against their plain PyTorch
    versions on a settled engine's structures (query tiles bit-equal,
-   counts equal, rows equal as sets, median times from CUDA events); a
+   counts equal, rows equal slot for slot, median times from CUDA events); a
    small cloud against numpy brute force; ``TreeNSearch(device="cuda")
    .run()`` once to settle the caps and then 5 times with the points
    jittered by at most 1e-4, as an SPH step moves them; 20k sampled
@@ -26,7 +26,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    block, 6 runs, cKDTree samples of both active pairs;
 5. BASELINE config 4 (``bench_configs.py:143-152``): 250,000 points with
    radii uniform in [0.8, 1.25] x 0.032, all searches, symmetric: K2c
-   against its plain version, 6 runs, a cKDTree sample;
+   and K4's ``<true, true>`` instance against their plain versions, with
+   their times and bounds, K2c over the same grid with every tile dead,
+   6 runs, a cKDTree sample;
 6. two small sets with variable radii, symmetric search off, against
    numpy brute force (K2c with two candidate-set blocks);
 7. ``run_reduce`` at config 1 (``benchmarks/bench_reduce_1m.py``'s
@@ -99,6 +101,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -248,17 +251,6 @@ def live_slots(desc, tiles_cap):
     lane = torch.arange(128, device=desc.device)
     return ((lane[None, :] < desc[:tiles_cap, 63, None])
             & (desc[:tiles_cap, 127, None] != 2)).reshape(-1)
-
-
-def sorted_rows(counts, nbrs, live):
-    """Tile-layout rows as (slots, k8) with entries past each count set to
-    a large value and sorted, restricted to live slots."""
-    import torch
-    k8 = nbrs.shape[1]
-    rows = nbrs.transpose(1, 2).reshape(-1, k8)
-    j = torch.arange(k8, device=rows.device)[None, :]
-    rows = torch.where(j < counts[:, None], rows, torch.iinfo(torch.int32).max)
-    return torch.sort(rows, dim=1).values[live]
 
 
 # ------------------------------------------------------------- engines
@@ -483,8 +475,9 @@ def check_k1(a, n, dev, timed: bool) -> dict:
 
 def check_pairs(carry, a, dev, n) -> dict:
     """The pairs kernel of these inputs against its plain version: counts
-    equal and rows equal as sets over live slots, for every block; its
-    time in turns with the plain version, and its bound."""
+    equal and rows equal slot for slot over live slots, for every block;
+    its time in turns with the plain version, and its bound."""
+    import torch
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs
     kernel = fp.pairs_kernel(a)
@@ -495,13 +488,12 @@ def check_pairs(carry, a, dev, n) -> dict:
     if err:
         raise AssertionError(f"{kernel.__name__}: counts differ by {err}")
     for b in range(len(a.k8s)):
-        if not sorted_rows(c_k[b], nb_k[b], live).equal(
-                sorted_rows(c_p[b], nb_p[b], live)):
+        if not torch.equal(_rows_of(nb_k[b], live), _rows_of(nb_p[b], live)):
             raise AssertionError(f"{kernel.__name__}: block {b} rows differ "
-                                 "as sets")
+                                 "from plain")
     rec = {"name": kernel.__name__, "max_abs_err": err}
     rec.update(k2_bound(a))
-    print(f"{kernel.__name__}: counts equal and rows equal as sets over "
+    print(f"{kernel.__name__}: counts equal and rows equal slot for slot over "
           f"{int(live.sum())} live slots in {len(a.k8s)} block(s) "
           f"(candidate sets {a.cand_sets}, k8 {a.k8s}, max counts "
           f"{c_k[:, live].amax(dim=1).tolist()}, widest window "
@@ -590,10 +582,10 @@ def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
     return rec, k
 
 
-def check_k4(a, allow, q) -> dict:
+def check_k4(a, allow, q, name: str = "pairs_mask") -> dict:
     """K4 against its plain version on these inputs: row bases, bits word
     for word and counts equal; its time in turns with the plain version
-    and its bound."""
+    and its bound (``name`` labels the lines)."""
     import torch
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs
@@ -608,15 +600,15 @@ def check_k4(a, allow, q) -> dict:
 
     (c_k, b_k, base_k), (c_p, b_p, base_p) = kernel(), plain()
     if not torch.equal(base_k, base_p):
-        raise AssertionError("pairs_mask: row bases differ")
+        raise AssertionError(f"{name}: row bases differ")
     words = int((b_k != b_p).sum())
     err = int((c_k.long() - c_p.long()).abs().max())
     if words or err:
-        raise AssertionError(f"pairs_mask: {words} bit words differ, counts "
+        raise AssertionError(f"{name}: {words} bit words differ, counts "
                              f"by up to {err}")
-    rec = {"name": "pairs_mask", "max_abs_err": err}
+    rec = {"name": name, "max_abs_err": err}
     rec.update(k4_bound(a, b_k.shape[0]))
-    print(f"pairs_mask: bits equal word for word over {b_k.shape[0]} "
+    print(f"{name}: bits equal word for word over {b_k.shape[0]} "
           f"candidate rows ({b_k.numel() * 4} B), counts equal "
           f"({int(c_k.sum(dtype=torch.int64))} pairs); {rec['tests']} "
           f"distance tests, bound {rec['bound_ms']:.4f} ms by "
@@ -1006,11 +998,36 @@ def run_config3(fluid_t, boundary_t, card: str) -> tuple:
     return rec, out
 
 
+def check_config4_kernels(eng, card: str) -> dict:
+    """Config 4: K2c against its plain version (``check_path_kernel``);
+    K4's ``<true, true>`` instance on the same structures against its
+    plain version, with its time beside K2c's and its bound; and K2c's
+    launch over the same grid with every tile dead (what the grid's dead
+    tiles can cost).  Returns K2c's record."""
+    from treensearch_tpu_torch.ops import fastpath as fp
+    rec = check_path_kernel(eng)
+    a, allow, q = active_inputs(eng)
+    k4 = check_k4(a, allow, q, "pairs_mask<true, true> (config 4)")
+    dead = a.desc.clone()
+    dead[:, 127] = 2
+    a_dead = a._replace(desc=dead)
+    ms_dead = median_ms(lambda: fp.run_pairs(a_dead, q), a.desc.device,
+                        per=KERNEL_BATCH)
+    live = int((a.desc[:a.tiles_cap, 127] != 2).sum())
+    print(f"config 4: pairs_mask<true, true> {k4['ms']:.4f} ms (plain "
+          f"{k4['plain_ms']:.4f}, bound {k4['bound_ms']:.4f} by "
+          f"{k4['bound_by']}) beside pairs_nbrs_variable {rec['ms']:.4f} ms "
+          f"(bound {rec['bound_ms']:.4f}); pairs_nbrs_variable over the "
+          f"{a.tiles_cap} tiles with every tile dead {ms_dead:.4f} ms "
+          f"({live} live in the run) ({card})", flush=True)
+    return rec
+
+
 def run_config4(pts_t, radii_t, card: str) -> tuple:
-    """Config 4: K2c against its plain version, then the timed runs and a
-    cKDTree sample under the symmetric rule."""
+    """Config 4: K2c and K4 against their plain versions, then the timed
+    runs and a cKDTree sample under the symmetric rule."""
     from treensearch_tpu_torch.ops import pairs
-    rec = check_path_kernel(config4_engine(pts_t, radii_t))
+    rec = check_config4_kernels(config4_engine(pts_t, radii_t), card)
     eng = config4_engine(pts_t, radii_t)
     state = {"p": pts_t}
 
@@ -1722,7 +1739,40 @@ def build_all() -> None:
     for name, lib in libs:
         print(f"  {name}: {lib.seconds:.2f} s nvcc -> "
               f"{os.path.relpath(lib.path, HERE)}", flush=True)
-        print(lib.log.strip(), flush=True)
+        for kernel, regs, smem, stores, loads in kernel_resources(lib.log):
+            print(f"    {kernel}: {regs} registers, {smem} B static shared "
+                  f"memory, spills {stores} B stored / {loads} B loaded",
+                  flush=True)
+
+
+def kernel_resources(log: str) -> list:
+    """(kernel, registers, static shared bytes, spill stores, spill loads)
+    of each entry function in an ``nvcc -Xptxas -v`` log, the kernel named
+    from its mangled name (template flags as true/false)."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", mangled)
+            flags = re.findall(r"Lb([01])E", mangled)
+            name = (base.group(1) if base else mangled) + (
+                "<" + ", ".join("true" if f == "1" else "false"
+                                for f in flags) + ">" if flags else "")
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0, *spills))
+            name = None
+    return out
 
 
 def main() -> int:

@@ -528,6 +528,101 @@ def test_k5_truncated_rows_wide_windows_and_short_bits(dev):
     _k5_vs_plain(a, bits[:bits.shape[0] // 3].contiguous(), base, k8s=(8,))
 
 
+# ------------------------------------ the candidate streams of K2b/K2c/K4
+def _window_desc(a, rng):
+    """``a.desc`` with the windows of four live tiles rewritten (the other
+    tiles keep theirs): lengths 0, 1, 255, 256 and 257 in one tile; 25
+    short windows whose concatenation crosses several 256-candidate chunk
+    boundaries, on a partial tile; every window empty; one window of 257
+    in the last place.  Starts are random records."""
+    desc = a.desc.clone()
+    n_rec = a.recs_t.shape[1]
+    tiles = desc[:a.tiles_cap]
+    live = tiles[:, pairs.FAT_COL] != 2
+    partial = torch.nonzero(live & (tiles[:, pairs.CNT_COL] < 128)) \
+        .flatten().tolist()
+    others = [t for t in torch.nonzero(live).flatten().tolist()
+              if t != partial[0]]
+    assert a.n_win == 25 and len(others) >= 3
+    short = rng.integers(20, 70, 25).tolist()
+    assert sum(short) > 3 * 256
+    patterns = {others[0]: [0, 1, 255, 256, 257] + [0] * 20,
+                partial[0]: short,
+                others[len(others) // 2]: [0] * 25,
+                others[-1]: [0] * 24 + [257]}
+    for t, lens in patterns.items():
+        for w, ln in enumerate(lens):
+            desc[t, w] = int(rng.integers(0, n_rec - ln + 1))
+            desc[t, pairs.LENS_OFF + w] = ln
+    return desc
+
+
+@pytest.mark.parametrize("mode", ["fixed", "variable", "symmetric"])
+def test_k2_k4_streams_across_window_and_chunk_edges(dev, mode):
+    # K2b (fixed) or K2c (variable, either symmetric setting) slot for
+    # slot and K4's instance of the mode word for word, on windows that
+    # start and end on and off the chunk edges, under an active matrix
+    # with an inactive pair
+    rng = np.random.default_rng(17)
+    sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+             None if mode == "fixed" else
+             rng.uniform(0.03, 0.07, m).astype(np.float32))
+            for m in (2500, 1500)]
+    eng = _sets_engine(dev, sets, r=0.1 if mode == "fixed" else None,
+                       symmetric=mode == "symmetric",
+                       active=[(0, 0), (0, 1), (1, 0)])
+    if mode == "fixed":
+        eng.set_cell_size(0.05)   # a 25-window stencil
+    a, allow, _, _ = _active_inputs(eng)
+    a = a._replace(desc=_window_desc(a, rng))
+    wrapper = pairs.pairs_nbrs_sets if mode == "fixed" \
+        else pairs.pairs_nbrs_variable
+    c2 = _kernel_vs_plain(a, 4000, wrapper)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
+    c4 = _k4_vs_plain(a, allow, q)
+    # K4's counts are K2's over the blocks each query's set searches
+    q_set = q[pairs.F_SET].long()
+    allowed = torch.where(q_set >= 0, allow[q_set.clamp(min=0)], 0)
+    want = sum(((allowed >> b) & 1) * c2[b] for b in range(len(a.k8s)))
+    assert torch.equal(c4, want.int())
+    assert int(c4.sum()) > 0
+
+
+def test_k2b_k4_k5_eight_blocks_one_at_cap_8_under_an_active_matrix(dev):
+    # eight candidate blocks, the densest at a cap of 8 (its rows
+    # truncate), a third of the pairs inactive: K2b slot for slot, K4 word
+    # for word, K5 on the new K4's bits against its plain version and,
+    # per active pair, against the fused K2b
+    rng = np.random.default_rng(18)
+    sizes = [300 + 40 * k for k in range(7)] + [2500]
+    sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32), None)
+            for m in sizes]
+    active = [(i, j) for i in range(8) for j in range(8) if (i + 2 * j) % 3]
+    eng = _sets_engine(dev, sets, r=0.1, active=active)
+    carry, a = _settled(eng, caps=(80,) * 7 + (8,))
+    assert a.cand_sets == tuple(range(8)) and a.k8s[7] == 8
+    n = sum(sizes)
+    c2 = _kernel_vs_plain(a, n, pairs.pairs_nbrs_sets)
+    assert int(c2[7].max()) > 8 and (c2.amax(dim=1) > 0).all()
+    allow = fp.allow_table(eng._make_cfg(1), a.cand_sets, dev)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
+    c4 = _k4_vs_plain(a, allow, q)
+    _, bits, base = pairs.pairs_mask(a.desc, q, a.recs_t, a.n_win,
+                                     a.tiles_cap, a.cand_sets, allow,
+                                     r2=a.r2)
+    c5 = _k5_vs_plain(a, bits, base)
+    assert torch.equal(c5.sum(0), c4)
+    (c_s, nb_s), (c_f, nb_f) = fp.run_pairs(a, q, allow=allow), \
+        fp.run_pairs(a, q)
+    qpos = carry.qpos.long()
+    offs = np.cumsum([0] + sizes)
+    for si, sj in active:
+        slots = qpos[offs[si]:offs[si + 1]]
+        assert torch.equal(c_s[sj, slots], c_f[sj, slots])
+        assert torch.equal(nb_s[sj][slots // 128, :, slots % 128],
+                           nb_f[sj][slots // 128, :, slots % 128])
+
+
 # ------------------------------------------------------- K1r, fallbacks
 def test_k1r_partial_dead_and_late_tiles_match_plain_on_card(dev):
     # tile 0 full, 1 partial, 2 ends exactly at n, 3 starts near n and

@@ -287,6 +287,9 @@ NOT_PORTED = {
                    "ROADMAP.md Queue 1 item 14"),
     "mesh": (lambda e: TreeNSearch(device="cpu", mesh=object()),
              "ROADMAP.md Queue 1 item 14"),
+    "print_state": (lambda e: e.print_state(), "ROADMAP.md Queue 1 item 13"),
+    "profile_run": (lambda e: e.profile_run("trace"),
+                    "ROADMAP.md Queue 1 item 13"),
 }
 
 
@@ -447,3 +450,53 @@ def test_split_stage_and_coherence_setters():
     eng.set_split_stage(True)
     eng.set_coherence(False)
     assert eng._knobs().split_stage and not eng._use_carry
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """The port and the JAX engine after one run() on one numpy-seeded
+    cloud of two sets, set 0 searching itself and set 1 searching set 0
+    (one JAX compile for the module's getter tests)."""
+    rng = np.random.default_rng(21)
+    sets = [rng.uniform(0, 1, (m, 3)).astype(np.float32) for m in (600, 250)]
+    out = [TreeNSearch(device="cpu"), JaxTreeNSearch()]
+    for e in out:
+        for p in sets:
+            e.add_point_set(p)
+        e.set_search_radius(0.1)
+        e.set_active_search(0, 0, True)
+        e.set_active_search(1, 0, True)
+        e.run()
+    return out
+
+
+def test_get_n_threads_keeps_its_value_as_jax(engines):
+    for e in engines:
+        e.set_n_threads(3)
+    assert [e.get_n_threads() for e in engines] == [3, 3]
+
+
+def test_get_mesh_is_none_as_jax(engines):
+    assert [e.get_mesh() for e in engines] == [None, None]
+
+
+def test_neighborlist_n_bytes_equals_jax(engines):
+    eng, jeng = engines
+    n_bytes = eng.get_neighborlist_n_bytes()
+    assert n_bytes == jeng.get_neighborlist_n_bytes() > 0
+    # the view's size, whether or not the rows are materialised
+    eng.get_neighbors(0, 0)
+    assert eng._solution.n_bytes() == n_bytes
+
+
+@pytest.mark.parametrize("pair", [(0, 0), (1, 0)])
+def test_get_padded_equals_jax(engines, pair):
+    eng, jeng = engines
+    pad = eng._solution.get_padded(*pair)
+    jpad = np.asarray(jeng._solution.get_padded(*pair))
+    counts = eng.get_counts(*pair)
+    assert pad.shape == jpad.shape and pad.dtype == np.int32
+    assert np.array_equal(counts, np.asarray(jeng.get_counts(*pair)))
+    for i in range(pad.shape[0]):
+        assert sorted(pad[i, :counts[i]]) == sorted(jpad[i, :counts[i]])
+        assert (pad[i, counts[i]:] == -1).all()

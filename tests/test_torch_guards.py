@@ -101,3 +101,47 @@ def test_k1r_route_does_not_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         pairs.expand_records(desc, recs, 1, 4, 128)
     assert pairs.expand_records.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["sets", "variable", "mask"])
+def test_redesigned_pairs_kernels_do_not_fall_back(kernel, monkeypatch,
+                                                   tmp_path):
+    # K2b, K2c and K4 on tensors off the CPU: with no toolchain they raise
+    # instead of running their plain versions, and count no launch
+    _no_nvcc(monkeypatch, tmp_path)
+    monkeypatch.setattr(pairs, "BUILD_DIR", tmp_path / "build")
+    meta = {"dtype": torch.int32, "device": "meta"}
+    desc = torch.zeros((8, pairs.DESC_W), **meta)
+    recs = torch.zeros((pairs.N_FIELDS, 4), **meta)
+    q = torch.zeros((pairs.N_FIELDS, 128), **meta)
+    wrapper, call = {
+        "sets": (pairs.pairs_nbrs_sets, lambda: pairs.pairs_nbrs_sets(
+            desc, q, recs, 0.01, 9, 1, (0, 1), (0, 2), (8, 8))),
+        "variable": (pairs.pairs_nbrs_variable,
+                     lambda: pairs.pairs_nbrs_variable(
+                         desc, q, recs, 25, 1, (0,), (0,), (8,), True)),
+        "mask": (pairs.pairs_mask, lambda: pairs.pairs_mask(
+            desc, q, recs, 9, 1, (0,), torch.ones(1, **meta))),
+    }[kernel]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        call()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py",
+                                    "chip_kernels.py"])
+def test_chip_scripts_never_import_jax(script):
+    hits = [line for line in (ROOT / script).read_text().splitlines()
+            if re.match(r"\s*(from|import)\s+(jax|treensearch_tpu)\b", line)]
+    assert hits == []
+
+
+def test_chip_kernels_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_kernels.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""

@@ -158,6 +158,7 @@ class TreeNSearch:
         self._grid_state = fresh_state(dev)
         self._solution: Optional[NeighborSolution] = None
         self._last_stats: dict = {}
+        self._n_threads = 1        # stored for get_n_threads; one device
 
     # ------------------------------------------------------------------ sets
     def add_point_set(self, points, radii=None, n_points: int = None) -> int:
@@ -282,8 +283,8 @@ class TreeNSearch:
     # TPU schedules of the pairs kernel, which here streams every window
     # through shared memory whatever its width.
     def set_n_threads(self, n: int) -> None:
-        """Accepted for compatibility; no meaning on the GPU."""
-        int(n)
+        """Stored for ``get_n_threads``; no meaning on the GPU."""
+        self._n_threads = int(n)
 
     def set_recursion_cap(self, cap: int) -> None:
         """Accepted for compatibility; no meaning on the GPU."""
@@ -662,8 +663,22 @@ class TreeNSearch:
         self._require_solution()
         return self._solution.get_counts(set_i, set_j)
 
+    def get_neighborlist_n_bytes(self) -> int:
+        """Bytes of the per-point neighbor lists of the last run
+        (``NeighborSolution.n_bytes``)."""
+        self._require_solution()
+        return self._solution.n_bytes()
+
     def get_n_sets(self) -> int:
         return len(self._sets)
+
+    def get_n_threads(self) -> int:
+        return self._n_threads
+
+    def get_mesh(self):
+        """The device mesh: always None, multi-GPU execution is not ported
+        (``mesh=`` and ``distribute`` raise)."""
+        return None
 
     def get_n_points_in_set(self, set_i: int) -> int:
         self._require_set(set_i)
@@ -808,6 +823,12 @@ class TreeNSearch:
 
     def get_zsort_order(self, *args, **kwargs):
         raise _not_ported("z-sort", 10)
+
+    def print_state(self) -> None:
+        raise _not_ported("print_state", 13)
+
+    def profile_run(self, *args, **kwargs):
+        raise _not_ported("profile_run", 13)
 
     # -------------------------------------------------------------- helpers
     def _make_cfg(self, w: int, chunk: Optional[int] = None) -> SearchConfig:

@@ -200,45 +200,169 @@ struct Blocks {
   int* counts;
 };
 
+// ---------------------------------------------------------------------------
+// The candidate stream of a tile (K2b, K2c, K4).  The tile's n_win windows,
+// each clipped to the records as every kernel clips them, are read as one
+// stream in window order: stream index k lies in window w when pre[w] <= k <
+// pre[w + 1] (pre: the exclusive prefix of the clipped lengths, pre[n_win]
+// the tile's candidate count) and is record start[w] + k - pre[w].  Each
+// thread walks its stream indices in increasing order, so one window cursor
+// per thread finds each record in O(1) amortised steps.  The sum of the
+// clipped lengths is at most n_win * n_rec, inside int32 for n_rec below
+// 43M points.
+constexpr int MAX_WIN = 49;   // (2W+1)^2 windows for W <= 3 (LENS_OFF = 64)
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int clipped_len(const int* d, int w, int n_rec) {
+  const int s = d[w];
+  if (s < 0 || s > n_rec) return 0;
+  return max(0, min(d[LENS_OFF + w], n_rec - s));
+}
+
+// Warp 0 writes the window starts into start[0, 64) and the prefix of the
+// clipped lengths into pre[0, 65) (entries past n_win repeat the total); the
+// caller synchronises the block before reading them.
+__device__ __forceinline__ void tile_stream(const int* d, int n_rec, int n_win,
+                                            int* start, int* pre) {
+  const int lane = threadIdx.x;
+  if (lane >= 32) return;
+  int lo = lane < n_win ? clipped_len(d, lane, n_rec) : 0;
+  int hi = lane + 32 < n_win ? clipped_len(d, lane + 32, n_rec) : 0;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int a = __shfl_up_sync(FULL, lo, off);
+    const int b = __shfl_up_sync(FULL, hi, off);
+    if (lane >= off) {
+      lo += a;
+      hi += b;
+    }
+  }
+  hi += __shfl_sync(FULL, lo, 31);
+  if (lane == 0) pre[0] = 0;
+  pre[lane + 1] = lo;
+  pre[lane + 33] = hi;
+  start[lane] = lane < n_win ? d[lane] : 0;
+  start[lane + 32] = lane + 32 < n_win ? d[lane + 32] : 0;
+}
+
+// Advance a thread's window cursor to stream index k (< the total) and
+// return k's record.
+__device__ __forceinline__ int stream_record(const int* start, const int* pre,
+                                             int k, int& w) {
+  while (k >= pre[w + 1]) ++w;
+  return start[w] + (k - pre[w]);
+}
+
+// One 4-byte asynchronous copy global -> shared (cp.async, sm_80+), with its
+// commit and wait.  The window starts are arbitrary record indices, so a
+// chunk's source is not 16-byte aligned and TMA bulk copies do not apply;
+// per-element cp.async needs no alignment beyond the element's and holds no
+// registers while in flight.
+__device__ __forceinline__ void cp_async4(void* dst, const int* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float d2_rn(float cx, float cy, float cz, float qx,
+                                       float qy, float qz) {
+  const float dx = __fsub_rn(cx, qx);
+  const float dy = __fsub_rn(cy, qy);
+  const float dz = __fsub_rn(cz, qz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// Resident blocks per SM that __launch_bounds__ asks of K2b/K2c and K4 (it
+// caps their registers at 65536 / (128 * n), rounded down to a multiple of
+// 8).  chip_kernels.py --blocks rebuilds with -D to time other values.
+#ifndef K2_MIN_BLOCKS
+#define K2_MIN_BLOCKS 12
+#endif
+#ifndef K4_MIN_BLOCKS
+#define K4_MIN_BLOCKS 8
+#endif
+constexpr int UNROLL = 4;   // K2 tests per hit check; chunks pad to it
+
 // K2b and K2c -- replace make_pairs_call with multi_set (one output block
 // per distinct candidate set, cand_sets/cand_offsets/nbr_caps) and with
 // variable/symmetric radii (treensearch_tpu/ops/pallas_pairs.py:445; the
-// criterion :950-957, the per-block compaction :1154-1310).  K2a's
-// schedule: one block of 128 threads per query tile, windows streamed in
-// CHUNK-candidate passes through shared memory, one query per thread.
-// Each staged candidate also carries its block index (-1 for a set that
-// is no candidate set), found once at staging, and in symmetric mode its
-// squared radius.  A survivor goes to its block's row while that block's
-// count is below its k8; counting goes on past the cap.  The per-block
-// counts stay in registers: the unrolled compare against each block index
-// keeps every array index a constant.
+// criterion :950-957, the per-block compaction :1154-1310).  One block of
+// 128 threads per query tile, one query per thread, each survivor appended
+// to the thread's own row of its block in window order, so the rows equal
+// the plain version's slot for slot; counting goes on past a block's k8.
 //   VARIABLE:  d^2 <= r_i^2, r_i the query's F_R, squared in float32;
 //              else d^2 <= r2 (K2b's fixed radius).
 //   SYMMETRIC: also d^2 <= r_j^2 (variable only).
 // The sentinel query (NaN coordinates, r = 0) fails every compare.
-// Bound: the distance tests, as K2a; the block lookup is paid per staged
-// candidate, not per test.
+//
+// Bound: the distance tests (9 float32 operations each, 10 symmetric); the
+// _rn pins forbid FMA, so each operation is one FP32 issue, and a test
+// issues about 12 instructions (the broadcast load, 8 float32 operations,
+// the compares and the hit check).  The hits add a divergent branch and a
+// scattered 4-byte row store each.  The design it replaces (PR 2, 1.8657 ms for K2c and 1.1371 ms for K2b at configs 4 and
+// 3 on the H100, PR 5's run) staged each window on its own: at least n_win
+// passes of mostly one partial 256-candidate chunk (about 125-160
+// candidates per window), two barriers each with the load latency in front
+// of the tests, six shared loads per test (x, y, z, orig, block, r_j^2),
+// and 56 registers (9 resident blocks per SM).  This design:
+//   * concatenates the clipped windows into one stream (tile_stream) cut
+//     into full CHUNK-candidate chunks that cross window boundaries:
+//     ceil(sum len / CHUNK) passes, about 5 instead of 9 at config 1 and
+//     15 instead of 25 at config 4;
+//   * double-buffers the chunks: chunk c + 1 is copied with cp.async while
+//     chunk c is tested, one barrier per chunk; each thread then squares
+//     its own staged r_j and turns its staged set into a block index;
+//   * packs the geometry as one float4 (x, y, z, r_j^2) per candidate, one
+//     broadcast 16-byte load per test, and keeps (orig, block) in an int2
+//     read only on a hit (about 2% of tests), where self-exclusion and the
+//     block dispatch now happen; the per-block counts live in shared
+//     memory (dynamic, n_blocks x 128 ints) and the block table is copied
+//     to shared memory, so a hit indexes both directly;
+//   * pads the last chunk with NaN candidates to a multiple of UNROLL and
+//     checks the hits of UNROLL tests with one branch;
+//   * asks __launch_bounds__ for K2_MIN_BLOCKS resident blocks.
+// Dead tiles return at once (their rows are undefined).
 template <bool VARIABLE, bool SYMMETRIC>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(TILE, K2_MIN_BLOCKS)
 pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   const int* __restrict__ recs_t, int n_rec, int tiles_cap,
                   int n_win, float r2, Blocks blk) {
-  __shared__ float sx[CHUNK];
-  __shared__ float sy[CHUNK];
-  __shared__ float sz[CHUNK];
-  __shared__ float sr2[SYMMETRIC ? CHUNK : 1];
-  __shared__ int so[CHUNK];
-  __shared__ int sb[CHUNK];
+  __shared__ float4 s_geo[2][CHUNK];
+  __shared__ int2 s_id[2][CHUNK];
+  __shared__ int s_start[64];
+  __shared__ int s_pre[65];
+  __shared__ int* s_nbrs[MAX_BLOCKS];
+  __shared__ int s_k8[MAX_BLOCKS];
+  __shared__ int s_off[MAX_BLOCKS];
+  extern __shared__ int s_cnt[];   // [n_blocks][TILE]
 
   const int t = blockIdx.x;
   const int l = threadIdx.x;
   const int* d = desc + (size_t)t * DESC_W;
   const size_t n_slots = (size_t)tiles_cap * TILE;
   const size_t slot = (size_t)t * TILE + l;
+  const int n_blocks = blk.n_blocks;
   if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
-    for (int b = 0; b < blk.n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
+    for (int b = 0; b < n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
     return;
   }
+  tile_stream(d, n_rec, n_win, s_start, s_pre);
+#pragma unroll
+  for (int b = 0; b < MAX_BLOCKS; ++b) {
+    if (b == l && b < n_blocks) {
+      s_nbrs[b] = blk.nbrs[b];
+      s_k8[b] = blk.k8[b];
+      s_off[b] = blk.offset[b];
+    }
+  }
+  for (int b = 0; b < n_blocks; ++b) s_cnt[b * TILE + l] = 0;
   const float qx = __int_as_float(q_t[slot]);
   const float qy = __int_as_float(q_t[n_slots + slot]);
   const float qz = __int_as_float(q_t[2 * n_slots + slot]);
@@ -248,72 +372,103 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
     qr2 = __fmul_rn(qr, qr);
   }
-  const int* rx = recs_t;
-  const int* ry = recs_t + (size_t)n_rec;
-  const int* rz = recs_t + 2 * (size_t)n_rec;
-  const int* rr = recs_t + F_R * (size_t)n_rec;
-  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
-  const int* rs = recs_t + F_SET * (size_t)n_rec;
+  __syncthreads();
+  const int total = s_pre[n_win];
+  const int n_chunks = (total + CHUNK - 1) / CHUNK;
+  int cur = 0;   // this thread's window cursor while staging
 
-  int cnt[MAX_BLOCKS];
+  // Chunk c into buffer buf: each thread copies stream indices c * CHUNK +
+  // l + h * TILE; slots past the stream get a NaN candidate.
+  auto stage = [&](int c, int buf) {
 #pragma unroll
-  for (int b = 0; b < MAX_BLOCKS; ++b) cnt[b] = 0;
-  for (int w = 0; w < n_win; ++w) {
-    const int s = d[w];
-    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
-    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
-      const int m = min(CHUNK, ln - c0);
-      for (int j = l; j < m; j += TILE) {
-        const size_t src = (size_t)s + c0 + j;
-        sx[j] = __int_as_float(rx[src]);
-        sy[j] = __int_as_float(ry[src]);
-        sz[j] = __int_as_float(rz[src]);
-        so[j] = ro[src];
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      const int k = c * CHUNK + j;
+      if (k < total) {
+        const size_t src = stream_record(s_start, s_pre, k, cur);
+        cp_async4(&s_geo[buf][j].x, recs_t + src);
+        cp_async4(&s_geo[buf][j].y, recs_t + n_rec + src);
+        cp_async4(&s_geo[buf][j].z, recs_t + 2 * (size_t)n_rec + src);
+        if (SYMMETRIC)
+          cp_async4(&s_geo[buf][j].w, recs_t + F_R * (size_t)n_rec + src);
+        cp_async4(&s_id[buf][j].x, recs_t + F_ORIG * (size_t)n_rec + src);
+        cp_async4(&s_id[buf][j].y, recs_t + F_SET * (size_t)n_rec + src);
+      } else {
+        s_geo[buf][j] = make_float4(__int_as_float(SENTINEL_BITS),
+                                    __int_as_float(SENTINEL_BITS),
+                                    __int_as_float(SENTINEL_BITS), 0.0f);
+      }
+    }
+    cp_async_commit();
+  };
+  // After the wait: r_j squared, the set turned into its block index (-1
+  // for a set that is no candidate set), for this thread's own slots.
+  auto finish = [&](int c, int buf) {
+    cp_async_wait_all();
+#pragma unroll
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      if (c * CHUNK + j < total) {
         if (SYMMETRIC) {
-          const float r = __int_as_float(rr[src]);
-          sr2[j] = __fmul_rn(r, r);
+          const float r = s_geo[buf][j].w;
+          s_geo[buf][j].w = __fmul_rn(r, r);
         }
-        const int set = rs[src];
+        const int set = s_id[buf][j].y;
         int bi = -1;
 #pragma unroll
         for (int b = 0; b < MAX_BLOCKS; ++b)
-          if (b < blk.n_blocks && set == blk.set_of[b]) bi = b;
-        sb[j] = bi;
+          if (b < n_blocks && set == blk.set_of[b]) bi = b;
+        s_id[buf][j].y = bi;
       }
-      __syncthreads();
-      for (int j = 0; j < m; ++j) {
-        const float dx = __fsub_rn(sx[j], qx);
-        const float dy = __fsub_rn(sy[j], qy);
-        const float dz = __fsub_rn(sz[j], qz);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                             __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        bool hit = d2 <= qr2;
-        if (SYMMETRIC) hit = hit || d2 <= sr2[j];
-        const int o = so[j];
-        const int bi = sb[j];
-        if (hit && o != qo && bi >= 0) {
+    }
+  };
+
+  if (n_chunks > 0) {
+    stage(0, 0);
+    finish(0, 0);
+  }
+  __syncthreads();
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) stage(c + 1, buf ^ 1);
+    const int m = min(CHUNK, total - c * CHUNK);
+    const int mp = (m + UNROLL - 1) / UNROLL * UNROLL;
+    const float4* g = s_geo[buf];
+    for (int j0 = 0; j0 < mp; j0 += UNROLL) {
+      bool hit[UNROLL];
+      bool any = false;
 #pragma unroll
-          for (int b = 0; b < MAX_BLOCKS; ++b) {
-            if (b == bi) {
-              if (cnt[b] < blk.k8[b])
-                blk.nbrs[b][((size_t)t * blk.k8[b] + cnt[b]) * TILE + l] =
-                    o - blk.offset[b];
-              ++cnt[b];
-            }
-          }
+      for (int u = 0; u < UNROLL; ++u) {
+        const float4 cg = g[j0 + u];
+        const float d2 = d2_rn(cg.x, cg.y, cg.z, qx, qy, qz);
+        hit[u] = d2 <= qr2;
+        if (SYMMETRIC) hit[u] = hit[u] || d2 <= cg.w;
+        any = any || hit[u];
+      }
+      if (any) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (!hit[u]) continue;
+          const int2 id = s_id[buf][j0 + u];   // (orig, block)
+          if (id.x == qo || id.y < 0) continue;
+          int* cnt = &s_cnt[id.y * TILE + l];
+          const int n = *cnt;
+          const int k8 = s_k8[id.y];
+          if (n < k8)
+            s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] = id.x - s_off[id.y];
+          *cnt = n + 1;
         }
       }
-      __syncthreads();
     }
+    if (c + 1 < n_chunks) finish(c + 1, buf ^ 1);
+    __syncthreads();
   }
-#pragma unroll
-  for (int b = 0; b < MAX_BLOCKS; ++b) {
-    if (b < blk.n_blocks) {
-      blk.counts[b * n_slots + slot] = cnt[b];
-      int* out = blk.nbrs[b] + (size_t)t * blk.k8[b] * TILE + l;
-      for (int k = cnt[b]; k < blk.k8[b]; ++k) out[(size_t)k * TILE] = -1;
-    }
+  for (int b = 0; b < n_blocks; ++b) {
+    const int n = s_cnt[b * TILE + l];
+    const int k8 = s_k8[b];
+    blk.counts[b * n_slots + slot] = n;
+    int* out = s_nbrs[b] + (size_t)t * k8 * TILE + l;
+    for (int k = n; k < k8; ++k) out[(size_t)k * TILE] = -1;
   }
 }
 
@@ -333,41 +488,82 @@ __device__ __forceinline__ int cand_bit(const CandSets& cs, int set) {
   return bit;
 }
 
+// Transpose a 32 x 32 bit matrix held one row per lane (bit c of lane r's
+// word) so that lane r holds column r: five rounds of swapping off-diagonal
+// blocks of 16, 8, 4, 2 and 1 bits with the partner lane.
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    // the bits c with (c & s) == 0: 0x0000FFFF, 0x00FF00FF, ... 0x55555555
+    const unsigned low = s == 16 ? 0x0000FFFFu : s == 8 ? 0x00FF00FFu
+                       : s == 4 ? 0x0F0F0F0Fu : s == 2 ? 0x33333333u
+                                                : 0x55555555u;
+    const unsigned y = __shfl_xor_sync(FULL, x, s);
+    x = (lane & s) ? (x & ~low) | ((y >> s) & low)
+                   : (x & low) | ((y << s) & ~low);
+  }
+  return x;
+}
+
 // K4 -- replaces make_pairs_call(mask_mode=True)
-// (treensearch_tpu/ops/pallas_pairs.py:779-859).  K2's schedule and
-// criteria (one block of 128 threads per tile, windows streamed through
-// shared memory in CHUNK-candidate passes), plus the active matrix: the
-// query's allow word is read once, each staged candidate carries its
-// candidate-set bit.  Instead of compacting hits, every warp takes
-// __ballot_sync of its 32 lanes' hits on each staged candidate, so the
-// tile's 4 warps give one row of 4 words per candidate; a chunk's rows
-// gather in shared memory and are stored coalesced after it, at row
-// cand_base[t] + (the candidate's index in the tile's window order).
-// Counts are K2's.  Every lane of a live tile walks the same chunk loop
-// (its bounds come from the tile's descriptor), so each ballot sees all
-// 32 lanes; the sentinel lanes of a partial tile vote 0.  Dead tiles
-// return as a whole block and own no rows.
-// Bound: the distance tests, as K2; the bits are 16 B per candidate row
-// (about 175 MB at 1M points), under a tenth of the tests' time at HBM
-// rate.
+// (treensearch_tpu/ops/pallas_pairs.py:779-859).  Its output is one row of
+// four 32-bit words per candidate (bit l % 32 of word l / 32: query lane l
+// of the tile hits it) at row cand_base[t] + k, k the candidate's index in
+// the tile's window order, plus each query's count: a per-candidate
+// product, so each thread owns candidates, not queries.  One block of 128
+// threads per tile:
+//   * the tile's 128 queries go to shared memory once, as float4 (x, y, z,
+//     r_i^2 or the fixed r^2; the sentinel lanes keep their NaN
+//     coordinates), and per candidate-set bit b the 4 words of the queries
+//     whose set's allow entry has bit b (the active matrix);
+//   * thread l takes stream indices k = l, l + 128, ... of the tile's
+//     clipped windows (tile_stream) and reads its candidate straight from
+//     recs_t: consecutive lanes, consecutive records, coalesced; nothing is
+//     staged;
+//   * it tests its candidate against the 128 queries, 32 per word with
+//     the bit a compile-time constant, each a broadcast float4 load and the
+//     pinned d^2; a candidate whose set no query of the tile searches
+//     skips the tests;
+//   * it ANDs each word with the allowed-queries words of its set's bit,
+//     clears its own query's bit by sorted position (slot l of tile t is
+//     sorted record a_t + l for l < cnt_t, K1's layout, so q_t must be
+//     K1's tiles of these desc and recs_t), and stores the row as one
+//     int4: coalesced 16-byte stores, no ballot, no shared scratch;
+//   * counts: each warp transposes each word across its 32 lanes
+//     (transpose32), so lane i then holds, per word w, the hits of query
+//     32 w + i over the warp's 32 candidates as one word, and adds its
+//     __popc; the 4 warps' sums meet in shared memory, in a fixed order,
+//     once per tile.
+// Bound: the distance tests, 9 float32 operations each (10 symmetric),
+// one FP32 issue each under the _rn pins, about 11.5 instructions a test
+// with the broadcast load and the bit; the transposes add about 4 x 27
+// instructions per lane and 128 tests; the bits are 16 B per candidate row.
+// It asks __launch_bounds__ for K4_MIN_BLOCKS resident blocks (the 32
+// unrolled tests of a word hold their queries in registers).  The design
+// it replaces (PR 3, 1.4167 ms at config 1 on the H100, PR 5's run) was
+// K2's query-major schedule with a __ballot_sync, a lane-0 shared store
+// per staged candidate and a third pass over shared memory per chunk to
+// store the words.
+// Dead tiles return at once and own no rows.
 template <bool VARIABLE, bool SYMMETRIC>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(TILE, K4_MIN_BLOCKS)
 pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   const int* __restrict__ recs_t, int n_rec, int tiles_cap,
                   int n_win, float r2, CandSets cs,
                   const int* __restrict__ allow, int n_allow,
                   const long long* __restrict__ cand_base,
                   int* __restrict__ counts, int* __restrict__ bits) {
-  __shared__ float sx[CHUNK];
-  __shared__ float sy[CHUNK];
-  __shared__ float sz[CHUNK];
-  __shared__ float sr2[SYMMETRIC ? CHUNK : 1];
-  __shared__ int so[CHUNK];
-  __shared__ int sbit[CHUNK];
-  __shared__ unsigned sw[CHUNK * (TILE / 32)];
+  constexpr int WORDS = TILE / 32;
+  __shared__ float4 s_q[TILE];
+  __shared__ unsigned s_allowed[MAX_BLOCKS][WORDS];
+  __shared__ int s_sum[WORDS][TILE];
+  __shared__ int s_start[64];
+  __shared__ int s_pre[65];
 
   const int t = blockIdx.x;
   const int l = threadIdx.x;
+  const int lane = l & 31;
+  const int warp = l >> 5;
   const int* d = desc + (size_t)t * DESC_W;
   const size_t n_slots = (size_t)tiles_cap * TILE;
   const size_t slot = (size_t)t * TILE + l;
@@ -375,65 +571,85 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     counts[slot] = 0;
     return;
   }
-  const float qx = __int_as_float(q_t[slot]);
-  const float qy = __int_as_float(q_t[n_slots + slot]);
-  const float qz = __int_as_float(q_t[2 * n_slots + slot]);
-  const int qo = q_t[F_ORIG * n_slots + slot];
-  const int qs = q_t[F_SET * n_slots + slot];
-  const int allow_q = (qs >= 0 && qs < n_allow) ? allow[qs] : 0;
-  float qr2 = r2;
-  if (VARIABLE) {
-    const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
-    qr2 = __fmul_rn(qr, qr);
-  }
-  const int* rx = recs_t;
-  const int* ry = recs_t + (size_t)n_rec;
-  const int* rz = recs_t + 2 * (size_t)n_rec;
-  const int* rr = recs_t + F_R * (size_t)n_rec;
-  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
-  const int* rs = recs_t + F_SET * (size_t)n_rec;
-
-  long long row = cand_base[t];
-  int cnt = 0;
-  for (int w = 0; w < n_win; ++w) {
-    const int s = d[w];
-    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
-    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
-      const int m = min(CHUNK, ln - c0);
-      for (int j = l; j < m; j += TILE) {
-        const size_t src = (size_t)s + c0 + j;
-        sx[j] = __int_as_float(rx[src]);
-        sy[j] = __int_as_float(ry[src]);
-        sz[j] = __int_as_float(rz[src]);
-        so[j] = ro[src];
-        sbit[j] = cand_bit(cs, rs[src]);
-        if (SYMMETRIC) {
-          const float r = __int_as_float(rr[src]);
-          sr2[j] = __fmul_rn(r, r);
-        }
-      }
-      __syncthreads();
-      for (int j = 0; j < m; ++j) {
-        const float dx = __fsub_rn(sx[j], qx);
-        const float dy = __fsub_rn(sy[j], qy);
-        const float dz = __fsub_rn(sz[j], qz);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                             __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        bool hit = d2 <= qr2;
-        if (SYMMETRIC) hit = hit || d2 <= sr2[j];
-        hit = hit && so[j] != qo && (allow_q & sbit[j]) != 0;
-        const unsigned vote = __ballot_sync(0xffffffffu, hit);
-        if ((l & 31) == 0) sw[j * (TILE / 32) + (l >> 5)] = vote;
-        cnt += hit;
-      }
-      __syncthreads();
-      int* dst = bits + row * (TILE / 32);
-      for (int k = l; k < m * (TILE / 32); k += TILE) dst[k] = (int)sw[k];
-      row += m;
+  tile_stream(d, n_rec, n_win, s_start, s_pre);
+  {
+    float qr2 = r2;
+    if (VARIABLE) {
+      const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
+      qr2 = __fmul_rn(qr, qr);
+    }
+    s_q[l] = make_float4(__int_as_float(q_t[slot]),
+                         __int_as_float(q_t[n_slots + slot]),
+                         __int_as_float(q_t[2 * n_slots + slot]), qr2);
+    const int qs = q_t[F_SET * n_slots + slot];
+    const int allow_q = (qs >= 0 && qs < n_allow) ? allow[qs] : 0;
+#pragma unroll
+    for (int b = 0; b < MAX_BLOCKS; ++b) {
+      const unsigned v = __ballot_sync(FULL, (allow_q >> b) & 1);
+      if (lane == 0) s_allowed[b][warp] = v;
     }
   }
-  counts[slot] = cnt;
+  __syncthreads();
+  const int total = s_pre[n_win];
+  const int a = d[A_COL];
+  const unsigned cnt_t = (unsigned)d[CNT_COL];
+  int4* rows = reinterpret_cast<int4*>(bits) + cand_base[t];
+  int sum[WORDS] = {0, 0, 0, 0};
+  int cur = 0;   // this thread's window cursor
+  // warp-uniform rounds: every lane takes part in the transposes
+  for (int k0 = warp * 32; k0 < total; k0 += TILE) {
+    const int k = k0 + lane;
+    unsigned word[WORDS] = {0u, 0u, 0u, 0u};
+    if (k < total) {
+      const int src = stream_record(s_start, s_pre, k, cur);
+      const int bit = cand_bit(cs, recs_t[F_SET * (size_t)n_rec + src]);
+      unsigned allowed[WORDS] = {0u, 0u, 0u, 0u};
+      if (bit) {
+        const int b = __ffs(bit) - 1;
+#pragma unroll
+        for (int w = 0; w < WORDS; ++w) allowed[w] = s_allowed[b][w];
+      }
+      if (allowed[0] | allowed[1] | allowed[2] | allowed[3]) {
+        const float cx = __int_as_float(recs_t[src]);
+        const float cy = __int_as_float(recs_t[(size_t)n_rec + src]);
+        const float cz = __int_as_float(recs_t[2 * (size_t)n_rec + src]);
+        float cr2 = 0.0f;
+        if (SYMMETRIC) {
+          const float r = __int_as_float(recs_t[F_R * (size_t)n_rec + src]);
+          cr2 = __fmul_rn(r, r);
+        }
+        const unsigned self = (unsigned)(src - a);   // its own query lane
+        const bool own = a >= 0 && self < cnt_t;
+        // one word per pass, its 32 tests unrolled; the word arrays are
+        // indexed only by unrolled constants, so they stay in registers
+#pragma unroll 1
+        for (int w = 0; w < WORDS; ++w) {
+          const float4* q = s_q + 32 * w;
+          unsigned v = 0u;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const float4 qi = q[i];
+            const float d2 = d2_rn(cx, cy, cz, qi.x, qi.y, qi.z);
+            bool hit = d2 <= qi.w;
+            if (SYMMETRIC) hit = hit || d2 <= cr2;
+            v |= hit ? (1u << i) : 0u;
+          }
+          if (own && (int)(self >> 5) == w) v &= ~(1u << (self & 31));
+#pragma unroll
+          for (int x = 0; x < WORDS; ++x)
+            if (x == w) word[x] = v & allowed[x];
+        }
+      }
+      rows[k] = make_int4((int)word[0], (int)word[1], (int)word[2],
+                          (int)word[3]);
+    }
+#pragma unroll
+    for (int w = 0; w < WORDS; ++w) sum[w] += __popc(transpose32(word[w], lane));
+  }
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) s_sum[warp][32 * w + lane] = sum[w];
+  __syncthreads();
+  counts[slot] = s_sum[0][l] + s_sum[1][l] + s_sum[2][l] + s_sum[3][l];
 }
 
 // K5 -- replaces make_pairs_call(stage_from_bits=True)
@@ -584,7 +800,8 @@ extern "C" int tns_pairs_nbrs(const int* desc, const int* q_t,
                               int symmetric, int n_blocks, const int* set_of,
                               const int* offset, const int* k8,
                               int* const* nbrs, int* counts, void* stream) {
-  if (n_blocks < 1 || n_blocks > MAX_BLOCKS || (symmetric && !variable))
+  if (n_blocks < 1 || n_blocks > MAX_BLOCKS || (symmetric && !variable) ||
+      n_win < 1 || n_win > MAX_WIN)
     return (int)cudaErrorInvalidValue;
   Blocks blk{};
   blk.n_blocks = n_blocks;
@@ -597,14 +814,15 @@ extern "C" int tns_pairs_nbrs(const int* desc, const int* q_t,
   blk.counts = counts;
   if (tiles_cap > 0) {
     cudaStream_t st = (cudaStream_t)stream;
+    const size_t smem = (size_t)n_blocks * TILE * sizeof(int);   // s_cnt
     if (!variable)
-      pairs_nbrs_kernel<false, false><<<tiles_cap, TILE, 0, st>>>(
+      pairs_nbrs_kernel<false, false><<<tiles_cap, TILE, smem, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
     else if (!symmetric)
-      pairs_nbrs_kernel<true, false><<<tiles_cap, TILE, 0, st>>>(
+      pairs_nbrs_kernel<true, false><<<tiles_cap, TILE, smem, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
     else
-      pairs_nbrs_kernel<true, true><<<tiles_cap, TILE, 0, st>>>(
+      pairs_nbrs_kernel<true, true><<<tiles_cap, TILE, smem, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
   }
   return (int)cudaGetLastError();
@@ -617,7 +835,8 @@ extern "C" int tns_pairs_mask(const int* desc, const int* q_t,
                               const int* allow, int n_allow,
                               const long long* cand_base, int* counts,
                               int* bits, void* stream) {
-  if (n_blocks < 0 || n_blocks > MAX_BLOCKS || (symmetric && !variable))
+  if (n_blocks < 0 || n_blocks > MAX_BLOCKS || (symmetric && !variable) ||
+      n_win < 1 || n_win > MAX_WIN)
     return (int)cudaErrorInvalidValue;
   CandSets cs{};
   cs.n_blocks = n_blocks;

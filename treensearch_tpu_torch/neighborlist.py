@@ -71,6 +71,11 @@ class NeighborSolution:
         counts, nbrs = self._fetch(si, sj)
         return NeighborList(nbrs[i, : counts[i]])
 
+    def get_padded(self, si: int, sj: int) -> np.ndarray:
+        """The pair's padded rows (n_i, cap) on the host, -1 past each
+        count."""
+        return self._fetch(si, sj)[1]
+
     def get_counts(self, si: int, sj: int) -> np.ndarray:
         """Counts without materializing the neighbor rows."""
         return self._pair(si, sj)["counts"].cpu().numpy()
@@ -79,3 +84,17 @@ class NeighborSolution:
         """Device tensors ``(counts (n_i,), nbrs (n_i, cap))``."""
         p = self._pair(si, sj)
         return p["counts"], materialize_nbrs(p)
+
+    def n_bytes(self) -> int:
+        """Bytes of the per-point neighbor lists (reference
+        ``get_neighborlist_n_bytes``, ``TreeNSearch.cpp:254-261``): per
+        active pair the counts and n_i x cap rows, 4 bytes each, whether
+        the rows are materialised or still in tile layout (the view's
+        size, not the shared tile storage)."""
+        total = 0
+        for p in self._dev.values():
+            n = p["counts"].numel()
+            cap = p["nbrs"].shape[1] if "nbrs" in p \
+                else p["nbrs_tiles"].shape[1]
+            total += 4 * n * (1 + cap)
+        return total

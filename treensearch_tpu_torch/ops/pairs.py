@@ -727,7 +727,9 @@ def pairs_mask(desc: torch.Tensor, q_t: torch.Tensor, recs_t: torch.Tensor,
     bits (rows, 4) int32 of every candidate row, with ``cand_base``
     (``pairs_mask_plain`` has the layout).  ``r2=None`` takes the radii
     from the records' F_R field (K2c's criteria).  Nothing is capped, so
-    nothing can truncate; sizing ``bits`` is one host read."""
+    nothing can truncate; sizing ``bits`` is one host read.  ``q_t`` is
+    K1's tiles of these ``desc`` and ``recs_t``: the kernel excludes a
+    query's own record by its sorted position there."""
     cand_sets = check_active_args(desc, q_t, recs_t, n_win, tiles_cap,
                                   cand_sets, allow, r2, symmetric)
     if desc.device.type == "cpu":
