@@ -588,6 +588,32 @@ def test_k2_k4_streams_across_window_and_chunk_edges(dev, mode):
     assert int(c4.sum()) > 0
 
 
+@pytest.mark.parametrize("mode", ["fixed", "variable", "symmetric"])
+def test_k2_k4_equal_plain_with_query_lanes_reversed(dev, mode):
+    # the kernels exclude a query's own record by orig, as the plain
+    # versions do, wherever the query sits in its tile: K1's tiles with
+    # their lanes reversed (sentinel lanes first on partial tiles)
+    rng = np.random.default_rng(19)
+    sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+             None if mode == "fixed" else
+             rng.uniform(0.03, 0.07, m).astype(np.float32))
+            for m in (2500, 1500)]
+    eng = _sets_engine(dev, sets, r=0.1 if mode == "fixed" else None,
+                       symmetric=mode == "symmetric",
+                       active=[(0, 0), (0, 1), (1, 0)])
+    a, allow, q, _ = _active_inputs(eng)
+    q = q.view(q.shape[0], a.tiles_cap, 128).flip(-1).reshape(q.shape) \
+        .contiguous()
+    (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q), fp.run_pairs(a, q, True)
+    live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+    for b in range(len(a.k8s)):
+        assert torch.equal(c_k[b].view(a.tiles_cap, 128)[live],
+                           c_p[b].view(a.tiles_cap, 128)[live]), b
+        assert torch.equal(nb_k[b][live], nb_p[b][live]), b
+    c4 = _k4_vs_plain(a, allow, q)
+    assert int(c4.sum()) > 0
+
+
 def test_k2b_k4_k5_eight_blocks_one_at_cap_8_under_an_active_matrix(dev):
     # eight candidate blocks, the densest at a cap of 8 (its rows
     # truncate), a third of the pairs inactive: K2b slot for slot, K4 word

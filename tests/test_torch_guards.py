@@ -72,6 +72,26 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not build.exists() or not any(build.iterdir())
 
 
+def test_cached_build_keeps_its_nvcc_log(monkeypatch, tmp_path):
+    # a stand-in nvcc that prints a resource line and copies a shared
+    # library: a second process (a fresh _LOADED) reuses the build and
+    # still reads what nvcc printed
+    lib = Path(torch.__file__).parent / "lib" / "libc10.so"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'cp {lib} "$2"\necho "ptxas info : Used 7 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(pairs, "_LOADED", {})
+    first = pairs.build_library("probe", b"// probe", tmp_path / "build")
+    monkeypatch.setattr(pairs, "_LOADED", {})
+    again = pairs.build_library("probe", b"// probe", tmp_path / "build")
+    assert first.command and not again.command
+    assert "Used 7 registers" in first.log
+    assert again.log == first.log
+
+
 def test_kernel_route_does_not_fall_back(monkeypatch, tmp_path):
     # a tensor that is not on the CPU takes the kernel route; with no
     # toolchain that raises instead of running the plain version
@@ -129,18 +149,22 @@ def test_redesigned_pairs_kernels_do_not_fall_back(kernel, monkeypatch,
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py",
-                                    "chip_kernels.py"])
+CHIP_SCRIPTS = ["chip_smoke.py", "chip_profile.py"]
+
+
+@pytest.mark.parametrize("script", CHIP_SCRIPTS)
 def test_chip_scripts_never_import_jax(script):
     hits = [line for line in (ROOT / script).read_text().splitlines()
             if re.match(r"\s*(from|import)\s+(jax|treensearch_tpu)\b", line)]
     assert hits == []
 
 
-def test_chip_kernels_needs_a_card():
+@pytest.mark.parametrize("script", CHIP_SCRIPTS)
+def test_chip_script_needs_a_card(script):
+    # no card: a non-zero exit and no result on standard output
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_kernels.py")],
+    proc = subprocess.run([sys.executable, str(ROOT / script)],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr

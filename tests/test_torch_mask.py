@@ -132,6 +132,33 @@ def test_k4_layout(fixed_ref):
         assert torch.equal(lanes.sum(0).int(), counts[t * 128:(t + 1) * 128])
 
 
+def _lanes(bits):
+    """K4's rows as (rows, 128) bits, lane l at column l."""
+    return ((bits[:, :, None] >> torch.arange(32, dtype=torch.int32)) & 1) \
+        .reshape(bits.shape[0], 128)
+
+
+@pytest.mark.parametrize("name", REFS)
+def test_plain_k4_excludes_self_by_orig_in_any_lane_order(name, request):
+    # the contract the kernel is held to excludes a query's own record by
+    # orig: the tiles' query lanes reversed give the same bits and counts,
+    # lane for lane reversed
+    ref = request.getfixturevalue(name)
+    desc, q_t, recs_t, n_win, tiles_cap = ref["args"]
+    rev = q_t.view(q_t.shape[0], tiles_cap, 128).flip(-1).reshape(q_t.shape)
+    rest = (n_win, tiles_cap, ref["cand_sets"], ref["allow"])
+    c, bits, base = tpp.pairs_mask(desc, q_t, recs_t, *rest,
+                                   **ref["active_kw"])
+    c_r, bits_r, base_r = tpp.pairs_mask(desc, rev, recs_t, *rest,
+                                         **ref["active_kw"])
+    assert torch.equal(base_r, base)
+    assert torch.equal(c_r.view(tiles_cap, 128).flip(-1),
+                       c.view(tiles_cap, 128))
+    lanes = _lanes(bits)
+    assert int(lanes.sum()) > 0
+    assert torch.equal(_lanes(bits_r).flip(-1), lanes)
+
+
 def test_decode_mask_of_some_tiles(fixed_ref):
     _, mask, meta = _port_mask(fixed_ref)
     full_counts, (rp, cols) = tfp.decode_mask(mask, meta)

@@ -279,15 +279,6 @@ __device__ __forceinline__ float d2_rn(float cx, float cy, float cz, float qx,
                    __fmul_rn(dz, dz));
 }
 
-// Resident blocks per SM that __launch_bounds__ asks of K2b/K2c and K4 (it
-// caps their registers at 65536 / (128 * n), rounded down to a multiple of
-// 8).  chip_kernels.py --blocks rebuilds with -D to time other values.
-#ifndef K2_MIN_BLOCKS
-#define K2_MIN_BLOCKS 12
-#endif
-#ifndef K4_MIN_BLOCKS
-#define K4_MIN_BLOCKS 8
-#endif
 constexpr int UNROLL = 4;   // K2 tests per hit check; chunks pad to it
 
 // K2b and K2c -- replace make_pairs_call with multi_set (one output block
@@ -327,10 +318,11 @@ constexpr int UNROLL = 4;   // K2 tests per hit check; chunks pad to it
 //     to shared memory, so a hit indexes both directly;
 //   * pads the last chunk with NaN candidates to a multiple of UNROLL and
 //     checks the hits of UNROLL tests with one branch;
-//   * asks __launch_bounds__ for K2_MIN_BLOCKS resident blocks.
+//   * asks __launch_bounds__ for 12 resident blocks per SM (at most 40
+//     registers, no spills).
 // Dead tiles return at once (their rows are undefined).
 template <bool VARIABLE, bool SYMMETRIC>
-__global__ void __launch_bounds__(TILE, K2_MIN_BLOCKS)
+__global__ void __launch_bounds__(TILE, 12)
 pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   const int* __restrict__ recs_t, int n_rec, int tiles_cap,
                   int n_win, float r2, Blocks blk) {
@@ -525,9 +517,9 @@ __device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
 //     pinned d^2; a candidate whose set no query of the tile searches
 //     skips the tests;
 //   * it ANDs each word with the allowed-queries words of its set's bit,
-//     clears its own query's bit by sorted position (slot l of tile t is
-//     sorted record a_t + l for l < cnt_t, K1's layout, so q_t must be
-//     K1's tiles of these desc and recs_t), and stores the row as one
+//     clears the bit of every hit query whose orig is the candidate's
+//     (the plain version's self-exclusion, looked at only on the hits, so
+//     any q_t gives the plain version's bits), and stores the row as one
 //     int4: coalesced 16-byte stores, no ballot, no shared scratch;
 //   * counts: each warp transposes each word across its 32 lanes
 //     (transpose32), so lane i then holds, per word w, the hits of query
@@ -538,15 +530,15 @@ __device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
 // one FP32 issue each under the _rn pins, about 11.5 instructions a test
 // with the broadcast load and the bit; the transposes add about 4 x 27
 // instructions per lane and 128 tests; the bits are 16 B per candidate row.
-// It asks __launch_bounds__ for K4_MIN_BLOCKS resident blocks (the 32
-// unrolled tests of a word hold their queries in registers).  The design
+// It asks __launch_bounds__ for 8 resident blocks per SM (the 32 unrolled
+// tests of a word hold their queries in registers).  The design
 // it replaces (PR 3, 1.4167 ms at config 1 on the H100, PR 5's run) was
 // K2's query-major schedule with a __ballot_sync, a lane-0 shared store
 // per staged candidate and a third pass over shared memory per chunk to
 // store the words.
 // Dead tiles return at once and own no rows.
 template <bool VARIABLE, bool SYMMETRIC>
-__global__ void __launch_bounds__(TILE, K4_MIN_BLOCKS)
+__global__ void __launch_bounds__(TILE, 8)
 pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   const int* __restrict__ recs_t, int n_rec, int tiles_cap,
                   int n_win, float r2, CandSets cs,
@@ -555,6 +547,7 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   int* __restrict__ counts, int* __restrict__ bits) {
   constexpr int WORDS = TILE / 32;
   __shared__ float4 s_q[TILE];
+  __shared__ int s_qo[TILE];
   __shared__ unsigned s_allowed[MAX_BLOCKS][WORDS];
   __shared__ int s_sum[WORDS][TILE];
   __shared__ int s_start[64];
@@ -581,6 +574,7 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     s_q[l] = make_float4(__int_as_float(q_t[slot]),
                          __int_as_float(q_t[n_slots + slot]),
                          __int_as_float(q_t[2 * n_slots + slot]), qr2);
+    s_qo[l] = q_t[F_ORIG * n_slots + slot];
     const int qs = q_t[F_SET * n_slots + slot];
     const int allow_q = (qs >= 0 && qs < n_allow) ? allow[qs] : 0;
 #pragma unroll
@@ -591,8 +585,6 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
   }
   __syncthreads();
   const int total = s_pre[n_win];
-  const int a = d[A_COL];
-  const unsigned cnt_t = (unsigned)d[CNT_COL];
   int4* rows = reinterpret_cast<int4*>(bits) + cand_base[t];
   int sum[WORDS] = {0, 0, 0, 0};
   int cur = 0;   // this thread's window cursor
@@ -618,8 +610,7 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
           const float r = __int_as_float(recs_t[F_R * (size_t)n_rec + src]);
           cr2 = __fmul_rn(r, r);
         }
-        const unsigned self = (unsigned)(src - a);   // its own query lane
-        const bool own = a >= 0 && self < cnt_t;
+        const int co = recs_t[F_ORIG * (size_t)n_rec + src];
         // one word per pass, its 32 tests unrolled; the word arrays are
         // indexed only by unrolled constants, so they stay in registers
 #pragma unroll 1
@@ -634,10 +625,16 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
             if (SYMMETRIC) hit = hit || d2 <= cr2;
             v |= hit ? (1u << i) : 0u;
           }
-          if (own && (int)(self >> 5) == w) v &= ~(1u << (self & 31));
 #pragma unroll
           for (int x = 0; x < WORDS; ++x)
-            if (x == w) word[x] = v & allowed[x];
+            if (x == w) v &= allowed[x];
+          for (unsigned m = v; m; m &= m - 1) {   // the hits only
+            const int i = __ffs(m) - 1;
+            if (s_qo[32 * w + i] == co) v &= ~(1u << i);
+          }
+#pragma unroll
+          for (int x = 0; x < WORDS; ++x)
+            if (x == w) word[x] = v;
         }
       }
       rows[k] = make_int4((int)word[0], (int)word[1], (int)word[2],

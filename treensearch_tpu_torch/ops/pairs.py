@@ -129,6 +129,9 @@ def build_library(name: str, text: bytes, build_dir: Path | None = None,
     if str(out) in _LOADED:
         return _LOADED[str(out)]
     command, log, seconds = [], "(cached build)", 0.0
+    log_file = out.with_suffix(".log")   # nvcc's output, kept for reuse
+    if out.exists() and log_file.exists():
+        log = log_file.read_text()
     if not out.exists():
         nvcc = _find_nvcc()
         if nvcc is None:
@@ -149,6 +152,7 @@ def build_library(name: str, text: bytes, build_dir: Path | None = None,
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        _replace_atomically(log.encode(), log_file, ".log")
         os.replace(tmp, out)
     loaded = _Library(ctypes.CDLL(str(out)), out, command, log, seconds)
     _LOADED[str(out)] = loaded
@@ -727,9 +731,7 @@ def pairs_mask(desc: torch.Tensor, q_t: torch.Tensor, recs_t: torch.Tensor,
     bits (rows, 4) int32 of every candidate row, with ``cand_base``
     (``pairs_mask_plain`` has the layout).  ``r2=None`` takes the radii
     from the records' F_R field (K2c's criteria).  Nothing is capped, so
-    nothing can truncate; sizing ``bits`` is one host read.  ``q_t`` is
-    K1's tiles of these ``desc`` and ``recs_t``: the kernel excludes a
-    query's own record by its sorted position there."""
+    nothing can truncate; sizing ``bits`` is one host read."""
     cand_sets = check_active_args(desc, q_t, recs_t, n_win, tiles_cap,
                                   cand_sets, allow, r2, symmetric)
     if desc.device.type == "cpu":
