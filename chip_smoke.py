@@ -11,7 +11,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build: ``csrc/pairs.cu`` and the fused reduce's kernel for each of the
    five callbacks below (``csrc/reduce.cu`` with the traced callback),
    compiled by nvcc for sm_90a, one nvcc each, all started together, with
-   their times and each kernel's registers, shared memory and spills;
+   their times and each kernel's registers, shared memory and spills
+   (named K1 to K5 as in PERF.md);
 3. BASELINE config 1 (1,000,000 uniform points from ``default_rng(0)``,
    r = 0.02, cell = 1.15 r): K1 and K2a against their plain PyTorch
    versions on a settled engine's structures (query tiles bit-equal,
@@ -36,7 +37,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    points' generator; K3 against its plain version on a settled engine's
    structures for the neighbor count (equal), the poly6 density
    ``m_j (h^2 - d^2)^3`` (n_out = 1) and ``density4_fn`` (n_out = 4),
-   within 3e-5 of the sum of the terms' magnitudes; the density of all 1M
+   within 3e-5 of the sum of the terms' magnitudes, the two densities
+   timed in turns with their plain versions, with their bounds (n_out = 4
+   on a line of its own before the kernels line); the density of all 1M
    points against a float64 sum over ``run()``'s neighbor rows (rtol 5e-5,
    the benchmark's) and the count leg equal to ``run()``'s counts; a
    settling call and 5 jittered calls for each of n_out = 1 and 4;
@@ -230,20 +233,21 @@ def median_ms(fn, dev, reps: int = REPS, per: int = 1) -> float:
     return statistics.median(times)
 
 
-def timed_turns(rec: dict, kernel, plain, dev) -> None:
+def timed_turns(rec: dict, kernel, plain, dev, label: str = "") -> None:
     """Kernel and plain times in turns (plain, kernel, kernel, plain); the
     lower of each pair goes into ``rec``.  The kernel is timed over
     KERNEL_BATCH back-to-back calls, so its wrapper's host work overlaps
-    the previous launch and the time is the device's."""
+    the previous launch and the time is the device's.  ``label`` names
+    the line (by default the kernel's name)."""
     p1, t1, t2, p2 = (median_ms(plain, dev),
                       median_ms(kernel, dev, per=KERNEL_BATCH),
                       median_ms(kernel, dev, per=KERNEL_BATCH),
                       median_ms(plain, dev))
     rec["ms"] = min(t1, t2)
     rec["plain_ms"] = min(p1, p2)
-    print(f"{rec['name']}: kernel {t1:.4f} / {t2:.4f} ms (median of {REPS} "
-          f"runs of {KERNEL_BATCH} calls), plain {p1:.4f} / {p2:.4f} ms "
-          f"(median of {REPS})", flush=True)
+    print(f"{label or rec['name']}: kernel {t1:.4f} / {t2:.4f} ms (median "
+          f"of {REPS} runs of {KERNEL_BATCH} calls), plain {p1:.4f} / "
+          f"{p2:.4f} ms (median of {REPS})", flush=True)
 
 
 def live_slots(desc, tiles_cap):
@@ -577,7 +581,7 @@ def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
               f"{hits} hits x ({ops} traced + {n_out} adds) operations, "
               f"{rec['bytes']} B; bound {rec['bound_ms']:.4f} ms by "
               f"{rec['bound_by']}", flush=True)
-        timed_turns(rec, kernel, plain, dev)
+        timed_turns(rec, kernel, plain, dev, f"pairs_reduce ({fn.__name__})")
         rec["library_ms"] = None   # no single PyTorch call computes it
     return rec, k
 
@@ -1094,7 +1098,7 @@ def run_reduce_path(pts_t, mass_t, card: str) -> tuple:
     _, ones = check_k3(a, allow, q, count_fn, 1, exact=(0,))
     hits = int(ones.sum(dtype=torch.float64))
     rec, _ = check_k3(a, allow, q, density_fn, 1, hits=hits)
-    check_k3(a, allow, q, density4_fn, 4, hits=hits)
+    rec4, _ = check_k3(a, allow, q, density4_fn, 4, hits=hits)
     del a, allow, q, ones
 
     rho = eng.run_reduce(density_fn, 1, payload=[mass_t])[0][:, 0]
@@ -1126,7 +1130,8 @@ def run_reduce_path(pts_t, mass_t, card: str) -> tuple:
                  call=lambda: eng.run_reduce(density4_fn, 4,
                                              payload=[mass_t]),
                  pairs_of=lambda _: total, once=True)
-    return rec, out1, out4
+    rec4["launches"] = out4["launches"]["pairs_reduce"]
+    return rec, rec4, out1, out4
 
 
 def run_mask_path(pts_t, card: str) -> tuple:
@@ -1740,9 +1745,26 @@ def build_all() -> None:
         print(f"  {name}: {lib.seconds:.2f} s nvcc -> "
               f"{os.path.relpath(lib.path, HERE)}", flush=True)
         for kernel, regs, smem, stores, loads in kernel_resources(lib.log):
-            print(f"    {kernel}: {regs} registers, {smem} B static shared "
+            name = f"{KERNEL_IDS[kernel]} {kernel}" \
+                if kernel in KERNEL_IDS else kernel
+            print(f"    {name}: {regs} registers, {smem} B static shared "
                   f"memory, spills {stores} B stored / {loads} B loaded",
                   flush=True)
+
+
+# PERF.md's names of the kernels as kernel_resources names them
+KERNEL_IDS = {"expand_query_tiles_kernel": "K1",
+              "expand_records_kernel": "K1r",
+              "pairs_nbrs_kernel<false, false, true>": "K2a",
+              "pairs_nbrs_kernel<false, false, false>": "K2b",
+              "pairs_nbrs_kernel<true, false, false>": "K2c",
+              "pairs_nbrs_kernel<true, true, false>": "K2c",
+              "pairs_reduce_kernel<false>": "K3",
+              "pairs_reduce_kernel<true>": "K3",
+              "pairs_mask_kernel<false, false>": "K4",
+              "pairs_mask_kernel<true, false>": "K4",
+              "pairs_mask_kernel<true, true>": "K4",
+              "pairs_nbrs_from_bits_kernel": "K5"}
 
 
 def kernel_resources(log: str) -> list:
@@ -1801,7 +1823,7 @@ def main() -> int:
     k2b, main3 = run_config3(*config3_data(dev), card)      # phase 4
     k2c, main4 = run_config4(*config4_data(dev), card)      # phase 5
     check_small_variable(dev)                               # phase 6
-    k3, main7, main7b = run_reduce_path(                    # phase 7
+    k3, k3_4, main7, main7b = run_reduce_path(              # phase 7
         pts_t, torch.from_numpy(mass).to(dev), card)
     k4, main8 = run_mask_path(pts_t, card)                  # phase 8
     check_small_contracts(dev)                              # phase 9
@@ -1827,6 +1849,9 @@ def main() -> int:
           f"{N_BODIES + 1} candidate sets {main13['ms']:.3f}, run_scalar "
           f"config 1 {main14['config 1']['ms']:.3f}, run_scalar config 4 "
           f"{main14['config 4']['ms']:.3f} ({card})", flush=True)
+    print(json.dumps({"pairs_reduce (density4_fn, n_out 4)": {
+        k: k3_4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms")}}))
     sources = {"pairs_reduce": red.TEMPLATE}
     out = []
     for rec in kernels:

@@ -649,6 +649,137 @@ def test_k2b_k4_k5_eight_blocks_one_at_cap_8_under_an_active_matrix(dev):
                            nb_f[sj][slots // 128, :, slots % 128])
 
 
+# ------------------------------------------ the candidate streams of K2a/K3
+def fn_count_density(e):
+    """The neighbor count and a poly6 density at h = 0.1 (n_out = 2)."""
+    w = np.float32(0.1 * 0.1) - e["d2"]
+    return torch.ones_like(e["d2"]), e["p0_j"] * (w * w * w)
+
+
+def _one_set_engine(dev, rng, mode, n=4000):
+    """One set of ``n`` uniform points with a payload: at r = 0.1 on a
+    25-window stencil (``fixed``, K2a's inputs), or with radii in [0.03,
+    0.07] and symmetric search (25 windows too)."""
+    pts = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    rad = None if mode == "fixed" else \
+        rng.uniform(0.03, 0.07, n).astype(np.float32)
+    eng = _sets_engine(dev, [(pts, rad)], r=0.1 if mode == "fixed" else None,
+                       symmetric=mode == "symmetric")
+    if mode == "fixed":
+        eng.set_cell_size(0.05)
+    payload = torch.from_numpy(rng.uniform(0.5, 1.5, (n, 2))
+                               .astype(np.float32)).to(dev)
+    return eng, payload
+
+
+@pytest.mark.parametrize("mode", ["fixed", "symmetric"])
+def test_k2a_k3_streams_across_window_and_chunk_edges(dev, mode):
+    # K2a (one set, fixed radius) slot for slot and K3 (the count equal,
+    # the density within 3e-5 of the magnitudes) on windows that start and
+    # end on and off the chunk edges; K3 also in symmetric mode
+    rng = np.random.default_rng(21)
+    eng, payload = _one_set_engine(dev, rng, mode)
+    a, allow, _, _ = _active_inputs(eng, payload)
+    a = a._replace(desc=_window_desc(a, rng))
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
+    if mode == "fixed":
+        c2 = _kernel_vs_plain(a, 4000, pairs.pairs_nbrs_fixed)
+    k = _k3_vs_plain(a, allow, q, fn_count_density, 2, exact=(0,))
+    if mode == "fixed":
+        assert torch.equal(k[0], c2[0].float())
+    assert int(k[0].sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["fixed", "symmetric"])
+def test_k2a_k3_equal_plain_with_query_lanes_reversed(dev, mode):
+    # K2a and K3 exclude a query's own record by orig wherever the query
+    # sits in its tile: K1's tiles with their lanes reversed
+    rng = np.random.default_rng(23)
+    eng, payload = _one_set_engine(dev, rng, mode)
+    a, allow, q, _ = _active_inputs(eng, payload)
+    q = q.view(q.shape[0], a.tiles_cap, 128).flip(-1).reshape(q.shape) \
+        .contiguous()
+    live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+    if mode == "fixed":
+        assert fp.pairs_kernel(a) is pairs.pairs_nbrs_fixed
+        (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q), \
+            fp.run_pairs(a, q, True)
+        assert torch.equal(c_k[0].view(a.tiles_cap, 128)[live],
+                           c_p[0].view(a.tiles_cap, 128)[live])
+        assert torch.equal(nb_k[0][live], nb_p[0][live])
+    k = _k3_vs_plain(a, allow, q, fn_count_density, 2, exact=(0,))
+    assert int(k[0].sum()) > 0
+
+
+def fn4_payload(e):
+    """Four outputs of the payload, r_j and the displacement (n_out = 4,
+    symmetric mode)."""
+    return (torch.ones_like(e["d2"]), e["p0_j"] * e["d2"],
+            e["r_j"] * e["p1_j"], e["p1_i"] * e["dx"])
+
+
+def test_k2a_k3_one_lane_hits_a_whole_chunk(dev):
+    # a dense cluster of 800 points, contiguous in sorted order, so the
+    # stream of its tile holds at least one whole 256-candidate chunk of
+    # it; in that tile, lane 5 sits at the cluster's centre as its first
+    # point and every other lane far outside the cloud, so lane 5 hits
+    # every candidate of that chunk and its neighbours none: K2a with its
+    # rows truncated at k8 = 8 slot for slot, and K3 with n_out = 4 and a
+    # payload callback in symmetric mode
+    rng = np.random.default_rng(25)
+    centre = np.float32([0.5, 0.5, 0.5])
+    cluster = centre + rng.uniform(-2e-4, 2e-4, (800, 3)).astype(np.float32)
+    pts = np.concatenate([cluster, rng.uniform(0, 1, (3000, 3))
+                          .astype(np.float32)])
+    rad = rng.uniform(0.04, 0.06, pts.shape[0]).astype(np.float32)
+    n = pts.shape[0]
+    payload = torch.from_numpy(rng.uniform(0.5, 1.5, (n, 2))
+                               .astype(np.float32)).to(dev)
+    for mode in ("fixed", "symmetric"):
+        eng = _sets_engine(dev, [(pts, None if mode == "fixed" else rad)],
+                           r=0.05 if mode == "fixed" else None,
+                           symmetric=mode == "symmetric")
+        a, allow, q, qpos = _active_inputs(eng, payload)
+        in_cluster = torch.nonzero(a.recs_t[pairs.F_ORIG] < 800).flatten()
+        assert int(in_cluster[-1] - in_cluster[0]) == 799
+        t = int(qpos[0]) // 128
+        tile = q.view(q.shape[0], a.tiles_cap, 128)[:, t]
+        tile[pairs.F_X:pairs.F_Z + 1] = int(np.float32(5.0).view(np.int32))
+        tile[pairs.F_X:pairs.F_Z + 1, 5] = torch.from_numpy(
+            centre.view(np.int32)).to(dev)
+        tile[pairs.F_R, 5] = int(np.float32(0.05).view(np.int32))
+        tile[pairs.F_ORIG, 5] = 0   # the cluster's first point
+        tile[pairs.F_SET, 5] = 0
+        if mode == "fixed":
+            args = (a.desc, q, a.recs_t, a.r2, a.n_win, 8, a.tiles_cap)
+            c_k, nb_k = pairs.pairs_nbrs_fixed(*args)
+            c_p, nb_p = pairs.pairs_nbrs_fixed_plain(*args)
+            live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
+            assert torch.equal(c_k.view(a.tiles_cap, 128)[live],
+                               c_p.view(a.tiles_cap, 128)[live])
+            assert torch.equal(nb_k[live], nb_p[live])
+            counts = c_k.view(a.tiles_cap, 128)[t]
+        else:
+            counts = _k3_vs_plain(a, allow, q, fn4_payload, 4,
+                                  exact=(0,))[0].view(a.tiles_cap, 128)[t]
+        assert int(counts[5]) >= 799
+        assert int(counts.sum()) == int(counts[5])
+
+
+def test_k2a_k3_launchers_refuse_window_counts_outside_1_to_49(dev):
+    # the stream's tables hold 64 windows: a window count outside [1, 49]
+    # is refused (cudaErrorInvalidValue) before any launch
+    lib = pairs.load_library().lib
+    k3 = red.reduce_library(red.ReduceSpec(fn_count_density, 2), False).lib
+    p = torch.zeros(8, dtype=torch.int32, device=dev).data_ptr()
+    for n_win in (0, 50):
+        assert lib.tns_pairs_nbrs_fixed(p, p, p, 1, 1, n_win, 8, 0.01, p, p,
+                                        None) == 1
+        assert k3.tns_pairs_reduce(p, p, p, 1, 1, n_win, 0.01, 0, 1,
+                                   pairs.set_ids_arg((0,)), p, 1, p,
+                                   None) == 1
+
+
 # ------------------------------------------------------- K1r, fallbacks
 def test_k1r_partial_dead_and_late_tiles_match_plain_on_card(dev):
     # tile 0 full, 1 partial, 2 ends exactly at n, 3 starts near n and

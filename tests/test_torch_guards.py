@@ -149,7 +149,7 @@ def test_redesigned_pairs_kernels_do_not_fall_back(kernel, monkeypatch,
     assert wrapper.launches == before
 
 
-CHIP_SCRIPTS = ["chip_smoke.py", "chip_profile.py"]
+CHIP_SCRIPTS = ["chip_smoke.py", "chip_profile.py", "chip_variants.py"]
 
 
 @pytest.mark.parametrize("script", CHIP_SCRIPTS)

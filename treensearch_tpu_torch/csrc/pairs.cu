@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TILE = 128;
@@ -108,88 +110,10 @@ __global__ void expand_records_kernel(const int* __restrict__ desc,
   rec_pad[2 * (size_t)slot + 1] = make_int4(v[4], v[5], v[6], v[7]);
 }
 
-// K2a -- replaces make_pairs_call in neighbor-list mode, fixed radius, one
-// candidate set (treensearch_tpu/ops/pallas_pairs.py:445), narrow and fat
-// tier alike.  One block of 128 threads per query tile, one query per
-// thread.  The tile's n_win windows are streamed in order through shared
-// memory, CHUNK candidates (x, y, z, orig: 4 KB) at a time, so a window of
-// any width fits and there is no narrow/fat routing.  Each thread tests
-// its query against the chunk, appends each survivor's orig to its own
-// row while its count is below k8, and keeps counting past the cap.
-// Bound: the distance tests (128 x ~1.2k per tile at 1M points),
-// then the scattered 4-byte row writes.  The TPU kernel's compaction
-// networks and MXU prefix sums existed because a TPU core cannot append
-// per lane; here each thread appends to its own row directly.
-// Self-exclusion by orig in every window is exact: windows of distinct
-// stencil offsets are disjoint and a point has one sorted slot.
-__global__ void __launch_bounds__(TILE)
-pairs_nbrs_fixed_kernel(const int* __restrict__ desc,
-                        const int* __restrict__ q_t,
-                        const int* __restrict__ recs_t, int n_rec,
-                        int tiles_cap, int n_win, int k8, float r2,
-                        int* __restrict__ counts, int* __restrict__ nbrs) {
-  __shared__ float sx[CHUNK];
-  __shared__ float sy[CHUNK];
-  __shared__ float sz[CHUNK];
-  __shared__ int so[CHUNK];
-
-  const int t = blockIdx.x;
-  const int l = threadIdx.x;
-  const int* d = desc + (size_t)t * DESC_W;
-  const size_t n_slots = (size_t)tiles_cap * TILE;
-  const size_t slot = (size_t)t * TILE + l;
-  if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
-    counts[slot] = 0;
-    return;
-  }
-  const float qx = __int_as_float(q_t[slot]);
-  const float qy = __int_as_float(q_t[n_slots + slot]);
-  const float qz = __int_as_float(q_t[2 * n_slots + slot]);
-  const int qo = q_t[F_ORIG * n_slots + slot];
-  int* out = nbrs + (size_t)t * k8 * TILE + l;
-  const int* rx = recs_t;
-  const int* ry = recs_t + (size_t)n_rec;
-  const int* rz = recs_t + 2 * (size_t)n_rec;
-  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
-
-  int cnt = 0;
-  for (int w = 0; w < n_win; ++w) {
-    const int s = d[w];
-    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
-    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
-      const int m = min(CHUNK, ln - c0);
-      for (int j = l; j < m; j += TILE) {
-        const size_t src = (size_t)s + c0 + j;
-        sx[j] = __int_as_float(rx[src]);
-        sy[j] = __int_as_float(ry[src]);
-        sz[j] = __int_as_float(rz[src]);
-        so[j] = ro[src];
-      }
-      __syncthreads();
-      for (int j = 0; j < m; ++j) {
-        const float dx = __fsub_rn(sx[j], qx);
-        const float dy = __fsub_rn(sy[j], qy);
-        const float dz = __fsub_rn(sz[j], qz);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                             __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        const int o = so[j];
-        if (d2 <= r2 && o != qo) {
-          if (cnt < k8) out[(size_t)cnt * TILE] = o;
-          ++cnt;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  counts[slot] = cnt;
-  for (int k = cnt; k < k8; ++k) out[(size_t)k * TILE] = -1;
-}
-
-// The output blocks of K2b/K2c, passed by value: block b collects the
-// survivors whose set id is set_of[b], as set-local indices orig -
-// offset[b], in rows of k8[b] (tiles_cap, k8[b], 128); its counts are row
-// b of counts (n_blocks, tiles_cap * 128).
+// The output blocks of K2 (K2a has one), passed by value: block b collects
+// the survivors whose set id is set_of[b], as set-local indices orig -
+// offset[b], in rows of k8[b] (tiles_cap, k8[b], 128); its counts are row b
+// of counts (n_blocks, tiles_cap * 128).
 constexpr int MAX_BLOCKS = 8;
 struct Blocks {
   int n_blocks;
@@ -201,15 +125,15 @@ struct Blocks {
 };
 
 // ---------------------------------------------------------------------------
-// The candidate stream of a tile (K2b, K2c, K4).  The tile's n_win windows,
-// each clipped to the records as every kernel clips them, are read as one
-// stream in window order: stream index k lies in window w when pre[w] <= k <
-// pre[w + 1] (pre: the exclusive prefix of the clipped lengths, pre[n_win]
-// the tile's candidate count) and is record start[w] + k - pre[w].  Each
-// thread walks its stream indices in increasing order, so one window cursor
-// per thread finds each record in O(1) amortised steps.  The sum of the
-// clipped lengths is at most n_win * n_rec, inside int32 for n_rec below
-// 43M points.
+// The candidate stream of a tile (K2a-K2c, K4; csrc/reduce.cu keeps its own
+// copy for K3).  The tile's n_win windows, each clipped to the records as
+// every kernel clips them, are read as one stream in window order: stream
+// index k lies in window w when pre[w] <= k < pre[w + 1] (pre: the exclusive
+// prefix of the clipped lengths, pre[n_win] the tile's candidate count) and
+// is record start[w] + k - pre[w].  Each thread walks its stream indices in
+// increasing order, so one window cursor per thread finds each record in
+// O(1) amortised steps.  The sum of the clipped lengths is at most n_win *
+// n_rec, inside int32 for n_rec below 43M points.
 constexpr int MAX_WIN = 49;   // (2W+1)^2 windows for W <= 3 (LENS_OFF = 64)
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -279,30 +203,38 @@ __device__ __forceinline__ float d2_rn(float cx, float cy, float cz, float qx,
                    __fmul_rn(dz, dz));
 }
 
-constexpr int UNROLL = 4;   // K2 tests per hit check; chunks pad to it
+constexpr int UNROLL = 4;   // K2b/K2c tests per hit check
+constexpr int WORD = 32;    // K2a tests per hit word; chunks pad to it
 
-// K2b and K2c -- replace make_pairs_call with multi_set (one output block
-// per distinct candidate set, cand_sets/cand_offsets/nbr_caps) and with
-// variable/symmetric radii (treensearch_tpu/ops/pallas_pairs.py:445; the
-// criterion :950-957, the per-block compaction :1154-1310).  One block of
-// 128 threads per query tile, one query per thread, each survivor appended
-// to the thread's own row of its block in window order, so the rows equal
-// the plain version's slot for slot; counting goes on past a block's k8.
+// K2a, K2b and K2c -- replace make_pairs_call in neighbor-list mode
+// (treensearch_tpu/ops/pallas_pairs.py:445): K2a at a fixed radius with one
+// candidate set (ONE_SET; narrow and fat tier alike), K2b with multi_set (one
+// output block per distinct candidate set, cand_sets/cand_offsets/nbr_caps),
+// K2c with variable/symmetric radii (the criterion :950-957, the per-block
+// compaction :1154-1310).  One block of 128 threads per query tile, one query
+// per thread, each survivor appended to the thread's own row of its block in
+// window order, so the rows equal the plain version's slot for slot;
+// counting goes on past a block's k8.
 //   VARIABLE:  d^2 <= r_i^2, r_i the query's F_R, squared in float32;
-//              else d^2 <= r2 (K2b's fixed radius).
+//              else d^2 <= r2 (K2a's and K2b's fixed radius).
 //   SYMMETRIC: also d^2 <= r_j^2 (variable only).
+//   ONE_SET:   K2a: one block that keeps every survivor as its orig.
 // The sentinel query (NaN coordinates, r = 0) fails every compare.
 //
 // Bound: the distance tests (9 float32 operations each, 10 symmetric); the
 // _rn pins forbid FMA, so each operation is one FP32 issue, and a test
-// issues about 12 instructions (the broadcast load, 8 float32 operations,
-// the compares and the hit check).  The hits add a divergent branch and a
-// scattered 4-byte row store each.  The design it replaces (PR 2, 1.8657 ms for K2c and 1.1371 ms for K2b at configs 4 and
-// 3 on the H100, PR 5's run) staged each window on its own: at least n_win
-// passes of mostly one partial 256-candidate chunk (about 125-160
-// candidates per window), two barriers each with the load latency in front
-// of the tests, six shared loads per test (x, y, z, orig, block, r_j^2),
-// and 56 registers (9 resident blocks per SM).  This design:
+// issues about 11-12 instructions (the broadcast load, 8 float32
+// operations, the compare and the hit bookkeeping).  Each hit adds a row
+// store; K2a's rows (k8 x 128 ints per tile, 384 MB at config 1) are written
+// whole.  The TPU kernel's compaction networks and MXU prefix sums existed
+// because a TPU core cannot append per lane; here each thread appends to its
+// own row directly.  The designs this replaces (K2a 1.0012 ms at config 1,
+// K2b/K2c 1.1371 ms and 1.8657 ms at configs 3 and 4, on the H100) staged
+// each window on its own: at least n_win passes
+// of mostly one partial 256-candidate chunk (about 125-160 candidates per
+// window), two barriers each with the load latency in front of the tests,
+// four to six shared loads per test, and a divergent hit branch inside the
+// test loop.  This design:
 //   * concatenates the clipped windows into one stream (tile_stream) cut
 //     into full CHUNK-candidate chunks that cross window boundaries:
 //     ceil(sum len / CHUNK) passes, about 5 instead of 9 at config 1 and
@@ -311,50 +243,65 @@ constexpr int UNROLL = 4;   // K2 tests per hit check; chunks pad to it
 //     chunk c is tested, one barrier per chunk; each thread then squares
 //     its own staged r_j and turns its staged set into a block index;
 //   * packs the geometry as one float4 (x, y, z, r_j^2) per candidate, one
-//     broadcast 16-byte load per test, and keeps (orig, block) in an int2
-//     read only on a hit (about 2% of tests), where self-exclusion and the
-//     block dispatch now happen; the per-block counts live in shared
-//     memory (dynamic, n_blocks x 128 ints) and the block table is copied
-//     to shared memory, so a hit indexes both directly;
-//   * pads the last chunk with NaN candidates to a multiple of UNROLL and
-//     checks the hits of UNROLL tests with one branch;
-//   * asks __launch_bounds__ for 12 resident blocks per SM (at most 40
-//     registers, no spills).
+//     broadcast 16-byte load per test, and keeps the orig (K2a) or (orig,
+//     block) in an int2 (K2b/K2c) aside, read only on a hit (about 2% of
+//     tests), where self-exclusion and the block dispatch happen;
+//   * pads the last chunk with NaN candidates, which fail every test;
+//   * K2b/K2c check the hits of UNROLL tests with one branch and keep the
+//     per-block counts in shared memory (dynamic, n_blocks x 128 ints) and
+//     the block table there too, so a hit indexes both directly;
+//   * K2a sets bit u of a word for each of WORD unrolled tests, then walks
+//     the word's set bits in increasing order (the hits only), so a warp
+//     pays for the hit body as often as its busiest lane hits in the word
+//     (3.4 times per word at config 1), not in every step where some lane
+//     hits (16% of them); its count stays in a register;
+//   * K2a fills its rows' tails (-1 past each count) entry by entry across
+//     the warp, one 128-byte line per store: a fill loop per lane, as the
+//     first K2a had, strides 512 bytes between its stores and half writes
+//     a line with each (K2a 0.95 ms against 0.81 at config 1 on the H100);
+//   * asks __launch_bounds__ for 12 resident blocks per SM for K2b/K2c (at
+//     most 40 registers, no spills) and 10 for K2a (48 registers: at 40 its
+//     word drain spills 12 bytes, and 10 blocks ran as fast as 12).
 // Dead tiles return at once (their rows are undefined).
-template <bool VARIABLE, bool SYMMETRIC>
-__global__ void __launch_bounds__(TILE, 12)
+template <bool VARIABLE, bool SYMMETRIC, bool ONE_SET>
+__global__ void __launch_bounds__(TILE, ONE_SET ? 10 : 12)
 pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   const int* __restrict__ recs_t, int n_rec, int tiles_cap,
                   int n_win, float r2, Blocks blk) {
+  static_assert(!ONE_SET || !VARIABLE, "K2a is the fixed-radius kernel");
+  // per candidate: the orig (K2a), or (orig, block) (K2b/K2c)
+  using Id = typename std::conditional<ONE_SET, int, int2>::type;
   __shared__ float4 s_geo[2][CHUNK];
-  __shared__ int2 s_id[2][CHUNK];
+  __shared__ Id s_id[2][CHUNK];
   __shared__ int s_start[64];
   __shared__ int s_pre[65];
   __shared__ int* s_nbrs[MAX_BLOCKS];
   __shared__ int s_k8[MAX_BLOCKS];
   __shared__ int s_off[MAX_BLOCKS];
-  extern __shared__ int s_cnt[];   // [n_blocks][TILE]
+  extern __shared__ int s_cnt[];   // [n_blocks][TILE], K2b/K2c
 
   const int t = blockIdx.x;
   const int l = threadIdx.x;
   const int* d = desc + (size_t)t * DESC_W;
   const size_t n_slots = (size_t)tiles_cap * TILE;
   const size_t slot = (size_t)t * TILE + l;
-  const int n_blocks = blk.n_blocks;
+  const int n_blocks = ONE_SET ? 1 : blk.n_blocks;
   if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
     for (int b = 0; b < n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
     return;
   }
   tile_stream(d, n_rec, n_win, s_start, s_pre);
+  if constexpr (!ONE_SET) {
 #pragma unroll
-  for (int b = 0; b < MAX_BLOCKS; ++b) {
-    if (b == l && b < n_blocks) {
-      s_nbrs[b] = blk.nbrs[b];
-      s_k8[b] = blk.k8[b];
-      s_off[b] = blk.offset[b];
+    for (int b = 0; b < MAX_BLOCKS; ++b) {
+      if (b == l && b < n_blocks) {
+        s_nbrs[b] = blk.nbrs[b];
+        s_k8[b] = blk.k8[b];
+        s_off[b] = blk.offset[b];
+      }
     }
+    for (int b = 0; b < n_blocks; ++b) s_cnt[b * TILE + l] = 0;
   }
-  for (int b = 0; b < n_blocks; ++b) s_cnt[b * TILE + l] = 0;
   const float qx = __int_as_float(q_t[slot]);
   const float qy = __int_as_float(q_t[n_slots + slot]);
   const float qz = __int_as_float(q_t[2 * n_slots + slot]);
@@ -364,6 +311,10 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
     qr2 = __fmul_rn(qr, qr);
   }
+  // K2a: the thread's row and count
+  const int k8_1 = ONE_SET ? blk.k8[0] : 0;
+  int* const row = blk.nbrs[0] + (size_t)t * k8_1 * TILE + l;
+  int count = 0;
   __syncthreads();
   const int total = s_pre[n_win];
   const int n_chunks = (total + CHUNK - 1) / CHUNK;
@@ -383,8 +334,12 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
         cp_async4(&s_geo[buf][j].z, recs_t + 2 * (size_t)n_rec + src);
         if (SYMMETRIC)
           cp_async4(&s_geo[buf][j].w, recs_t + F_R * (size_t)n_rec + src);
-        cp_async4(&s_id[buf][j].x, recs_t + F_ORIG * (size_t)n_rec + src);
-        cp_async4(&s_id[buf][j].y, recs_t + F_SET * (size_t)n_rec + src);
+        if constexpr (ONE_SET) {
+          cp_async4(&s_id[buf][j], recs_t + F_ORIG * (size_t)n_rec + src);
+        } else {
+          cp_async4(&s_id[buf][j].x, recs_t + F_ORIG * (size_t)n_rec + src);
+          cp_async4(&s_id[buf][j].y, recs_t + F_SET * (size_t)n_rec + src);
+        }
       } else {
         s_geo[buf][j] = make_float4(__int_as_float(SENTINEL_BITS),
                                     __int_as_float(SENTINEL_BITS),
@@ -397,21 +352,32 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
   // for a set that is no candidate set), for this thread's own slots.
   auto finish = [&](int c, int buf) {
     cp_async_wait_all();
+    if constexpr (!ONE_SET) {
 #pragma unroll
-    for (int h = 0; h < CHUNK / TILE; ++h) {
-      const int j = h * TILE + l;
-      if (c * CHUNK + j < total) {
-        if (SYMMETRIC) {
-          const float r = s_geo[buf][j].w;
-          s_geo[buf][j].w = __fmul_rn(r, r);
+      for (int h = 0; h < CHUNK / TILE; ++h) {
+        const int j = h * TILE + l;
+        if (c * CHUNK + j < total) {
+          if (SYMMETRIC) {
+            const float r = s_geo[buf][j].w;
+            s_geo[buf][j].w = __fmul_rn(r, r);
+          }
+          const int set = s_id[buf][j].y;
+          int bi = -1;
+#pragma unroll
+          for (int b = 0; b < MAX_BLOCKS; ++b)
+            if (b < n_blocks && set == blk.set_of[b]) bi = b;
+          s_id[buf][j].y = bi;
         }
-        const int set = s_id[buf][j].y;
-        int bi = -1;
-#pragma unroll
-        for (int b = 0; b < MAX_BLOCKS; ++b)
-          if (b < n_blocks && set == blk.set_of[b]) bi = b;
-        s_id[buf][j].y = bi;
       }
+    }
+  };
+  // K2a's hit work for candidate j of buffer buf
+  auto append = [&](int buf, int j) {
+    if constexpr (ONE_SET) {
+      const int o = s_id[buf][j];
+      if (o == qo) return;
+      if (count < k8_1) row[(size_t)count * TILE] = o;
+      ++count;
     }
   };
 
@@ -424,43 +390,69 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     const int buf = c & 1;
     if (c + 1 < n_chunks) stage(c + 1, buf ^ 1);
     const int m = min(CHUNK, total - c * CHUNK);
-    const int mp = (m + UNROLL - 1) / UNROLL * UNROLL;
     const float4* g = s_geo[buf];
-    for (int j0 = 0; j0 < mp; j0 += UNROLL) {
-      bool hit[UNROLL];
-      bool any = false;
+    if constexpr (ONE_SET) {
+      const int mw = (m + WORD - 1) / WORD * WORD;
+      for (int j0 = 0; j0 < mw; j0 += WORD) {
+        unsigned hits = 0u;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const float4 cg = g[j0 + u];
-        const float d2 = d2_rn(cg.x, cg.y, cg.z, qx, qy, qz);
-        hit[u] = d2 <= qr2;
-        if (SYMMETRIC) hit[u] = hit[u] || d2 <= cg.w;
-        any = any || hit[u];
+        for (int u = 0; u < WORD; ++u) {
+          const float4 cg = g[j0 + u];
+          if (d2_rn(cg.x, cg.y, cg.z, qx, qy, qz) <= qr2) hits |= 1u << u;
+        }
+        for (; hits; hits &= hits - 1) append(buf, j0 + __ffs(hits) - 1);
       }
-      if (any) {
+    } else {
+      const int mp = (m + UNROLL - 1) / UNROLL * UNROLL;
+      for (int j0 = 0; j0 < mp; j0 += UNROLL) {
+        bool hit[UNROLL];
+        bool any = false;
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          if (!hit[u]) continue;
-          const int2 id = s_id[buf][j0 + u];   // (orig, block)
-          if (id.x == qo || id.y < 0) continue;
-          int* cnt = &s_cnt[id.y * TILE + l];
-          const int n = *cnt;
-          const int k8 = s_k8[id.y];
-          if (n < k8)
-            s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] = id.x - s_off[id.y];
-          *cnt = n + 1;
+          const float4 cg = g[j0 + u];
+          const float d2 = d2_rn(cg.x, cg.y, cg.z, qx, qy, qz);
+          hit[u] = d2 <= qr2;
+          if (SYMMETRIC) hit[u] = hit[u] || d2 <= cg.w;
+          any = any || hit[u];
+        }
+        if (any) {
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            if (!hit[u]) continue;
+            const int2 id = s_id[buf][j0 + u];   // (orig, block)
+            if (id.x == qo || id.y < 0) continue;
+            int* cnt = &s_cnt[id.y * TILE + l];
+            const int n = *cnt;
+            const int k8 = s_k8[id.y];
+            if (n < k8)
+              s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] =
+                  id.x - s_off[id.y];
+            *cnt = n + 1;
+          }
         }
       }
     }
     if (c + 1 < n_chunks) finish(c + 1, buf ^ 1);
     __syncthreads();
   }
-  for (int b = 0; b < n_blocks; ++b) {
-    const int n = s_cnt[b * TILE + l];
-    const int k8 = s_k8[b];
-    blk.counts[b * n_slots + slot] = n;
-    int* out = s_nbrs[b] + (size_t)t * k8 * TILE + l;
-    for (int k = n; k < k8; ++k) out[(size_t)k * TILE] = -1;
+  if constexpr (ONE_SET) {
+    // -1 past each count, the warp's 32 lanes entry by entry from the
+    // smallest count, so that each store is one 128-byte line
+    blk.counts[slot] = count;
+    int k0 = min(count, k8_1);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      k0 = min(k0, __shfl_xor_sync(FULL, k0, off));
+    for (int k = k0; k < k8_1; ++k)
+      if (k >= count) row[(size_t)k * TILE] = -1;
+  } else {
+    for (int b = 0; b < n_blocks; ++b) {
+      const int n = s_cnt[b * TILE + l];
+      const int k8 = s_k8[b];
+      blk.counts[b * n_slots + slot] = n;
+      int* out = s_nbrs[b] + (size_t)t * k8 * TILE + l;
+      for (int k = n; k < k8; ++k) out[(size_t)k * TILE] = -1;
+    }
   }
 }
 
@@ -784,9 +776,16 @@ extern "C" int tns_pairs_nbrs_fixed(const int* desc, const int* q_t,
                                     int tiles_cap, int n_win, int k8,
                                     float r2, int* counts, int* nbrs,
                                     void* stream) {
+  if (n_win < 1 || n_win > MAX_WIN) return (int)cudaErrorInvalidValue;
+  Blocks blk{};
+  blk.n_blocks = 1;
+  blk.k8[0] = k8;
+  blk.nbrs[0] = nbrs;
+  blk.counts = counts;
   if (tiles_cap > 0) {
-    pairs_nbrs_fixed_kernel<<<tiles_cap, TILE, 0, (cudaStream_t)stream>>>(
-        desc, q_t, recs_t, n_rec, tiles_cap, n_win, k8, r2, counts, nbrs);
+    pairs_nbrs_kernel<false, false, true>
+        <<<tiles_cap, TILE, 0, (cudaStream_t)stream>>>(
+            desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
   }
   return (int)cudaGetLastError();
 }
@@ -813,13 +812,13 @@ extern "C" int tns_pairs_nbrs(const int* desc, const int* q_t,
     cudaStream_t st = (cudaStream_t)stream;
     const size_t smem = (size_t)n_blocks * TILE * sizeof(int);   // s_cnt
     if (!variable)
-      pairs_nbrs_kernel<false, false><<<tiles_cap, TILE, smem, st>>>(
+      pairs_nbrs_kernel<false, false, false><<<tiles_cap, TILE, smem, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
     else if (!symmetric)
-      pairs_nbrs_kernel<true, false><<<tiles_cap, TILE, smem, st>>>(
+      pairs_nbrs_kernel<true, false, false><<<tiles_cap, TILE, smem, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
     else
-      pairs_nbrs_kernel<true, true><<<tiles_cap, TILE, smem, st>>>(
+      pairs_nbrs_kernel<true, true, false><<<tiles_cap, TILE, smem, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
   }
   return (int)cudaGetLastError();
