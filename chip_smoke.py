@@ -55,7 +55,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 10. split staging at config 1: K5 against its plain version on K4's bits
    of a settled engine's structures (counts equal, rows equal slot for
    slot), and K4 then K5 against the fused K2a (every query's count and
-   row equal); ``run()`` with ``set_split_stage(True)``, a settling call
+   row equal), then the same at configs 3 (two blocks; the boundary
+   searches nothing) and 4 (K4 ``<true, true>``, 25 windows), each timed
+   with its bound; ``run()`` with ``set_split_stage(True)``, a settling call
    and 5 jittered calls (K1, K4 and K5 once each in every jittered call,
    no K2), 32,759,462 pairs at seed 0 and the cKDTree sample; configs 3
    and 4 with split staging equal to their fused ``run()`` per active
@@ -627,12 +629,13 @@ def _rows_of(nbrs, live):
     return nbrs.transpose(1, 2).reshape(-1, nbrs.shape[1])[live]
 
 
-def check_k5(a, allow, q) -> dict:
+def check_k5(a, allow, q, label: str = "pairs_nbrs_from_bits") -> dict:
     """K5 against its plain version on K4's bits of these inputs (counts
     equal on every slot, rows equal slot for slot on live slots), then K4
-    and K5 through ``run_pairs`` against the fused pairs kernel (one set,
-    every query active: counts and rows equal on every live slot); K5's
-    time in turns with its plain version, and its bound."""
+    and K5 through ``run_pairs`` against the fused pairs kernel (counts and
+    rows equal, per block, on every live slot whose query's set searches
+    the block's set); K5's time in turns with its plain version, and its
+    bound (``label`` names the lines)."""
     import torch
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs
@@ -654,25 +657,32 @@ def check_k5(a, allow, q) -> dict:
     rows = sum(int((_rows_of(k, live) != _rows_of(p, live)).sum())
                for k, p in zip(nb_k, nb_p))
     if err or rows:
-        raise AssertionError(f"pairs_nbrs_from_bits: counts differ from "
-                             f"plain by up to {err}, {rows} row entries")
+        raise AssertionError(f"{label}: counts differ from plain by up to "
+                             f"{err}, {rows} row entries")
     (c_s, nb_s), (c_f, nb_f) = fp.run_pairs(a, q, allow=allow), \
         fp.run_pairs(a, q)
-    if not (torch.equal(c_s[:, live], c_f[:, live]) and all(
-            torch.equal(_rows_of(s, live), _rows_of(f, live))
-            for s, f in zip(nb_s, nb_f))):
-        raise AssertionError("split staging differs from the fused "
-                             f"{fp.pairs_kernel(a).__name__}")
+    q_set = q[pairs.F_SET].long()
+    allowed = torch.where(q_set >= 0, allow[q_set.clamp(min=0)], 0)
+    searched = 0
+    for b in range(len(a.k8s)):
+        on = live & ((allowed >> b) & 1).bool()
+        searched += int(on.sum())
+        if not (torch.equal(c_s[b, on], c_f[b, on]) and torch.equal(
+                _rows_of(nb_s[b], on), _rows_of(nb_f[b], on))):
+            raise AssertionError(f"{label}: split staging differs from the "
+                                 f"fused {fp.pairs_kernel(a).__name__} in "
+                                 f"block {b}")
     rec = {"name": "pairs_nbrs_from_bits", "max_abs_err": err}
     rec.update(k5_bound(a, bits.shape[0]))
-    print(f"pairs_nbrs_from_bits: counts and rows equal to plain over "
-          f"{int(live.sum())} live slots ({bits.shape[0]} candidate rows, "
+    print(f"{label}: counts and rows equal to plain over {int(live.sum())} "
+          f"live slots ({bits.shape[0]} candidate rows, "
           f"{int(c_k.sum(dtype=torch.int64))} pairs, max count "
-          f"{int(c_k.max())}, k8 {a.k8s}); K4 then K5 equal to the fused "
-          f"{fp.pairs_kernel(a).__name__} on every live slot; {rec['bytes']}"
-          f" B, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
-          flush=True)
-    timed_turns(rec, kernel, plain, a.desc.device)
+          f"{int(c_k.max())}, {len(a.k8s)} block(s), k8 {a.k8s}, "
+          f"{a.n_win} windows); K4 then K5 equal to the fused "
+          f"{fp.pairs_kernel(a).__name__} on {searched} (slot, block) "
+          f"searches; {rec['bytes']} B, bound {rec['bound_ms']:.4f} ms by "
+          f"{rec['bound_by']}", flush=True)
+    timed_turns(rec, kernel, plain, a.desc.device, label)
     rec["library_ms"] = None   # no single PyTorch call computes it
     return rec
 
@@ -1222,12 +1232,16 @@ def check_split_config(make, label: str) -> None:
 
 def run_split_path(pts_t, card: str, data3: tuple, data4: tuple) -> tuple:
     """Phase 10: K5 against its plain version and K4 then K5 against the
-    fused K2a at config 1, the split ``run()`` path, then configs 3 and 4
+    fused pairs kernel at configs 1, 3 and 4 (config 1's record is
+    returned), the split ``run()`` path at config 1, then configs 3 and 4
     (``data3``, ``data4``: ``config3_data``'s and ``config4_data``'s
     tensors) with split staging against their fused ``run()``."""
     from treensearch_tpu_torch.ops import pairs
     n = pts_t.shape[0]
     rec = check_k5(*active_inputs(make_engine(pts_t, RADIUS)))
+    for label, eng in (("config 3", config3_engine(*data3)),
+                       ("config 4", config4_engine(*data4))):
+        check_k5(*active_inputs(eng), f"pairs_nbrs_from_bits ({label})")
     eng = make_engine(pts_t, RADIUS)
     eng.set_split_stage(True)
     out = drive(eng, "config 1 split staging",
@@ -1764,7 +1778,8 @@ KERNEL_IDS = {"expand_query_tiles_kernel": "K1",
               "pairs_mask_kernel<false, false>": "K4",
               "pairs_mask_kernel<true, false>": "K4",
               "pairs_mask_kernel<true, true>": "K4",
-              "pairs_nbrs_from_bits_kernel": "K5"}
+              "pairs_nbrs_from_bits_kernel<true>": "K5",
+              "pairs_nbrs_from_bits_kernel<false>": "K5"}
 
 
 def kernel_resources(log: str) -> list:

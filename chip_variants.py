@@ -1,37 +1,52 @@
 #!/usr/bin/env python3
-"""The design choices of the pairs kernels K2a and K3, measured on the card.
+"""The design choices of the split-staging kernel K5, measured on the card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_variants.py
 
-At BASELINE config 1 (``chip_smoke.py``'s 1M points, r = 0.02, cell 1.15
-r, seed 0; a settled engine's structures) it prints, each as one JSON
-line:
+On K4's bits of BASELINE config 1 (``chip_smoke.py``'s 1M points, r =
+0.02, cell 1.15 r, seed 0: one output block, K5's ``ONE_SET`` instance)
+and of BASELINE config 3 (400,000 fluid and 100,000 boundary points: two
+blocks), each on a settled engine's structures, it prints, each as one
+JSON line:
 
-- ``hit_words``: from the plain version's hit masks, the share of (warp,
-  candidate) steps in which at least one of the warp's 32 query lanes
-  hits (what a hit branch inside the test loop costs), and, over the
-  stream's 32-candidate words, the mean of the busiest lane's hits per
-  warp and word (what the word drain costs) and the share of words and of
-  4-candidate groups with a hit;
-- ``k2a``: ``csrc/pairs.cu`` as committed and built again with one
-  change each (K2b's branch per 4 tests instead of the word drain; the
-  rows' -1 tails filled by a loop per lane, as the first K2a filled them,
-  instead of line by line across the warp), each equal to the plain version
-  (counts, and rows slot for slot), their registers, shared memory and
-  spills, and their times in four rounds of turns (CUDA events, median
-  of 7 runs of 10 calls);
-- ``k3``: ``csrc/reduce.cu`` for each of ``chip_smoke.py``'s five
-  callbacks at ``__launch_bounds__`` 8 (as committed), 10 and 12 resident
-  blocks: registers and spills; the density's and ``density4_fn``'s
-  sums within ``REDUCE_RTOL`` of the plain version and their times in
-  turns.
+- ``hit_words``: at config 1, from the plain version's hit masks, the
+  share of (warp, candidate) steps in which at least one of the warp's 32
+  query lanes hits, and, over the stream's 32-candidate groups, the mean
+  of the busiest lane's hits per warp and group (what K5's drain pays per
+  group) and the share of groups with a hit (the groups whose transpose is
+  not skipped);
+- ``nvcc``: each variant's registers, shared memory and spills;
+- ``k5``: per configuration, each variant's time in four rounds of turns
+  (CUDA events, median of 7 runs of 10 calls), after it was found equal to
+  the plain version (counts, and rows slot for slot on live tiles).
 
-Every variant is the committed source with one substitution, built by
-``nvcc`` into ``build/``; the script fails if a substitution does not
-apply, a build fails or a variant disagrees with the plain version.  It
-imports nothing of JAX and exits non-zero without CUDA.
+The variants are ``csrc/pairs.cu`` as committed and built again with one
+change each:
+
+- ``bulk copy``: a chunk's bit rows by one TMA bulk copy
+  (``cp.async.bulk``, issued by one thread, completing on an
+  ``mbarrier``) instead of one 16-byte ``cp.async`` per row;
+- ``per-candidate walk``: the earlier design's drain on the same stream,
+  each lane testing its own bit of every row, instead of the 32 x 32
+  transpose;
+- ``word-major rows``: after the wait each thread copies its own rows
+  word-major into a second buffer, so the drain's reads hit 32 banks
+  instead of 8 (one more shared pass, 8 KB more shared memory);
+- ``direct stores`` and ``16 entries`` to ``80 entries``: 0 (every hit
+  stored straight to its row) or 16, 24, 40, 48, 64, 80 row entries a
+  thread stages in shared memory instead of 32;
+- ``8 blocks``, ``16 blocks``: ``__launch_bounds__`` for 8 or 16 resident
+  blocks per SM instead of 12;
+- and, to show what the rest costs (their counts are checked, not their
+  rows): ``no hit stores`` (a hit only counts) and ``no row writes`` (the
+  staged entries and the -1 tails are not written out).
+
+Every variant is built by ``nvcc`` into ``build/``; the script fails if a
+substitution does not apply, a build fails or a variant disagrees with
+the plain version.  It imports nothing of JAX and exits non-zero without
+CUDA.
 """
 
 from __future__ import annotations
@@ -45,62 +60,187 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROUNDS = 4   # rounds of turns over the variants, the order reversed in odd
+K5 = ("pairs_nbrs_from_bits_kernel<true>",
+      "pairs_nbrs_from_bits_kernel<false>")
 
-# K2a's word drain as committed, and K2b's branch per UNROLL tests
-DRAIN = """      const int mw = (m + WORD - 1) / WORD * WORD;
-      for (int j0 = 0; j0 < mw; j0 += WORD) {
-        unsigned hits = 0u;
+# --- the committed source's pieces that the variants change
+DECL = """  __shared__ int4 s_bits[2][CHUNK];
+  __shared__ int2 s_id[2][CHUNK];    // (orig, set), then (index, block)
+"""
+BASE = """  const long long base = cand_base[t];
+  __syncthreads();
+"""
+STAGE = """  auto stage = [&](int c, int buf) {
 #pragma unroll
-        for (int u = 0; u < WORD; ++u) {
-          const float4 cg = g[j0 + u];
-          if (d2_rn(cg.x, cg.y, cg.z, qx, qy, qz) <= qr2) hits |= 1u << u;
-        }
-        for (; hits; hits &= hits - 1) append(buf, j0 + __ffs(hits) - 1);
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      const int k = c * CHUNK + j;
+      const long long r = base + k;
+      if (k < total && r >= 0 && r < n_bits_rows)
+        cp_async16(&s_bits[buf][j], bits + r);
+      else
+        s_bits[buf][j] = make_int4(0, 0, 0, 0);
+"""
+WAIT = """    cp_async_wait_all();
+#pragma unroll
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      if (c * CHUNK + j < total) {
+        const int2 id = s_id[buf][j];
+"""
+FINISH_END = """        else
+          s_id[buf][j] = make_int2(id.x - off, bi);
       }
+    }
+  };
 """
-BRANCH = """      const int mp = (m + UNROLL - 1) / UNROLL * UNROLL;
-      for (int j0 = 0; j0 < mp; j0 += UNROLL) {
-        bool hit[UNROLL];
-        bool any = false;
+DRAIN = """    // warp-uniform groups: every lane takes part in the transpose
+    for (int j0 = 0; j0 < m; j0 += WORD) {
+      const unsigned x = words[(j0 + lane) * WORDS + warp];
+      if (!__any_sync(FULL, x)) continue;
+      for (unsigned hits = transpose32(x, lane); hits; hits &= hits - 1)
+        append(buf, j0 + __ffs(hits) - 1);
+    }
+    if (c + 1 < n_chunks) finish(c + 1, buf ^ 1);
+    __syncthreads();
+"""
+APPEND_ONE = """      if (count < e_1)
+        s_rows[count * TILE + l] = id.x;
+      else if (count < k8_1)
+        row[(size_t)count * TILE] = id.x;
+      ++count;
+"""
+APPEND_SETS = """      if (n < min(k8, stage_e))
+        s_rows[(id.y * stage_e + n) * TILE + l] = id.x;
+      else if (n < k8)
+        s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] = id.x;
+      *cnt = n + 1;
+"""
+FLUSH = """    for (int k = 0; k < e; ++k)
+      out[(size_t)k * TILE] = k < n ? staged[k * TILE + l] : -1;
+    fill_tail(out, max(n, e), k8);
+"""
+STAGED = "constexpr int STAGED = 32;"
+BOUNDS = """template <bool ONE_SET>
+__global__ void __launch_bounds__(TILE, 12)
+pairs_nbrs_from_bits_kernel("""
+
+# --- the bulk copy: one thread copies the chunk's rows below n_bits_rows,
+# the others zero the rest; every thread waits on the buffer's barrier,
+# whose phase flips once per use of the buffer; generic writes to the
+# buffers are fenced against the next bulk copy before each barrier
+BULK = {
+    DECL: DECL + "  __shared__ unsigned long long s_bar[2];\n",
+    BASE: """  const long long base = cand_base[t];
+  if (l == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(&s_bar[i]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+  __syncthreads();
+""",
+    STAGE: """  auto stage = [&](int c, int buf) {
+    const long long r0 = base + (long long)c * CHUNK;
+    const int n_copy = r0 < 0 ? 0 : (int)max(0LL, min(
+        (long long)min(CHUNK, total - c * CHUNK), n_bits_rows - r0));
+    if (l == 0) {
+      const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_bar[buf]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
+                   ::"r"(bar), "r"(n_copy * 16) : "memory");
+      if (n_copy > 0)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\\n" ::"r"(
+                (unsigned)__cvta_generic_to_shared(&s_bits[buf][0])),
+            "l"(bits + r0), "r"(n_copy * 16), "r"(bar) : "memory");
+    }
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const float4 cg = g[j0 + u];
-          hit[u] = d2_rn(cg.x, cg.y, cg.z, qx, qy, qz) <= qr2;
-          any = any || hit[u];
-        }
-        if (any) {
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      const int k = c * CHUNK + j;
+      if (j >= n_copy) s_bits[buf][j] = make_int4(0, 0, 0, 0);
+""",
+    WAIT: """    cp_async_wait_all();
+    {
+      const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_bar[buf]);
+      unsigned done = 0;
+      while (!done)
+        asm volatile("{\\n .reg .pred p;\\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+                     " selp.u32 %0, 1, 0, p;\\n}\\n"
+                     : "=r"(done)
+                     : "r"(bar), "r"((unsigned)((c >> 1) & 1))
+                     : "memory");
+    }
 #pragma unroll
-          for (int u = 0; u < UNROLL; ++u)
-            if (hit[u]) append(buf, j0 + u);
-        }
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      if (c * CHUNK + j < total) {
+        const int2 id = s_id[buf][j];
+""",
+    DRAIN: DRAIN.replace(
+        "    __syncthreads();\n",
+        '    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
+        "    __syncthreads();\n"),
+}
+# --- the earlier drain: each lane tests its own bit of every row
+WALK = {DRAIN: """    for (int j = 0; j < m; ++j)
+      if (words[j * WORDS + warp] & (1u << lane)) append(buf, j);
+    if (c + 1 < n_chunks) finish(c + 1, buf ^ 1);
+    __syncthreads();
+"""}
+# --- the rows copied word-major after the wait, read without conflicts
+WORD_MAJOR = {
+    DECL: DECL + "  __shared__ unsigned s_wm[2][TILE / 32][CHUNK];\n",
+    FINISH_END: """        else
+          s_id[buf][j] = make_int2(id.x - off, bi);
       }
-"""
-# K2a's -1 tails, line by line across the warp, and a loop per lane
-FILL = """    int k0 = min(count, k8_1);
+    }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      k0 = min(k0, __shfl_xor_sync(FULL, k0, off));
-    for (int k = k0; k < k8_1; ++k)
-      if (k >= count) row[(size_t)k * TILE] = -1;
-"""
-FILL_PER_LANE = """    for (int k = count; k < k8_1; ++k) row[(size_t)k * TILE] = -1;
-"""
-K3_BOUNDS = "__launch_bounds__(TILE, 8)"
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      const int4 v = s_bits[buf][j];
+      s_wm[buf][0][j] = v.x;
+      s_wm[buf][1][j] = v.y;
+      s_wm[buf][2][j] = v.z;
+      s_wm[buf][3][j] = v.w;
+    }
+  };
+""",
+    DRAIN: DRAIN.replace("words[(j0 + lane) * WORDS + warp]",
+                         "s_wm[buf][warp][j0 + lane]"),
+}
+VARIANTS = {"committed": {}, "bulk copy": BULK, "per-candidate walk": WALK,
+            "word-major rows": WORD_MAJOR,
+            "direct stores": {STAGED: STAGED.replace("32", "0")},
+            **{f"{e} entries": {STAGED: STAGED.replace("32", str(e))}
+               for e in (16, 24, 40, 48, 64, 80)},
+            "8 blocks": {BOUNDS: BOUNDS.replace("12", "8")},
+            "16 blocks": {BOUNDS: BOUNDS.replace("12", "16")},
+            # what the rest costs: the counts stay right, the rows do not
+            "no hit stores": {APPEND_ONE: "      ++count;\n",
+                              APPEND_SETS: "      *cnt = n + 1;\n"},
+            "no row writes": {FLUSH: ""}}
+DIAGNOSTIC = ("no hit stores", "no row writes")
 
 
-def substitute(text: str, old: str, new: str) -> str:
-    if text.count(old) != 1:
-        raise RuntimeError(f"substitution does not apply: {old[:60]!r}")
-    return text.replace(old, new)
+def substitute(text: str, subs: dict) -> str:
+    for old, new in subs.items():
+        if text.count(old) != 1:
+            raise RuntimeError(f"substitution does not apply: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
 
 
 def hit_words(a, q) -> dict:
-    """The hit statistics of K2a's inputs, from the plain version's hit
-    masks, chunk of tiles by chunk of tiles."""
+    """The hit statistics of these inputs (one set, fixed radius), from the
+    plain pairs version's hit masks, chunk of tiles by chunk of tiles."""
     import torch
     from treensearch_tpu_torch.ops import pairs as P
     n = {"steps": 0, "steps_any": 0, "words": 0, "words_any": 0,
-         "busiest": 0, "groups": 0, "groups_any": 0, "hits": 0}
+         "busiest": 0, "hits": 0}
     for ch in P._plain_chunks(a.desc, q, a.recs_t, a.n_win, a.tiles_cap,
                               a.r2, False):
         nt = ch.t1 - ch.t0
@@ -108,30 +248,27 @@ def hit_words(a, q) -> dict:
         n["steps"] += 4 * int(ch.ok.sum())
         n["steps_any"] += int((ch.hit.view(nt, 4, 32, -1).any(dim=2)
                                & ch.ok[:, None, :]).sum())
-        # the stream index of each window slot, and its word and group
+        # the stream index of each window slot, and its group of 32
         k = torch.cumsum(ch.ok.int(), dim=1) - 1
         total = ch.ok.sum(dim=1)
-        for size, key in ((32, "words"), (4, "groups")):
-            n_max = int((total.max() + size - 1) // size)
-            idx = torch.where(ch.ok, k // size, n_max).long()
-            per = torch.zeros((nt, 128, n_max + 1), dtype=torch.int32,
-                              device=q.device)
-            per.scatter_add_(2, idx[:, None, :].expand(nt, 128, -1),
-                             ch.hit.int())
-            most = per[:, :, :n_max].view(nt, 4, 32, n_max).amax(dim=2)
-            valid = (torch.arange(n_max, device=q.device)[None, :]
-                     < ((total + size - 1) // size)[:, None])[:, None, :]
-            n[key] += 4 * int(((total + size - 1) // size).sum())
-            n[key + "_any"] += int(((most > 0) & valid).sum())
-            if size == 32:
-                n["busiest"] += int((most * valid).sum())
+        n_max = int((total.max() + 31) // 32)
+        idx = torch.where(ch.ok, k // 32, n_max).long()
+        per = torch.zeros((nt, 128, n_max + 1), dtype=torch.int32,
+                          device=q.device)
+        per.scatter_add_(2, idx[:, None, :].expand(nt, 128, -1),
+                         ch.hit.int())
+        most = per[:, :, :n_max].view(nt, 4, 32, n_max).amax(dim=2)
+        valid = (torch.arange(n_max, device=q.device)[None, :]
+                 < ((total + 31) // 32)[:, None])[:, None, :]
+        n["words"] += 4 * int(((total + 31) // 32).sum())
+        n["words_any"] += int(((most > 0) & valid).sum())
+        n["busiest"] += int((most * valid).sum())
     return {"pairs": n["hits"], "warp_steps": n["steps"],
             "share_of_steps_with_a_hit": n["steps_any"] / n["steps"],
-            "words": n["words"],
-            "share_of_words_with_a_hit": n["words_any"] / n["words"],
-            "busiest_lane_hits_per_word": n["busiest"] / n["words"],
-            "mean_lane_hits_per_word": n["hits"] / (32 * n["words"]),
-            "share_of_4_groups_with_a_hit": n["groups_any"] / n["groups"]}
+            "groups": n["words"],
+            "share_of_groups_with_a_hit": n["words_any"] / n["words"],
+            "busiest_lane_hits_per_group": n["busiest"] / n["words"],
+            "mean_lane_hits_per_group": n["hits"] / (32 * n["words"])}
 
 
 def main() -> int:
@@ -143,29 +280,19 @@ def main() -> int:
     import chip_smoke as cs
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs as P
-    from treensearch_tpu_torch.ops import reduce as red
 
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     src = P.SOURCE.read_text()
-    k2a = {"committed": src,
-           "branch per 4 tests": substitute(src, DRAIN, BRANCH),
-           "tail filled per lane": substitute(src, FILL, FILL_PER_LANE)}
-    k3 = {(fn.__name__, bounds): substitute(
-              red.kernel_source(red.ReduceSpec(fn, n_out, True), variable)[0],
-              K3_BOUNDS, f"__launch_bounds__(TILE, {bounds})")
-          for fn, n_out, variable in cs.CALLBACKS for bounds in (8, 10, 12)}
-    jobs = {("k2a", k): ("pairs", t) for k, t in k2a.items()}
-    jobs.update({("k3", k): ("reduce", t) for k, t in k3.items()})
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        futures = {k: ex.submit(P.build_library, name, text.encode())
-                   for k, (name, text) in jobs.items()}
-        libs = {k: f.result() for k, f in futures.items()}
-    for (kind, variant), lib in libs.items():
+    texts = {v: substitute(src, subs) for v, subs in VARIANTS.items()}
+    with ThreadPoolExecutor(len(texts)) as ex:
+        futures = {v: ex.submit(P.build_library, "pairs", t.encode())
+                   for v, t in texts.items()}
+        libs = {v: f.result() for v, f in futures.items()}
+    for variant, lib in libs.items():
         for kernel, regs, smem, stores, loads in cs.kernel_resources(lib.log):
-            if kind == "k3" or kernel == "pairs_nbrs_kernel<false, false, "\
-                                        "true>":
-                print(json.dumps({"nvcc": [kind, variant, kernel],
+            if kernel in K5:
+                print(json.dumps({"nvcc": [variant, kernel],
                                   "registers": regs, "shared": smem,
                                   "spill_stores": stores,
                                   "spill_loads": loads}), flush=True)
@@ -174,82 +301,49 @@ def main() -> int:
     rng = np.random.default_rng(0)
     pts_t = torch.from_numpy(rng.uniform(0, 1, (cs.N, 3))
                              .astype(np.float32)).to(dev)
-    mass_t = torch.from_numpy(rng.uniform(0.5, 1.5, cs.N)
-                              .astype(np.float32)).to(dev)
-    payload = torch.stack([mass_t, torch.zeros_like(mass_t)], dim=1)
-    a, allow, q = cs.active_inputs(cs.make_engine(pts_t, cs.RADIUS),
-                                   payload)
-    print(json.dumps({"hit_words": hit_words(a, q)}), flush=True)
-
-    # K2a: each variant's launcher on the same inputs and outputs
-    k8 = a.k8s[0]
-    live = cs.live_slots(a.desc, a.tiles_cap).view(a.tiles_cap, 128)
-    counts = torch.empty(a.tiles_cap * 128, dtype=torch.int32, device=dev)
-    nbrs = torch.empty((a.tiles_cap, k8, 128), dtype=torch.int32,
-                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    load_args = P.load_library().lib.tns_pairs_nbrs_fixed.argtypes
+    load_args = P.load_library().lib.tns_pairs_nbrs_from_bits.argtypes
+    for label, eng in (("config 1", cs.make_engine(pts_t, cs.RADIUS)),
+                       ("config 3", cs.config3_engine(*cs.config3_data(dev)))):
+        a, allow, q = cs.active_inputs(eng)
+        if label == "config 1":
+            print(json.dumps({"hit_words": hit_words(a, q)}), flush=True)
+        _, bits, base = P.pairs_mask(a.desc, q, a.recs_t, a.n_win,
+                                     a.tiles_cap, a.cand_sets, allow,
+                                     **fp.active_args(a))
+        blocks = (a.cand_sets, a.cand_offsets, a.k8s)
+        c_p, nb_p = P.pairs_nbrs_from_bits_plain(
+            a.desc, a.recs_t, bits, base, a.n_win, a.tiles_cap, *blocks)
+        counts, nbrs, args = P._block_outputs(blocks, a.tiles_cap, dev)
+        live = a.desc[:a.tiles_cap, 127] != 2
 
-    def launch(variant):
-        fn = libs[("k2a", variant)].lib.tns_pairs_nbrs_fixed
-        fn.argtypes, fn.restype = load_args, ctypes.c_int
-        err = fn(a.desc.data_ptr(), q.data_ptr(), a.recs_t.data_ptr(),
-                 a.recs_t.shape[1], a.tiles_cap, a.n_win, k8, float(a.r2),
-                 counts.data_ptr(), nbrs.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"K2a {variant}: CUDA error {err}")
-
-    c_p, nb_p = P.pairs_nbrs_fixed_plain(a.desc, q, a.recs_t, a.r2, a.n_win,
-                                         k8, a.tiles_cap)
-    for variant in k2a:
-        counts.fill_(-7)
-        nbrs.fill_(-7)
-        launch(variant)
-        torch.cuda.synchronize()
-        if not (torch.equal(counts.view(a.tiles_cap, 128)[live],
-                            c_p.view(a.tiles_cap, 128)[live])
-                and torch.equal(nbrs.transpose(1, 2)[live],
-                                nb_p.transpose(1, 2)[live])):
-            raise AssertionError(f"K2a {variant} differs from plain")
-    print(json.dumps({"k2a": _turns(list(k2a), launch, cs, dev),
-                      "card": card}), flush=True)
-
-    # K3: the density (n_out 1) and density4_fn (n_out 4) at each bound
-    args = (a.desc, q, a.recs_t, a.n_win, a.tiles_cap)
-    kw = fp.active_args(a)
-    for fn, n_out in ((cs.density_fn, 1), (cs.density4_fn, 4)):
-        spec = red.ReduceSpec(fn, n_out, True)
-        plain = red.pairs_reduce_plain(*args, spec, a.cand_sets, allow, **kw)
-        out = torch.empty_like(plain)
-        ids = P.set_ids_arg(a.cand_sets)
-        k3_args = red.reduce_library(spec, False).lib.tns_pairs_reduce.argtypes
-
-        def run(bounds, fn=fn):
-            lib = libs[("k3", (fn.__name__, bounds))].lib
-            lib.tns_pairs_reduce.argtypes = k3_args
-            lib.tns_pairs_reduce.restype = ctypes.c_int
-            err = lib.tns_pairs_reduce(
-                a.desc.data_ptr(), q.data_ptr(), a.recs_t.data_ptr(),
-                a.recs_t.shape[1], a.tiles_cap, a.n_win, float(a.r2), 0,
-                len(a.cand_sets), ids, allow.data_ptr(), allow.shape[0],
-                out.data_ptr(), stream)
+        def launch(variant, a=a, bits=bits, base=base, args=args):
+            fn = libs[variant].lib.tns_pairs_nbrs_from_bits
+            fn.argtypes, fn.restype = load_args, ctypes.c_int
+            err = fn(a.desc.data_ptr(), a.recs_t.data_ptr(),
+                     a.recs_t.shape[1], a.tiles_cap, a.n_win,
+                     bits.data_ptr(), bits.shape[0], base.data_ptr(), *args,
+                     stream)
             if err:
-                raise RuntimeError(f"K3 {bounds}: CUDA error {err}")
+                raise RuntimeError(f"K5 {variant}: CUDA error {err}")
 
-        scale = red.pairs_reduce_plain(*args, red.ReduceSpec(
-            lambda env, fn=fn: tuple(torch.as_tensor(o).float().abs()
-                                     for o in cs._outputs(fn(env))),
-            n_out, True), a.cand_sets, allow, **kw)
-        for bounds in (8, 10, 12):
-            run(bounds)
+        for variant in VARIANTS:
+            counts.fill_(-7)
+            for nb in nbrs:
+                nb.fill_(-7)
+            launch(variant)
             torch.cuda.synchronize()
-            if not bool(((out - plain).abs()
-                         <= cs.REDUCE_RTOL * scale).all()):
-                raise AssertionError(f"K3 {fn.__name__} at {bounds} blocks "
-                                     "differs from plain")
-        print(json.dumps({"k3": fn.__name__,
-                          "ms": _turns([8, 10, 12], run, cs, dev),
+            if not (torch.equal(counts, c_p) and (
+                    variant in DIAGNOSTIC or all(
+                        torch.equal(k[live], p[live])
+                        for k, p in zip(nbrs, nb_p)))):
+                raise AssertionError(f"K5 {variant} differs from plain at "
+                                     f"{label}")
+        print(json.dumps({"k5": label, "blocks": len(a.k8s),
+                          "candidate_rows": bits.shape[0],
+                          "ms": _turns(list(VARIANTS), launch, cs, dev),
                           "card": card}), flush=True)
+        del eng, a, allow, q, bits, base, c_p, nb_p, counts, nbrs
     return 0
 
 

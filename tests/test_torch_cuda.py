@@ -19,6 +19,8 @@ on the card: neighbor sets equal to brute force, and to the CPU engine's
 rows slot for slot.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -649,6 +651,117 @@ def test_k2b_k4_k5_eight_blocks_one_at_cap_8_under_an_active_matrix(dev):
                            nb_f[sj][slots // 128, :, slots % 128])
 
 
+# ---------------------------------------------- the candidate stream of K5
+def _stream_inputs(dev, rng, mode):
+    """Kernel inputs on which to hold K5 against its plain version: two sets
+    under an active matrix with an inactive pair (``fixed``, ``variable``
+    or ``symmetric``, as the K2b/K2c/K4 stream tests), or one set at a fixed
+    radius (``one_set``, K5's one-block instance); 25 windows each.
+    Returns (inputs, allow table); 4000 points either way."""
+    if mode == "one_set":
+        eng, _ = _one_set_engine(dev, rng, "fixed")
+    else:
+        sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+                 None if mode == "fixed" else
+                 rng.uniform(0.03, 0.07, m).astype(np.float32))
+                for m in (2500, 1500)]
+        eng = _sets_engine(dev, sets, r=0.1 if mode == "fixed" else None,
+                           symmetric=mode == "symmetric",
+                           active=[(0, 0), (0, 1), (1, 0)])
+        if mode == "fixed":
+            eng.set_cell_size(0.05)   # a 25-window stencil
+    a, allow, _, _ = _active_inputs(eng)
+    return a, allow
+
+
+def _k5_on_k4(a, allow, q):
+    """K4's bits of these inputs, then K5 on them against its plain version
+    and, per block, summed against K4's counts; and split staging against
+    the fused kernel on every slot whose query searches the block."""
+    c4, bits, base = pairs.pairs_mask(a.desc, q, a.recs_t, a.n_win,
+                                      a.tiles_cap, a.cand_sets, allow,
+                                      **fp.active_args(a))
+    c5 = _k5_vs_plain(a, bits, base)
+    assert torch.equal(c5.sum(0), c4) and int(c4.sum()) > 0
+    (c_s, nb_s), (c_f, nb_f) = fp.run_pairs(a, q, allow=allow), \
+        fp.run_pairs(a, q)
+    live = (a.desc[:a.tiles_cap, pairs.FAT_COL] != 2).repeat_interleave(128)
+    q_set = q[pairs.F_SET].long()
+    allowed = torch.where(q_set >= 0, allow[q_set.clamp(min=0)], 0)
+    for b in range(len(a.k8s)):
+        on = live & ((allowed >> b) & 1).bool()
+        assert on.any()
+        slots = torch.nonzero(on).flatten()
+        assert torch.equal(c_s[b, slots], c_f[b, slots]), b
+        assert torch.equal(nb_s[b][slots // 128, :, slots % 128],
+                           nb_f[b][slots // 128, :, slots % 128]), b
+    return c5
+
+
+@pytest.mark.parametrize("mode", ["fixed", "variable", "symmetric",
+                                  "one_set"])
+def test_k5_streams_across_window_and_chunk_edges(dev, mode):
+    # K5 on K4's bits over test_k2_k4_streams_across_window_and_chunk_edges'
+    # windows (lengths 0, 1, 255, 256, 257; 25 short windows on a partial
+    # tile; all empty; 257 in the last place): rows slot for slot against
+    # the plain version and, per searched block, the fused kernel's
+    rng = np.random.default_rng(17)
+    a, allow = _stream_inputs(dev, rng, mode)
+    a = a._replace(desc=_window_desc(a, rng))
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
+    _k5_on_k4(a, allow, q)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "variable", "symmetric",
+                                  "one_set"])
+def test_k5_equals_plain_with_query_lanes_reversed(dev, mode):
+    # K4's bits of K1's tiles with their lanes reversed (sentinel lanes
+    # first on partial tiles), then K5 on them
+    rng = np.random.default_rng(19)
+    a, allow = _stream_inputs(dev, rng, mode)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
+    q = q.view(q.shape[0], a.tiles_cap, 128).flip(-1).reshape(q.shape) \
+        .contiguous()
+    _k5_on_k4(a, allow, q)
+
+
+@pytest.mark.parametrize("lane", [37, 127])
+def test_k5_one_lane_hits_a_whole_chunk_across_a_window_edge(dev, lane):
+    # synthetic bits: one query lane hits every row of one 256-row chunk of
+    # a tile's stream in whose middle one window ends and the next begins
+    # (all-one words for that lane, zero elsewhere), so the drain's groups
+    # cross the window edge with every bit of the lane's word set; the
+    # stream-edge windows of _window_desc, one set
+    rng = np.random.default_rng(27)
+    a, _ = _stream_inputs(dev, rng, "one_set")
+    a = a._replace(desc=_window_desc(a, rng))
+    n_rec = a.recs_t.shape[1]
+    base = pairs.mask_cand_base(a.desc, n_rec, a.n_win, a.tiles_cap)
+    _, lens = pairs.clipped_windows(a.desc, n_rec, a.n_win, a.tiles_cap)
+    ends = torch.cumsum(lens, 1).cpu()
+    total = ends[:, -1]
+    pick = None
+    for t in range(a.tiles_cap):
+        for e in ends[t, :-1].tolist():
+            c = e // 256
+            if e % 256 > 16 and (c + 1) * 256 <= int(total[t]):
+                pick = (t, c)
+                break
+        if pick:
+            break
+    assert pick is not None
+    t, c = pick
+    bits = torch.zeros((int(base[-1]), pairs.MASK_WORDS), dtype=torch.int32,
+                       device=dev)
+    rows = int(base[t]) + 256 * c + torch.arange(256, device=dev)
+    bits[rows, lane // 32] = int(np.uint32(1 << (lane % 32)).view(np.int32))
+    # caps below, at and past the 32 entries a thread stages in shared
+    # memory (past them the entries go straight to the row)
+    for k8s in ((8,), (32,), (80,), (264,)):
+        counts = _k5_vs_plain(a, bits, base, k8s=k8s)[0].view(-1, 128)
+        assert int(counts[t, lane]) == 256 and int(counts.sum()) == 256
+
+
 # ------------------------------------------ the candidate streams of K2a/K3
 def fn_count_density(e):
     """The neighbor count and a poly6 density at h = 0.1 (n_out = 2)."""
@@ -766,9 +879,18 @@ def test_k2a_k3_one_lane_hits_a_whole_chunk(dev):
         assert int(counts.sum()) == int(counts[5])
 
 
+def _k5_launch(lib, p, n_win, bits):
+    """K5's launcher on dummy buffers (one block, k8 = 8): its error."""
+    return lib.tns_pairs_nbrs_from_bits(
+        p, p, 1, 1, n_win, bits, 1, p, 1, pairs.set_ids_arg((0,)),
+        pairs.set_ids_arg((0,)), pairs.set_ids_arg((8,)),
+        (ctypes.c_void_p * 1)(p), p, None)
+
+
 def test_k2a_k3_launchers_refuse_window_counts_outside_1_to_49(dev):
     # the stream's tables hold 64 windows: a window count outside [1, 49]
-    # is refused (cudaErrorInvalidValue) before any launch
+    # is refused (cudaErrorInvalidValue) before any launch, by K2a, K3 and
+    # K5
     lib = pairs.load_library().lib
     k3 = red.reduce_library(red.ReduceSpec(fn_count_density, 2), False).lib
     p = torch.zeros(8, dtype=torch.int32, device=dev).data_ptr()
@@ -778,6 +900,30 @@ def test_k2a_k3_launchers_refuse_window_counts_outside_1_to_49(dev):
         assert k3.tns_pairs_reduce(p, p, p, 1, 1, n_win, 0.01, 0, 1,
                                    pairs.set_ids_arg((0,)), p, 1, p,
                                    None) == 1
+        assert _k5_launch(lib, p, n_win, p) == 1
+
+
+def test_k5_refuses_bits_off_a_16_byte_boundary(dev):
+    # K5 copies its bit rows 16 bytes at a time: bits that do not start on
+    # a 16-byte boundary are refused by the wrapper and by the launcher
+    lib = pairs.load_library().lib
+    buf = torch.zeros(64, dtype=torch.int32, device=dev)
+    p = buf.data_ptr()
+    assert _k5_launch(lib, p, 9, p + 4) == 1
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(29)
+    eng = _sets_engine(dev, [(rng.uniform(0, 1, (500, 3))
+                              .astype(np.float32), None)], r=0.1)
+    a, _, _, _ = _active_inputs(eng)
+    base = pairs.mask_cand_base(a.desc, a.recs_t.shape[1], a.n_win,
+                                a.tiles_cap)
+    flat = torch.zeros(int(base[-1]) * 4 + 1, dtype=torch.int32, device=dev)
+    before = pairs.pairs_nbrs_from_bits.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        pairs.pairs_nbrs_from_bits(a.desc, a.recs_t, flat[1:].view(-1, 4),
+                                   base, a.n_win, a.tiles_cap, a.cand_sets,
+                                   a.cand_offsets, a.k8s)
+    assert pairs.pairs_nbrs_from_bits.launches == before
 
 
 # ------------------------------------------------------- K1r, fallbacks

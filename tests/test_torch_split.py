@@ -18,7 +18,10 @@ numpy oracle.
   are 0 under split staging and filled by the fused kernel, so nothing
   else is compared.
 - **Engine.** ``TreeNSearch(device="cpu").set_split_stage(True)`` against
-  the oracle; the CUDA route raises without nvcc.
+  the oracle; the CUDA route raises without nvcc.  The 25 small shapes of
+  ``tests/test_edge_cases.py::test_combinatorial_small_sets`` (empty sets,
+  the 127/128/129 and 255-257 tile edges) through the fused ``run()`` and
+  then split staging, both against the oracle.
 
 Tolerance: none; counts, rows and sets are exact.
 """
@@ -34,6 +37,8 @@ from test_torch_reduce import (ACTIVE, R, SIZES, _port_engine, _split,
 from treensearch_tpu.config import SearchConfig as JaxConfig
 from treensearch_tpu.ops import fastpath as jfp
 from treensearch_tpu.ops.grid import fresh_state as jax_fresh_state
+from treensearch_tpu.oracle import BruteforceNSearch
+from treensearch_tpu_torch import TreeNSearch
 from treensearch_tpu_torch.config import SearchConfig
 from treensearch_tpu_torch.ops import fastpath as tfp
 from treensearch_tpu_torch.ops import pairs as tpp
@@ -282,3 +287,33 @@ def test_engine_split_stage_variable_symmetric_vs_oracle():
     for k in range(200):
         assert np.array_equal(np.sort(nbrs[k, :counts[k]].numpy()),
                               np.nonzero(m[k])[0]), k
+
+
+# tests/test_edge_cases.py:13-22
+SMALL_SETS = [(0,), (1,), (2,), (7,), (16,), (17,), (127,), (128,), (129,),
+              (255,), (256,), (257,), (128, 128), (0, 0), (0, 5), (5, 0),
+              (1, 1), (9, 16), (100, 3), (128, 1), (127, 2), (31, 97),
+              (0, 1, 100), (4, 0, 9), (126, 1, 2)]
+
+
+@pytest.mark.parametrize("counts", SMALL_SETS, ids=str)
+def test_small_sets_fused_then_split_vs_oracle(counts):
+    # the reference's combinatorial stress test, reduced: every set
+    # searches every set at r = 0.3, on the same data as the JAX test
+    rng = np.random.default_rng(sum(counts) + len(counts))
+    sets = [rng.uniform(0, 1, (c, 3)).astype(np.float32) for c in counts]
+    orc = BruteforceNSearch(search_radius=0.3)
+    eng = TreeNSearch(device="cpu")
+    for pts in sets:
+        orc.add_point_set(pts)
+        eng.add_point_set(pts)
+    orc.set_all_searches(True)
+    eng.set_search_radius(0.3)
+    eng.set_all_searches(True)
+    orc.run()
+    eng.run()
+    orc.compare(eng)
+    eng.set_split_stage(True)
+    eng.run()
+    assert eng._knobs().split_stage
+    orc.compare(eng)

@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -125,7 +126,7 @@ struct Blocks {
 };
 
 // ---------------------------------------------------------------------------
-// The candidate stream of a tile (K2a-K2c, K4; csrc/reduce.cu keeps its own
+// The candidate stream of a tile (K2a-K2c, K4, K5; csrc/reduce.cu keeps its
 // copy for K3).  The tile's n_win windows, each clipped to the records as
 // every kernel clips them, are read as one stream in window order: stream
 // index k lies in window w when pre[w] <= k < pre[w + 1] (pre: the exclusive
@@ -187,6 +188,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const int* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
                : "memory");
 }
+// One 16-byte copy, bypassing L1 (K5's bit rows, 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const int4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -203,8 +211,22 @@ __device__ __forceinline__ float d2_rn(float cx, float cy, float cz, float qx,
                    __fmul_rn(dz, dz));
 }
 
+// -1 past count in a thread's row of k8 entries (stride TILE), the warp's
+// 32 lanes entry by entry from their smallest count, so that each store is
+// one 128-byte line: a loop per lane strides 512 bytes between its stores
+// and half writes a line with each.  The whole warp calls it.
+__device__ __forceinline__ void fill_tail(int* row, int count, int k8) {
+  int k0 = min(count, k8);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    k0 = min(k0, __shfl_xor_sync(FULL, k0, off));
+  for (int k = k0; k < k8; ++k)
+    if (k >= count) row[(size_t)k * TILE] = -1;
+}
+
 constexpr int UNROLL = 4;   // K2b/K2c tests per hit check
-constexpr int WORD = 32;    // K2a tests per hit word; chunks pad to it
+constexpr int WORD = 32;    // K2a tests per hit word, K5 rows per group
+constexpr int STAGED = 32;  // K5 row entries a thread stages in shared memory
 
 // K2a, K2b and K2c -- replace make_pairs_call in neighbor-list mode
 // (treensearch_tpu/ops/pallas_pairs.py:445): K2a at a fixed radius with one
@@ -436,15 +458,8 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     __syncthreads();
   }
   if constexpr (ONE_SET) {
-    // -1 past each count, the warp's 32 lanes entry by entry from the
-    // smallest count, so that each store is one 128-byte line
     blk.counts[slot] = count;
-    int k0 = min(count, k8_1);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      k0 = min(k0, __shfl_xor_sync(FULL, k0, off));
-    for (int k = k0; k < k8_1; ++k)
-      if (k >= count) row[(size_t)k * TILE] = -1;
+    fill_tail(row, count, k8_1);
   } else {
     for (int b = 0; b < n_blocks; ++b) {
       const int n = s_cnt[b * TILE + l];
@@ -647,93 +662,217 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
 // computes what the JAX pass 2 computes (unpack the hits, read each
 // candidate's orig and set, append to its block); the pack phases,
 // compaction networks and MXU prefixes there exist because a TPU lane
-// cannot append.  K2's schedule: one block of 128 threads per tile, one
-// query lane per thread, the tile's clipped windows walked in order in
-// CHUNK-row passes.  Each pass stages coalesced the rows' 4 bit words
-// (contiguous from cand_base[t] + k) and each candidate's orig and block
-// index (its set looked up once); each thread tests bit l % 32 of word
-// l / 32 and appends orig - offset[b] to its own row of block b while
-// that block's count is below its k8, counting on past the cap.  The
-// rows come out in window order, K2's order, so an active pair's rows
-// equal the fused kernel's slot for slot.  No distance arithmetic.  Rows
-// at or past n_bits_rows read as zero.  Dead tiles return at once.
-// Bound: memory, the bits (16 B per candidate row) and the candidates'
-// orig and set read once, the rows written.
-__global__ void __launch_bounds__(TILE)
+// cannot append.  One block of 128 threads per tile, query lane l on
+// thread l: each hit of lane l on a candidate of block b appends orig -
+// offset[b] to the lane's own row of block b while its count is below
+// k8[b], counting on past the cap.  The hits come in window order, K2's
+// order, so an active pair's rows equal the fused kernel's slot for slot.
+// Rows at or past n_bits_rows read as zero; a candidate whose set is no
+// block's is dropped.  No distance arithmetic.
+//
+// Bound: memory: the bits (16 B per candidate row) and each candidate's
+// orig and set read once, the counts and every block's rows (k8 x 128
+// ints per tile, written whole) written.  The design this replaces
+// (1.2159-1.2328 ms at config 1 on the H100) walked the windows one by
+// one, at least n_win passes (9 at config 1, 25 at config 4) of mostly one
+// partial 256-row chunk, with plain 4-byte loads and two barriers each and
+// nothing in flight while it tested; every lane then made a shared load, a
+// bit test and a divergent branch per candidate row (1.4e9 lane steps at
+// config 1, 2.3% of them hits), and filled its rows' -1 tails with a loop
+// of its own.  This design:
+//   * reads the tile's clipped windows as one stream (tile_stream) cut into
+//     CHUNK-row chunks that cross window edges, double-buffered as K2's:
+//     chunk c + 1 is copied while chunk c drains, one barrier per chunk;
+//   * copies a chunk's bit rows, one contiguous run from cand_base[t] whose
+//     rows are 16-byte aligned, with one 16-byte cp.async per row (rows at
+//     or past n_bits_rows and slots past the stream are zeroed), and
+//     gathers each candidate's orig and set with 4-byte cp.async; after the
+//     wait each thread turns its own candidates' sets into block indices
+//     and origs into set-local indices, and clears the bit row of a
+//     candidate in no block, so the drain checks nothing;
+//   * drains each 32-row group per warp: lane i reads word w (its warp's)
+//     of row j0 + i, transpose32 (K4's) hands lane l the word whose bit u
+//     says that query 32 w + l hits row j0 + u, and the thread walks its
+//     set bits lowest first: about one instruction per (lane, candidate)
+//     where each lane loaded, tested and branched; a group that no lane of
+//     the warp hits skips the transpose.  The reads conflict 4 ways on the
+//     banks (4 wavefronts per group and warp); a word-major copy of the
+//     rows, conflict-free but one more shared pass, was slower;
+//   * stages each thread's first stage_e entries of every block (STAGED
+//     entries a thread in all, 16 KB of dynamic shared memory a tile) and
+//     writes them out at the end one 128-byte line per entry and warp, -1
+//     past each count, then the tails past them with fill_tail; only a
+//     count past stage_e stores straight to its row.  A hit stored straight
+//     to its lane's row lands 512 bytes from its neighbour's and
+//     half-writes a sector: with every hit stored so, K5 took 0.91 ms at
+//     config 1 on the H100, 0.31 ms with 32 entries staged (16 to 80
+//     measured: 32 and 40 were fastest), 0.23 ms with no hit stored;
+//   * ONE_SET (one block, as config 1's split run()): the count stays in a
+//     register; several blocks keep their counts, k8 and row bases in
+//     shared memory, indexed by the hit's block directly, as K2b does;
+//   * shared memory (about 29 KB a tile) holds it to 7 resident blocks per
+//     SM; __launch_bounds__ asks for 12 (at most 40 registers, no spills),
+//     and 8 or 16 measured the same.
+// Dead tiles return at once (their rows are undefined).
+template <bool ONE_SET>
+__global__ void __launch_bounds__(TILE, 12)
 pairs_nbrs_from_bits_kernel(const int* __restrict__ desc,
                             const int* __restrict__ recs_t, int n_rec,
                             int tiles_cap, int n_win,
-                            const int* __restrict__ bits,
+                            const int4* __restrict__ bits,
                             long long n_bits_rows,
                             const long long* __restrict__ cand_base,
-                            Blocks blk) {
-  __shared__ unsigned sw[CHUNK * (TILE / 32)];
-  __shared__ int so[CHUNK];
-  __shared__ int sb[CHUNK];
+                            Blocks blk, int stage_e) {
+  constexpr int WORDS = TILE / 32;   // bit words per candidate row
+  __shared__ int4 s_bits[2][CHUNK];
+  __shared__ int2 s_id[2][CHUNK];    // (orig, set), then (index, block)
+  __shared__ int s_start[64];
+  __shared__ int s_pre[65];
+  __shared__ int* s_nbrs[MAX_BLOCKS];
+  __shared__ int s_k8[MAX_BLOCKS];
+  // several blocks' counts [n_blocks][TILE], then the staged entries
+  // [n_blocks][stage_e][TILE]
+  extern __shared__ int s_dyn[];
 
   const int t = blockIdx.x;
   const int l = threadIdx.x;
+  const int lane = l & 31;
+  const int warp = l >> 5;
   const int* d = desc + (size_t)t * DESC_W;
   const size_t n_slots = (size_t)tiles_cap * TILE;
   const size_t slot = (size_t)t * TILE + l;
+  const int n_blocks = ONE_SET ? 1 : blk.n_blocks;
   if (d[FAT_COL] == 2) {  // dead tile: uniform across the block
-    for (int b = 0; b < blk.n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
+    for (int b = 0; b < n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
     return;
   }
-  const int* ro = recs_t + F_ORIG * (size_t)n_rec;
-  const int* rs = recs_t + F_SET * (size_t)n_rec;
-  const int word = l >> 5;
-  const unsigned lane_bit = 1u << (l & 31);
-  const long long n_words = n_bits_rows * (TILE / 32);
-
-  int cnt[MAX_BLOCKS];
+  int* const s_cnt = s_dyn;
+  int* const s_rows = s_dyn + (ONE_SET ? 0 : n_blocks * TILE);
+  tile_stream(d, n_rec, n_win, s_start, s_pre);
+  if constexpr (!ONE_SET) {
 #pragma unroll
-  for (int b = 0; b < MAX_BLOCKS; ++b) cnt[b] = 0;
-  long long row = cand_base[t];
-  for (int w = 0; w < n_win; ++w) {
-    const int s = d[w];
-    const int ln = (s < 0 || s > n_rec) ? 0 : min(d[LENS_OFF + w], n_rec - s);
-    for (int c0 = 0; c0 < ln; c0 += CHUNK) {
-      const int m = min(CHUNK, ln - c0);
-      const long long w0 = row * (TILE / 32);
-      for (int k = l; k < m * (TILE / 32); k += TILE)
-        sw[k] = (w0 + k < n_words) ? (unsigned)bits[w0 + k] : 0u;
-      for (int j = l; j < m; j += TILE) {
-        const size_t src = (size_t)s + c0 + j;
-        so[j] = ro[src];
-        const int set = rs[src];
-        int bi = -1;
-#pragma unroll
-        for (int b = 0; b < MAX_BLOCKS; ++b)
-          if (b < blk.n_blocks && set == blk.set_of[b]) bi = b;
-        sb[j] = bi;
+    for (int b = 0; b < MAX_BLOCKS; ++b) {
+      if (b == l && b < n_blocks) {
+        s_nbrs[b] = blk.nbrs[b];
+        s_k8[b] = blk.k8[b];
       }
-      __syncthreads();
-      for (int j = 0; j < m; ++j) {
-        const int bi = sb[j];
-        if ((sw[j * (TILE / 32) + word] & lane_bit) && bi >= 0) {
-          const int o = so[j];
+    }
+    for (int b = 0; b < n_blocks; ++b) s_cnt[b * TILE + l] = 0;
+  }
+  // ONE_SET: the thread's row, staged entries and count
+  const int k8_1 = ONE_SET ? blk.k8[0] : 0;
+  const int e_1 = min(k8_1, stage_e);
+  int* const row = blk.nbrs[0] + (size_t)t * k8_1 * TILE + l;
+  int count = 0;
+  const long long base = cand_base[t];
+  __syncthreads();
+  const int total = s_pre[n_win];
+  const int n_chunks = (total + CHUNK - 1) / CHUNK;
+  int cur = 0;   // this thread's window cursor while staging
+
+  // Chunk c into buffer buf: each thread copies the bit row and gathers
+  // the orig and set of stream indices c * CHUNK + l + h * TILE.
+  auto stage = [&](int c, int buf) {
 #pragma unroll
-          for (int b = 0; b < MAX_BLOCKS; ++b) {
-            if (b == bi) {
-              if (cnt[b] < blk.k8[b])
-                blk.nbrs[b][((size_t)t * blk.k8[b] + cnt[b]) * TILE + l] =
-                    o - blk.offset[b];
-              ++cnt[b];
-            }
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      const int k = c * CHUNK + j;
+      const long long r = base + k;
+      if (k < total && r >= 0 && r < n_bits_rows)
+        cp_async16(&s_bits[buf][j], bits + r);
+      else
+        s_bits[buf][j] = make_int4(0, 0, 0, 0);
+      if (k < total) {
+        const size_t src = stream_record(s_start, s_pre, k, cur);
+        cp_async4(&s_id[buf][j].x, recs_t + F_ORIG * (size_t)n_rec + src);
+        cp_async4(&s_id[buf][j].y, recs_t + F_SET * (size_t)n_rec + src);
+      }
+    }
+    cp_async_commit();
+  };
+  // After the wait, for this thread's own slots: (set-local index, block)
+  // for a candidate of a block, a zero bit row for any other.
+  auto finish = [&](int c, int buf) {
+    cp_async_wait_all();
+#pragma unroll
+    for (int h = 0; h < CHUNK / TILE; ++h) {
+      const int j = h * TILE + l;
+      if (c * CHUNK + j < total) {
+        const int2 id = s_id[buf][j];
+        int bi = -1, off = 0;
+#pragma unroll
+        for (int b = 0; b < MAX_BLOCKS; ++b) {
+          if (b < n_blocks && id.y == blk.set_of[b]) {
+            bi = b;
+            off = blk.offset[b];
           }
         }
+        if (bi < 0)
+          s_bits[buf][j] = make_int4(0, 0, 0, 0);
+        else
+          s_id[buf][j] = make_int2(id.x - off, bi);
       }
-      __syncthreads();
-      row += m;
     }
+  };
+  // the hit work of this thread's query on row j of buffer buf: its entry
+  // staged, or past the staged ones straight to the row
+  auto append = [&](int buf, int j) {
+    const int2 id = s_id[buf][j];
+    if constexpr (ONE_SET) {
+      if (count < e_1)
+        s_rows[count * TILE + l] = id.x;
+      else if (count < k8_1)
+        row[(size_t)count * TILE] = id.x;
+      ++count;
+    } else {
+      int* cnt = &s_cnt[id.y * TILE + l];
+      const int n = *cnt;
+      const int k8 = s_k8[id.y];
+      if (n < min(k8, stage_e))
+        s_rows[(id.y * stage_e + n) * TILE + l] = id.x;
+      else if (n < k8)
+        s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] = id.x;
+      *cnt = n + 1;
+    }
+  };
+  // A block's row out: the staged entries (-1 past the count) line by line
+  // across the warp, then -1 past the count beyond them.
+  auto flush = [&](int* out, const int* staged, int n, int k8) {
+    const int e = min(k8, stage_e);
+    for (int k = 0; k < e; ++k)
+      out[(size_t)k * TILE] = k < n ? staged[k * TILE + l] : -1;
+    fill_tail(out, max(n, e), k8);
+  };
+
+  if (n_chunks > 0) {
+    stage(0, 0);
+    finish(0, 0);
   }
-#pragma unroll
-  for (int b = 0; b < MAX_BLOCKS; ++b) {
-    if (b < blk.n_blocks) {
-      blk.counts[b * n_slots + slot] = cnt[b];
-      int* out = blk.nbrs[b] + (size_t)t * blk.k8[b] * TILE + l;
-      for (int k = cnt[b]; k < blk.k8[b]; ++k) out[(size_t)k * TILE] = -1;
+  __syncthreads();
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) stage(c + 1, buf ^ 1);
+    const int m = min(CHUNK, total - c * CHUNK);
+    const unsigned* words = reinterpret_cast<const unsigned*>(s_bits[buf]);
+    // warp-uniform groups: every lane takes part in the transpose
+    for (int j0 = 0; j0 < m; j0 += WORD) {
+      const unsigned x = words[(j0 + lane) * WORDS + warp];
+      if (!__any_sync(FULL, x)) continue;
+      for (unsigned hits = transpose32(x, lane); hits; hits &= hits - 1)
+        append(buf, j0 + __ffs(hits) - 1);
+    }
+    if (c + 1 < n_chunks) finish(c + 1, buf ^ 1);
+    __syncthreads();
+  }
+  if constexpr (ONE_SET) {
+    blk.counts[slot] = count;
+    flush(row, s_rows, count, k8_1);
+  } else {
+    for (int b = 0; b < n_blocks; ++b) {
+      const int n = s_cnt[b * TILE + l];
+      blk.counts[b * n_slots + slot] = n;
+      flush(s_nbrs[b] + (size_t)t * s_k8[b] * TILE + l,
+            s_rows + b * stage_e * TILE, n, s_k8[b]);
     }
   }
 }
@@ -863,7 +1002,10 @@ extern "C" int tns_pairs_nbrs_from_bits(const int* desc, const int* recs_t,
                                         const int* offset, const int* k8,
                                         int* const* nbrs, int* counts,
                                         void* stream) {
-  if (n_blocks < 1 || n_blocks > MAX_BLOCKS)
+  // bits: rows of 16 bytes, copied whole; the stream's tables hold 64
+  // windows
+  if (n_blocks < 1 || n_blocks > MAX_BLOCKS || n_win < 1 || n_win > MAX_WIN ||
+      reinterpret_cast<uintptr_t>(bits) % sizeof(int4) != 0)
     return (int)cudaErrorInvalidValue;
   Blocks blk{};
   blk.n_blocks = n_blocks;
@@ -875,10 +1017,22 @@ extern "C" int tns_pairs_nbrs_from_bits(const int* desc, const int* recs_t,
   }
   blk.counts = counts;
   if (tiles_cap > 0) {
-    pairs_nbrs_from_bits_kernel<<<tiles_cap, TILE, 0,
-                                  (cudaStream_t)stream>>>(
-        desc, recs_t, n_rec, tiles_cap, n_win, bits, n_bits_rows, cand_base,
-        blk);
+    cudaStream_t st = (cudaStream_t)stream;
+    const int4* rows = reinterpret_cast<const int4*>(bits);
+    // the staged entries split evenly over the blocks; several blocks
+    // also keep their counts there
+    const int stage_e = STAGED / n_blocks;
+    const size_t smem = (size_t)(n_blocks > 1 ? n_blocks : 0) * TILE *
+                            sizeof(int) +
+                        (size_t)n_blocks * stage_e * TILE * sizeof(int);
+    auto kernel = n_blocks == 1 ? pairs_nbrs_from_bits_kernel<true>
+                                : pairs_nbrs_from_bits_kernel<false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<tiles_cap, TILE, smem, st>>>(desc, recs_t, n_rec, tiles_cap,
+                                          n_win, rows, n_bits_rows,
+                                          cand_base, blk, stage_e);
   }
   return (int)cudaGetLastError();
 }

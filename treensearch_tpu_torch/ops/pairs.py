@@ -834,6 +834,9 @@ def pairs_nbrs_from_bits(desc: torch.Tensor, recs_t: torch.Tensor,
         return pairs_nbrs_from_bits_plain(desc, recs_t, bits, cand_base,
                                           n_win, tiles_cap, *blocks)
     lib = _cuda_lib(desc)
+    if bits.data_ptr() % (4 * MASK_WORDS):
+        raise ValueError("bits must start on a 16-byte boundary (the "
+                         "kernel copies its rows whole)")
     counts, nbrs, args = _block_outputs(blocks, tiles_cap, desc.device)
     stream = torch.cuda.current_stream(desc.device).cuda_stream
     err = lib.tns_pairs_nbrs_from_bits(
