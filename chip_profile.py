@@ -16,8 +16,11 @@ in ``chip_smoke.py``'s paths; and for config 1's ``run()`` and
 ``make_step_fn(reuse=True)`` step at static positions (the carry reused,
 no prep); and for the fallbacks, config 1's ``run()`` on the tile path
 (``set_use_pallas(False)``), ten candidate sets (config 3's boundary as
-9 rigid bodies) and config 1's ``run_scalar()``, each moving, after two
-settling calls, it prints:
+9 rigid bodies) and config 1's ``run_scalar()``, each moving; and for
+z-sort at config 1, ``prepare_zsort`` on the cell path (after a
+``run()``) and on the per-point path (no run) and ``apply_zsort_batch``
+of ``chip_smoke.py``'s eight arrays; after two settling calls, it
+prints:
 
 - the call's host time, synchronised, median over 10 calls;
 - ``torch.profiler``'s device time over 5 calls, by kernel name and per
@@ -182,7 +185,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chip_smoke import (N_BODIES, bodies_engine, card_line, config3_data,
                             config3_engine, config4_data, config4_engine,
-                            density_fn, make_engine)
+                            density_fn, make_engine, zsort_arrays)
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -232,6 +235,18 @@ def main() -> int:
     scalar = make_engine(pts, RADIUS)
     profile(scalar, "config 1 run_scalar()", card, call=scalar.run_scalar,
             kernel="")
+    del scalar
+    cell = make_engine(pts, RADIUS)
+    cell.run()
+    profile(cell, "config 1 prepare_zsort(), cell path", card,
+            call=cell.prepare_zsort, kernel="", moving=False)
+    point = make_engine(pts, RADIUS)
+    profile(point, "config 1 prepare_zsort(), per-point path", card,
+            call=point.prepare_zsort, kernel="", moving=False)
+    arrays, strides = zsort_arrays(pts)
+    profile(cell, f"config 1 apply_zsort_batch ({len(arrays)} arrays)", card,
+            call=lambda: cell.apply_zsort_batch(0, arrays, strides),
+            kernel="", moving=False)
     return 0
 
 

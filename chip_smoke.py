@@ -93,6 +93,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    pipeline (a cKDTree sample); ``set_scalar_double_accum`` on a small
    cloud against float64 and float32 numpy predicates.  No kernel
    launches on the pipeline.
+15. z-sort and the diagnostics at config 1: ``run()``, ``prepare_zsort``
+   (the cell path, asserted), ``apply_zsort_batch`` of 8 arrays of 1M
+   rows (the positions, a float32 velocity, density and mass, a float64
+   and an int64 array, an int32 id, a flat float32 array of stride 3),
+   each bit-exact against a host ``np.take``, and ``run()`` on the
+   reordered positions (K1 and K2a in each run): 32,759,462 pairs, and a
+   20k sample's neighbor sets mapped through the order equal to the
+   unsorted run's; the per-point order on the card equal to the CPU's;
+   ``make_zsort_step`` over config 3's two sets and a third (2 arrays
+   each) equal to ``prepare_zsort``'s per-point orders; ``print_state``
+   and ``profile_run`` (its trace names K1 and K2a); ``prepare_zsort``
+   on both paths, the batch, the step and ``run()`` before and after the
+   reorder (carried and rebuilt), timed, medians of 5, printed only.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
@@ -155,6 +168,7 @@ N_WIDE = 50_000         # phase 14: radii uniform in R_WIDE, cell 1.5 r_min
 R_WIDE = (0.02, 0.1)
 N_CLUSTER = 50_000      # phase 14: points per cluster of the sparse cloud
 BOX_CELLS = 1000        # ... at opposite corners of a box this many cells
+N_ZSORT_EXTRA = 50_000  # phase 15: the third set beside config 3's two
 
 
 # ------------------------------------------------ the reduce callbacks
@@ -1737,6 +1751,172 @@ def run_pipeline_path(pts_t, card: str, data4: tuple) -> dict:
     return out
 
 
+def zsort_arrays(pts_t) -> tuple:
+    """Phase 15's eight per-point arrays of one set of n points (BASELINE
+    config 5's "zsort of 8 user arrays"): the positions, a float32
+    velocity (n, 3), float32 density and mass, a float64 and an int64
+    array whose values a 32-bit gather would corrupt, an int32 id and a
+    flat float32 (3n,) array of stride 3, made on the card from
+    ``default_rng(4)``'s seed; and their strides."""
+    import torch
+    dev = pts_t.device
+    n = pts_t.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    ids = torch.arange(n, device=dev, dtype=torch.int64)
+    arrays = [pts_t, rand(n, 3), rand(n), rand(n) + 0.5,
+              rand(n, dtype=torch.float64) + 2.0 ** -40,
+              (ids << 33) + 7, ids.to(torch.int32), rand(3 * n)]
+    return arrays, [1] * 7 + [3]
+
+
+def run_zsort_path(pts_t, card: str, data3: tuple) -> dict:
+    """Phase 15: z-sort and the diagnostics at config 1.  ``run()``, then
+    ``prepare_zsort`` on the cell path, the eight arrays reordered by
+    ``apply_zsort_batch`` and ``run()`` on the reordered positions, with
+    every kernel's count set to 0 just before and read just after (K1
+    and K2a in each run, no other); the arrays bit-exact against a host
+    ``np.take``, the pair total and a sample's neighbor sets mapped
+    through the order equal to the unsorted run's; the per-point order on
+    the card equal to the CPU's; ``make_zsort_step`` over config 3's sets
+    and one more (``data3``) equal to ``prepare_zsort``'s per-point
+    orders; ``print_state`` and ``profile_run`` (the trace names K1 and
+    K2a); the timings."""
+    import tempfile
+
+    import torch
+    from treensearch_tpu_torch import TreeNSearch
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import zsort as zs
+    dev = pts_t.device
+    n = pts_t.shape[0]
+    arrays, strides = zsort_arrays(pts_t)
+    eng = make_engine(pts_t, RADIUS)
+    got = {}
+
+    def zsort_path():
+        eng.run()
+        got["before"] = eng.get_neighbors(0, 0)
+        carry = eng._fast_carry
+        eng.prepare_zsort()
+        w = eng._last_stats["stencil_w"]
+        nc = eng._grid_state.n_cells
+        got["cell"] = zs.zsort_orders_from_cells(
+            [carry.lin_chk], nc[1] + 2 * w, nc[2] + 2 * w)[0]
+        got["order"] = eng._zsort_maps[0]
+        got["sorted"] = eng.apply_zsort_batch(0, arrays, strides)
+        eng.resize_point_set(0, got["sorted"][0])
+        eng.run()
+
+    launches = _path_launches(zsort_path, "z-sort", (
+        pairs.expand_query_tiles, pairs.pairs_nbrs_fixed))
+    order = got["order"]
+    if not torch.equal(order, got["cell"]):
+        raise AssertionError("z-sort: prepare_zsort did not take the cell "
+                             "path after run()")
+    order_h = order.cpu().numpy()
+    for k, (a, st, b) in enumerate(zip(arrays, strides, got["sorted"])):
+        rows = a.cpu().numpy().reshape(n, -1 if st == 1 else st)
+        want = np.take(rows, order_h, axis=0).reshape(tuple(a.shape))
+        if b.dtype != a.dtype or b.device != a.device \
+                or not np.array_equal(b.cpu().numpy(), want):
+            raise AssertionError(f"z-sort: array {k} ({a.dtype}) differs "
+                                 "from a host np.take")
+    print(f"z-sort: cell path; {len(arrays)} arrays "
+          f"({', '.join(str(a.dtype).replace('torch.', '') for a in arrays)}"
+          f") bit-exact against a host np.take; launches {launches}",
+          flush=True)
+
+    counts, nbrs = eng.get_neighbors(0, 0)
+    total = int(counts.sum(dtype=torch.int64))
+    if n == N and total != TPU_PAIRS_SEED0:
+        raise AssertionError(f"z-sort: {total} pairs after the reorder")
+    q = torch.as_tensor(np.sort(np.random.default_rng(2).choice(
+        n, min(N_SAMPLE, n), replace=False)), device=dev)
+    old = order[q].long()
+    rows = nbrs[q]
+    mapped = torch.where(rows >= 0, order[rows.clamp(min=0).long()], -1)
+    c_b, nb_b = got["before"]
+    equal_as_sets((counts[q], mapped), (c_b[old], nb_b[old]),
+                  "z-sort sample")
+    print(f"z-sort: run() on the reordered points {total} pairs; "
+          f"{q.numel()} sampled neighbor sets, mapped through the order, "
+          "equal to the unsorted run's", flush=True)
+
+    point = TreeNSearch(device=dev)
+    point.add_point_set(pts_t)
+    host = TreeNSearch(device="cpu")
+    host.add_point_set(pts_t.cpu())
+    for e in (point, host):
+        e.prepare_zsort()
+    if not np.array_equal(point.get_zsort_order(0), host.get_zsort_order(0)):
+        raise AssertionError("z-sort: the per-point order on the card "
+                             "differs from the CPU's")
+    print("z-sort: per-point order on the card equal to the CPU's", flush=True)
+
+    extra = torch.rand((N_ZSORT_EXTRA, 3), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(5))
+    sets3 = list(data3) + [extra]
+    step = zs.make_zsort_step(len(sets3))
+    per_set = [[torch.ones_like(p), p[:, 0].clone()] for p in sets3]
+    s_orders, s_pts, s_arrs = step(sets3, per_set)
+    e3 = TreeNSearch(device=dev)
+    for p in sets3:
+        e3.add_point_set(p)
+    e3.prepare_zsort()
+    for k, (o, p, a) in enumerate(zip(s_orders, s_pts, s_arrs)):
+        if not (torch.equal(o, e3._zsort_maps[k])
+                and torch.equal(p, sets3[k][o.long()])
+                and torch.equal(a[1], sets3[k][o.long(), 0])):
+            raise AssertionError(f"make_zsort_step: set {k} differs from "
+                                 "prepare_zsort's per-point order")
+    print(f"make_zsort_step: {len(sets3)} sets "
+          f"({', '.join(str(p.shape[0]) for p in sets3)} points, 2 arrays "
+          "each) equal to prepare_zsort's per-point orders", flush=True)
+
+    eng.print_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(eng.profile_run(tmp),
+                             "treensearch.pt.trace.json")
+        with open(trace) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(x for x in names if k in x)[:1]
+             for k in ("expand_query_tiles_kernel", "pairs_nbrs_kernel")}
+    print(f"profile_run: {found}", flush=True)
+    if dev.type == "cuda" and not all(found.values()):
+        raise AssertionError("profile_run: the trace names no K1 or K2a")
+
+    def prepare_point():
+        point.prepare_zsort()
+        sync(dev)
+
+    def prepare_cell():
+        eng.prepare_zsort()
+        sync(dev)
+
+    times = {
+        "prepare_zsort cell path": median_ms(prepare_cell, dev, reps=5),
+        "prepare_zsort per-point path": median_ms(prepare_point, dev, reps=5),
+        f"apply_zsort_batch ({len(arrays)} arrays)": median_ms(
+            lambda: eng.apply_zsort_batch(0, arrays, strides), dev, reps=5),
+        f"make_zsort_step ({len(sets3)} sets, 2 arrays each)": median_ms(
+            lambda: step(sets3, per_set), dev, reps=5)}
+    unsorted = make_engine(pts_t, RADIUS)
+    for label, e in (("before the reorder", unsorted),
+                     ("after the reorder", eng)):
+        e.run()
+        times[f"run() carried, {label}"] = median_ms(e.run, dev, reps=5)
+        e.set_coherence(False)
+        times[f"run() rebuilt, {label}"] = median_ms(e.run, dev, reps=5)
+    for label, ms in times.items():
+        print(f"z-sort timing: {label}: {ms:.4f} ms (median of 5, "
+              f"synchronised; {card})", flush=True)
+    return {"launches": launches, "ms": times}
+
+
 def build_all() -> None:
     """Phase 2: ``csrc/pairs.cu`` and K3 for each of CALLBACKS, one nvcc
     each, all started together."""
@@ -1849,6 +2029,7 @@ def main() -> int:
     k1r, main12 = run_tile_path(pts_t, card)                # phase 12
     main13 = run_bodies(*config3_data(dev), card)           # phase 13
     main14 = run_pipeline_path(pts_t, card, config4_data(dev))  # 14
+    run_zsort_path(pts_t, card, config3_data(dev))          # phase 15
     kernels += [k2b, k2c, k3, k4, k5, k1r]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,

@@ -16,7 +16,8 @@ legs equal, the others within 3e-5 of the sum of the terms' magnitudes
 (only the order of the float32 sum differs).  K1r: query tiles and
 padded records bit-equal.  The tile path and the search-based pipeline
 on the card: neighbor sets equal to brute force, and to the CPU engine's
-rows slot for slot.
+rows slot for slot.  Z-sort on the card: the per-point and
+cell-granular orders equal the CPU engine's bit for bit.
 """
 
 import ctypes
@@ -1005,3 +1006,34 @@ def test_ten_candidate_sets_on_card_equal_the_cpu(dev):
     for j in range(10):
         (c_g, n_g), (c_c, n_c) = (e.get_neighbors(0, j) for e in engines)
         assert torch.equal(c_g.cpu(), c_c) and torch.equal(n_g.cpu(), n_c)
+
+
+def test_zsort_orders_on_card_equal_the_cpu(dev):
+    # the per-point order (float32 quantization on the card) and the
+    # cell-granular order of a run() that rode the carry, for sets of a
+    # few thousand points and around one tile
+    rng = np.random.default_rng(9)
+    sets = [rng.uniform(0, 1, (m, 3)).astype(np.float32)
+            for m in (3000, 127, 128, 129)]
+    sets.append(rng.uniform(0.5, 1.5, (2000, 3)).astype(np.float32))
+    orders = []
+    for d in (dev, torch.device("cpu")):
+        eng = TreeNSearch(device=d)
+        for p in sets:
+            eng.add_point_set(torch.from_numpy(p).to(d))
+        eng.set_search_radius(0.05)
+        eng.set_all_searches(True)
+        eng.prepare_zsort()
+        point = [eng.get_zsort_order(k) for k in range(len(sets))]
+        eng.run()
+        assert eng._last_stats["carried"]
+        eng.prepare_zsort()
+        cell = [eng.get_zsort_order(k) for k in range(len(sets))]
+        orders.append(point + cell)
+        t = torch.from_numpy(sets[0]).to(d).double()
+        out = eng.apply_zsort(0, t)
+        assert out.device == t.device
+        assert np.array_equal(out.cpu().numpy(),
+                              sets[0].astype(np.float64)[cell[0]])
+    for g, c in zip(*orders):
+        assert g.dtype == np.int32 and np.array_equal(g, c)

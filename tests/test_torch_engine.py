@@ -10,14 +10,19 @@ XLA on the CPU may contract to FMA where eager PyTorch does not; such
 pairs are reported, and the lattice data must show none.
 """
 
+import json
 import warnings
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from helpers import grid_for_n
 from treensearch_tpu import TreeNSearch as JaxTreeNSearch
+from treensearch_tpu.config import SearchConfig as JaxConfig
+from treensearch_tpu.ops import fastpath as jfp
 from treensearch_tpu.oracle import BruteforceNSearch
 from treensearch_tpu_torch import NeighborList, NeighborSolution, TreeNSearch
 from treensearch_tpu_torch import api as tapi
@@ -274,9 +279,6 @@ def _wide_cell_stencil(eng):
 # (treensearch_tpu/api.py:667-690)
 FUSED_GATE = "requires the Pallas fast path"
 NOT_PORTED = {
-    "zsort": (lambda e: e.prepare_zsort(), "ROADMAP.md Queue 1 item 10"),
-    "apply_zsort": (lambda e: e.apply_zsort(0, np.zeros((5, 3))),
-                    "ROADMAP.md Queue 1 item 10"),
     # the device contracts need the fused route (here a 9-cell stencil)
     "run_reduce": (lambda e: (e.set_cell_size(0.05),
                               e.run_reduce(lambda env: env["d2"])),
@@ -287,9 +289,6 @@ NOT_PORTED = {
                    "ROADMAP.md Queue 1 item 14"),
     "mesh": (lambda e: TreeNSearch(device="cpu", mesh=object()),
              "ROADMAP.md Queue 1 item 14"),
-    "print_state": (lambda e: e.print_state(), "ROADMAP.md Queue 1 item 13"),
-    "profile_run": (lambda e: e.profile_run("trace"),
-                    "ROADMAP.md Queue 1 item 13"),
 }
 
 
@@ -500,3 +499,76 @@ def test_get_padded_equals_jax(engines, pair):
     for i in range(pad.shape[0]):
         assert sorted(pad[i, :counts[i]]) == sorted(jpad[i, :counts[i]])
         assert (pad[i, counts[i]:] == -1).all()
+
+
+# the numeric lines of print_state (treensearch_tpu/api.py:1202-1262)
+NUMERIC_LINES = ("  world box:", "  occupied cells:",
+                 "  points per occupied cell", "  candidate windows:",
+                 "  pair (", "  neighborlist bytes:")
+
+
+def _numeric_lines(eng, capsys):
+    eng.print_state()
+    out = capsys.readouterr().out
+    return [ln for ln in out.splitlines() if ln.startswith(NUMERIC_LINES)]
+
+
+def test_print_state_numeric_lines_equal_jax(engines, capsys):
+    """World box, occupancy, candidate windows, per-pair counts and list
+    bytes as the JAX engine prints them.  The JAX engine's run took its
+    tile path, which keeps no window histogram; its Pallas route would
+    store the carry's ``win_hist`` in ``_last_stats``
+    (``treensearch_tpu/api.py:596-597``), so it gets the histogram of the
+    JAX prep on the same points, grid and config."""
+    eng, jeng = engines
+    sizes = tuple(s.n for s in jeng._sets)
+    pts = jnp.asarray(np.concatenate([np.asarray(s.points) for s in
+                                      jeng._sets]))
+    jc = jax.jit(jfp._pallas_prep, static_argnames=("cfg", "knobs"))(
+        pts, None, jeng._grid_state,
+        cfg=JaxConfig(sizes, ((0, 0), (1, 0)), False, False, 1, 1024, 512,
+                      80),
+        knobs=jfp.FastKnobs(use_pallas=True, rec_expand=True, pack=8,
+                            lane_batch=True, dense_cap=1 << 14,
+                            tiles_cap=256))
+    jeng._last_stats["win_hist"] = np.asarray(jc.win_hist)
+    lines = _numeric_lines(eng, capsys)
+    kinds = [next(k for k in NUMERIC_LINES if ln.startswith(k))
+             for ln in lines]
+    assert kinds == list(NUMERIC_LINES[:5]) + ["  pair ("] \
+        + [NUMERIC_LINES[5]]
+    assert lines == _numeric_lines(jeng, capsys)
+
+
+def test_print_state_variable_radius_smoke(capsys):
+    # tests/test_step_fn.py::test_print_state_smoke on the port alone
+    rng = np.random.default_rng(2)
+    eng = TreeNSearch(device="cpu")
+    eng.add_point_set(rng.uniform(0, 1, (200, 3)).astype(np.float32),
+                      rng.uniform(0.05, 0.2, 200).astype(np.float32))
+    eng.add_point_set(rng.uniform(0, 1, (50, 3)).astype(np.float32),
+                      rng.uniform(0.05, 0.2, 50).astype(np.float32))
+    eng.set_all_searches(True)
+    eng.print_state()           # before any run: options and sets only
+    assert "world box" not in capsys.readouterr().out
+    eng.run()
+    eng.print_state()
+    out = capsys.readouterr().out
+    assert "world box" in out and "pair (0->0)" in out
+    assert "radius min/avg/max" in out and "neighborlist bytes" in out
+    assert "candidate windows" in out
+    eng.run_scalar()            # no carry behind this run: no windows
+    eng.print_state()
+    out = capsys.readouterr().out
+    assert "candidate windows" not in out and "pair (1->1)" in out
+
+
+def test_profile_run_writes_a_trace_on_the_cpu(tmp_path):
+    eng = _port(np.random.default_rng(0).uniform(0, 1, (400, 3))
+                .astype(np.float32), 0.1, run=False)
+    trace_dir = str(tmp_path / "trace")
+    assert eng.profile_run(trace_dir, n_steps=2) == trace_dir
+    trace = tmp_path / "trace" / "treensearch.pt.trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::sort" for e in events)
+    assert eng._solution is not None   # the settling run() happened

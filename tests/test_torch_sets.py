@@ -1,8 +1,9 @@
 """``TreeNSearch(device="cpu")`` of the port on several point sets and
 with per-point radii, against the numpy oracle (``BruteforceNSearch``) and
 the JAX ``TreeNSearch`` (its XLA tile path on the CPU), on the multi-set
-and variable-radius rows of ``test_correctness.py`` and the reference's
-fluid + boundary layout.
+and variable-radius rows of ``test_correctness.py``, the reference's
+fluid + boundary layout and 60 iterations of ``test_edge_cases.py``'s
+emitter churn.
 
 Tolerance: against the oracle, neighbor sets are exact (both round d^2
 and r^2 the same way in float32).  Against JAX, sets are exact except for
@@ -269,3 +270,31 @@ def test_radii_as_torch_tensors():
     _oracle([(pts, rad)]).compare(eng)
     assert eng._last_stats["cell_size"] == pytest.approx(1.5 * rad.min())
     assert eng._last_stats["stencil_w"] == 2
+
+
+def test_dynamic_emitter_churn():
+    # tests/test_edge_cases.py::test_dynamic_emitter_churn (reference
+    # dynamic_emitter_stress_test, tests.cpp:434-514), 60 of its 200
+    # iterations: both sets resized through its size schedule with fresh
+    # points every iteration, each run() against the oracle
+    rng = np.random.default_rng(11)
+    sizes0 = (40, 45, 39, 45, 40, 1, 40, 128)
+    sizes1 = (30, 30, 7, 30, 30, 30, 0, 30)
+    eng = TreeNSearch(device="cpu")
+    eng.add_point_set(np.zeros((sizes0[0], 3), np.float32))
+    eng.add_point_set(np.zeros((sizes1[0], 3), np.float32))
+    eng.set_search_radius(0.25)
+    eng.set_all_searches(True)
+    for it in range(60):
+        p0 = rng.uniform(0, 1, (sizes0[it % 8], 3)).astype(np.float32)
+        p1 = rng.uniform(0, 1, (sizes1[(it // 2) % 8], 3)).astype(
+            np.float32)
+        eng.resize_point_set(0, p0)
+        eng.resize_point_set(1, p1)
+        eng.run()
+        orc = BruteforceNSearch(search_radius=0.25)
+        orc.add_point_set(p0)
+        orc.add_point_set(p1)
+        orc.set_all_searches(True)
+        orc.run()
+        orc.compare(eng)

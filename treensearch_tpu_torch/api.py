@@ -19,14 +19,18 @@ Device rule: ``TreeNSearch(device="cuda")`` is the default and raises when
 CUDA is absent; the CPU runs only when asked for by name
 (``device="cpu"``), and then every kernel takes its plain PyTorch version.
 
-What the JAX package offers beyond this slice raises
-``NotImplementedError`` naming its item in ``ROADMAP.md`` Queue 1.
+Z-sort (``prepare_zsort``, ``apply_zsort[_batch]``, ``get_zsort_order``;
+the per-step ``ops.zsort.make_zsort_step``) and the diagnostics
+(``print_state``, ``profile_run``) are ported too.  Multi-GPU execution
+(``mesh=``, ``distribute``) raises ``NotImplementedError`` naming its item
+in ``ROADMAP.md`` Queue 1.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional
+import os
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,9 +42,11 @@ from .ops.fastpath import (MAX_STENCIL_W, FastKnobs, applicable,
                            build_and_search_fast_carry, contracts_applicable,
                            default_tiles_cap, make_fast_carry0)
 from .ops.grid import fresh_state
-from .ops.pairs import MAX_BLOCKS
+from .ops.pairs import LENS_OFF, MAX_BLOCKS
 from .ops.pipeline import build_and_search
 from .ops.reduce import ReduceSpec
+from .ops.zsort import (apply_order, world_box, zsort_orders,
+                        zsort_orders_from_cells)
 from .utils.keys import MAX_CELLS_PER_DIM
 
 _DEFAULT_NBR_CAP = 80
@@ -157,6 +163,7 @@ class TreeNSearch:
         self._carry_key = None     # ... and the (cfg, knobs) it was built at
         self._grid_state = fresh_state(dev)
         self._solution: Optional[NeighborSolution] = None
+        self._zsort_maps: Optional[List[torch.Tensor]] = None
         self._last_stats: dict = {}
         self._n_threads = 1        # stored for get_n_threads; one device
 
@@ -493,8 +500,9 @@ class TreeNSearch:
         and caps, so a regrow rebuilds it).  All flags come to the host in
         one read per attempt; ``_last_stats`` keeps the settled run's
         occupied cells, largest count (0 without neighbor lists), widest
-        cut window or candidate count (``cand_max``), cell size, stencil
-        and whether the structure was rebuilt."""
+        cut window or candidate count (``cand_max``), cell size, stencil,
+        whether the carry served it (``carried``, whose ``desc``
+        ``print_state`` reads) and whether the structure was rebuilt."""
         n = self.get_total_n_points()
         contract = mode.get("reduce") is not None or mode.get("mask", False)
         use_fast = fast
@@ -590,6 +598,7 @@ class TreeNSearch:
                                 "max_count": max(max_counts.values(),
                                                  default=0),
                                 "cell_size": cell, "stencil_w": w,
+                                "carried": "rebuilt" in sol,
                                 "rebuilt": flags.get("rebuilt", 1)}
             return sol
         raise RuntimeError(
@@ -812,23 +821,229 @@ class TreeNSearch:
     def distribute(self, mesh, axis: str = "d") -> None:
         raise _not_ported("multi-GPU execution (distribute)", 14)
 
+    # ---------------------------------------------------------------- zsort
     def prepare_zsort(self) -> None:
-        raise _not_ported("z-sort", 10)
+        """Compute the per-set Morton reorder maps (reference
+        ``prepare_zsort``, ``TreeNSearch.cpp:2571-2661``;
+        ``treensearch_tpu/api.py:996-1043``).
 
-    def apply_zsort(self, *args, **kwargs):
-        raise _not_ported("z-sort", 10)
+        After a ``run()`` that rode the carry, with the set sizes
+        unchanged, the carried cell ids give a cell-granular order
+        (points of one cell keep their order; ``ops.zsort.
+        zsort_orders_from_cells``), the reference's cells fast path
+        (``TreeNSearch.cpp:2598-2657``).  Otherwise (no run yet, carry
+        off, sizes changed, or the last call was not ``run()`` on the fast
+        route) it computes the exact per-point order at 2^20 cells per
+        axis over the world box (``TreeNSearch.cpp:2663-2716``).  Both are
+        the JAX package's orders bit for bit."""
+        if not self._sets:
+            raise RuntimeError("no point sets added")
+        carry = self._fast_carry
+        sizes_now = tuple(s.n for s in self._sets)
+        if (carry is not None and self._carry_key is not None
+                and self._carry_key[0].set_sizes == sizes_now
+                and self._last_stats.get("path") == "fast"
+                and bool(carry.valid)):
+            w = int(self._last_stats.get("stencil_w", 1))
+            nc = self._grid_state.n_cells
+            self._zsort_maps = zsort_orders_from_cells(
+                torch.split(carry.lin_chk, list(sizes_now)),
+                nc[1] + 2 * w, nc[2] + 2 * w)
+            return
+        pts = [_as_tensor(s.points, self.device, (-1, 3)) for s in self._sets]
+        self._zsort_maps = zsort_orders(pts, *world_box(pts, self.device))
 
-    def apply_zsort_batch(self, *args, **kwargs):
-        raise _not_ported("z-sort", 10)
+    def _zsort_order_of(self, set_i: int, caller: str) -> torch.Tensor:
+        self._require_set(set_i)
+        if self._zsort_maps is None:
+            raise RuntimeError(
+                f"prepare_zsort() must be called before {caller}() "
+                "(reference exits here, TreeNSearch.h:446-454)")
+        return self._zsort_maps[set_i]
 
-    def get_zsort_order(self, *args, **kwargs):
-        raise _not_ported("z-sort", 10)
+    def apply_zsort(self, set_i: int, data, stride: int = 1):
+        """Reorder a user array of set ``set_i`` by the prepared Z-order:
+        n rows (n, ...) or, with ``stride``, a flat array of n * stride
+        elements (reference ``apply_zsort<T>``, ``TreeNSearch.h:443-
+        481``).  A numpy array is reordered in place and returned (the
+        reference's pointer semantics); a torch tensor comes back as a new
+        reordered tensor on its own device and stays as it was (the JAX
+        package's contract for its device arrays).  Exact for every
+        dtype."""
+        order = self._zsort_order_of(set_i, "apply_zsort")
+        return self._reorder(set_i, order, data, stride)
 
+    def apply_zsort_batch(self, set_i: int, arrays: Sequence,
+                          strides: Optional[Sequence[int]] = None) -> list:
+        """``apply_zsort`` of many arrays of one set (the reference's SPH
+        pattern reorders positions, velocities, densities and more,
+        ``README.md:95-111``): numpy arrays in place, torch tensors as new
+        tensors; returns the reordered arrays in order."""
+        order = self._zsort_order_of(set_i, "apply_zsort_batch")
+        strides = [1] * len(arrays) if strides is None else list(strides)
+        if len(strides) != len(arrays):
+            raise ValueError(f"{len(strides)} strides for {len(arrays)} "
+                             "arrays")
+        host = order.cpu().numpy() if any(
+            not isinstance(a, torch.Tensor) for a in arrays) else None
+        return [self._reorder(set_i, order, a, st, host)
+                for a, st in zip(arrays, strides)]
+
+    @staticmethod
+    def _reorder(set_i: int, order: torch.Tensor, data, stride: int,
+                 host: Optional[np.ndarray] = None):
+        """One array in the order: a tensor by ``index_select`` on its own
+        device, anything else as a numpy array, in place, by ``np.take``
+        with the order on the host (``host``, else read here)."""
+        n = order.shape[0]
+        if n == 0:
+            return data
+        if not isinstance(data, (np.ndarray, torch.Tensor)):
+            data = np.asarray(data)
+        size = math.prod(data.shape)
+        if size % n != 0:
+            raise ValueError(
+                f"array of {size} elements cannot be reordered for set "
+                f"{set_i} with {n} points (need n*stride elements)")
+        rows = data.reshape(n, stride) if data.ndim == 1 and stride > 1 \
+            else data.reshape(n, -1)
+        if isinstance(data, torch.Tensor):
+            return apply_order(rows, order).reshape(data.shape)
+        if host is None:
+            host = order.cpu().numpy()
+        np.copyto(data, np.take(rows, host, axis=0).reshape(data.shape))
+        return data
+
+    def get_zsort_order(self, set_i: int) -> np.ndarray:
+        """Set ``set_i``'s new_to_old permutation as int32 numpy."""
+        return self._zsort_order_of(set_i, "get_zsort_order").cpu().numpy()
+
+    # ---------------------------------------------------------- diagnostics
     def print_state(self) -> None:
-        raise _not_ported("print_state", 13)
+        """Print the options and the structure and neighborhood statistics
+        (reference ``print_state``, ``TreeNSearch.cpp:2718-2873``;
+        ``treensearch_tpu/api.py:1181-1262``): options and caps, active
+        searches, world box and cells per axis, occupied cells and points
+        per occupied cell, the candidate windows of the last ``run()``
+        that rode the carry, per-set boxes and radii, per-pair neighbor
+        counts and the neighbor-list bytes.  Everything is computed here,
+        when called, so the search itself pays nothing for it."""
+        print("TreeNSearch (treensearch_tpu_torch) state")
+        print(f"  n_sets: {len(self._sets)}  total points: "
+              f"{self.get_total_n_points()}")
+        mode = "variable" if self._variable else "fixed"
+        print(f"  radius mode: {mode}  symmetric: {self._symmetric}")
+        if not self._variable:
+            print(f"  search radius: {self._search_radius}")
+        print(f"  cell size: {self._cell_size or '(default 1.5*r_min)'}")
+        print(f"  caps: nbr={self._nbr_cap} window={self._wcap} "
+              f"dense={self._dense_cap} tiles={self._tiles_cap} "
+              f"chunk={self._chunk}  device: {self.device}")
+        print("  active searches: "
+              + str([(int(i), int(j))
+                     for (i, j) in zip(*np.nonzero(self._active))]))
+        npts = self.get_total_n_points()
+        gs = self._grid_state
+        if bool(gs.valid):
+            k = gs.n_cells.cpu().numpy()
+            gmin = gs.grid_min.cpu().numpy()
+            print(f"  world box: {gmin.round(5)} .. "
+                  f"{gs.grid_max.cpu().numpy().round(5)}  cells/axis: {k}")
+            nc = self._last_stats.get("n_cells")
+            if nc:
+                print(f"  occupied cells: {nc}  avg points/cell: "
+                      f"{npts / max(nc, 1):.2f}")
+            cell = self._last_stats.get("cell_size")
+            if cell and npts > 0:
+                occ = self._cell_occupancy(gmin, k, cell)
+                print(f"  points per occupied cell min/avg/max = "
+                      f"{occ.min()}/{occ.mean():.2f}/{occ.max()}")
+        carry = self._fast_carry
+        if (carry is not None and self._last_stats.get("carried")
+                and self._last_stats.get("path") == "fast"):
+            w = self._last_stats["stencil_w"]
+            lens = carry.desc[:, LENS_OFF:LENS_OFF + (2 * w + 1) ** 2]
+            lens = lens[lens > 0].cpu().numpy()
+            if lens.size:
+                # the JAX carry's win_hist: nonzero lengths in 64 bins of
+                # 32 slots (treensearch_tpu/ops/fastpath.py:708-711)
+                wh = np.bincount(np.minimum(lens // 32, 63), minlength=64)
+                cum = np.cumsum(wh)
+                tot = int(cum[-1])
+                p50 = (int(np.searchsorted(cum, 0.50 * tot)) + 1) * 32
+                p95 = (int(np.searchsorted(cum, 0.95 * tot)) + 1) * 32
+                wmax = (int(np.nonzero(wh)[0][-1]) + 1) * 32
+                print(f"  candidate windows: {tot} nonzero, length "
+                      f"p50/p95/max <= {p50}/{p95}/{wmax} slots; stencil "
+                      f"reach: {w} cells (ghost-span analog)")
+        if self._last_stats:
+            print(f"  last run: {self._last_stats}")
+        for k_set, s in enumerate(self._sets):
+            if s.n == 0:
+                print(f"  set {k_set}: 0 points")
+                continue
+            p = _as_tensor(s.points, "cpu", (-1, 3)).numpy()
+            line = (f"  set {k_set}: {s.n} points  aabb "
+                    f"{p.min(axis=0).round(4)} .. {p.max(axis=0).round(4)}")
+            if self._variable:
+                r = _as_tensor(s.radii, "cpu", (-1,)).numpy()
+                line += (f"  radius min/avg/max = {r.min():.4g}/"
+                         f"{r.mean():.4g}/{r.max():.4g}")
+            print(line)
+        if self._solution is not None:
+            for (i, j) in zip(*np.nonzero(self._active)):
+                c = self._solution.get_counts(int(i), int(j))
+                if c.size:
+                    print(f"  pair ({i}->{j}): neighbors min/avg/max = "
+                          f"{c.min()}/{c.mean():.2f}/{c.max()}")
+            print(f"  neighborlist bytes: {self.get_neighborlist_n_bytes()}")
 
-    def profile_run(self, *args, **kwargs):
-        raise _not_ported("profile_run", 13)
+    def _cell_occupancy(self, gmin: np.ndarray, k: np.ndarray,
+                        cell: float) -> np.ndarray:
+        """Points per occupied cell of the current grid, by the JAX
+        package's float32 quantization (``api.py:1214-1226`` there)."""
+        p = self._assemble()[0]
+        inv = torch.tensor(np.float32(1.0 / cell), device=p.device)
+        kk = torch.as_tensor(k.astype(np.int64), device=p.device)
+        ijk = torch.floor((p - torch.as_tensor(gmin, device=p.device))
+                          * inv).to(torch.int64)
+        ijk = torch.minimum(torch.clamp(ijk, min=0), kk - 1)
+        lin = (ijk[:, 0] * kk[1] + ijk[:, 1]) * kk[2] + ijk[:, 2]
+        return torch.unique(lin, return_counts=True)[1].cpu().numpy()
+
+    def profile_run(self, trace_dir: str, n_steps: int = 3) -> str:
+        """Trace ``n_steps`` steady-state search steps with
+        ``torch.profiler`` (``treensearch_tpu/api.py:1264-1281`` on
+        ``jax.profiler``): one ``run()`` settles the caps if none ran yet
+        and one ``make_step_fn()`` step warms up, both outside the trace;
+        the trace records the CPU and, on the card, the CUDA activity, and
+        is written as a Chrome trace ``treensearch.pt.trace.json`` into
+        ``trace_dir`` (made if missing; open it in Perfetto or
+        chrome://tracing).  Returns ``trace_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self._check()
+        if self._solution is None:
+            self.run()
+        points, radii = self._assemble()
+        step, state = self.make_step_fn()
+        sol, state = step(state, points, radii)
+        self._sync()
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            for _ in range(n_steps):
+                sol, state = step(state, points, radii)
+            self._sync()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(trace_dir, "treensearch.pt.trace.json"))
+        return trace_dir
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -------------------------------------------------------------- helpers
     def _make_cfg(self, w: int, chunk: Optional[int] = None) -> SearchConfig:
@@ -952,3 +1167,4 @@ class TreeNSearch:
 
     def _invalidate(self) -> None:
         self._solution = None
+        self._zsort_maps = None

@@ -1,7 +1,7 @@
-"""Point quantization onto the uniform cell grid, and the two-word cell
-keys of the search-based pipeline.
+"""Point quantization onto the uniform cell grid, the two-word cell keys
+of the search-based pipeline and z-sort's two-word Morton keys.
 
-PyTorch counterpart of ``treensearch_tpu/utils/keys.py:32-101, 136-139``.
+PyTorch counterpart of ``treensearch_tpu/utils/keys.py:32-139``.
 Points are quantized to at most 2**15 cells per axis, the reference's
 domain limit (``TreeNSearch.cpp:510-515``).  The row-major key is two
 int32 words, ``hi = i << 15 | j`` and ``lo = k``; sorting by (hi, lo)
@@ -10,7 +10,8 @@ package sorts and searches the two words as such (a two-key sort and a
 fixed-trip binary search); here both words go into one int64,
 ``key64(hi, lo)``, whose order is their lexicographic order, so
 ``torch.sort(stable=True)`` and ``torch.searchsorted`` give the same
-permutation and the same indices.  Morton keys belong to z-sort.
+permutation and the same indices, and sorting ``morton_keys_2word``'s
+words that way gives the JAX z-sort's order.
 """
 
 from __future__ import annotations
@@ -62,6 +63,31 @@ def searchsorted_2word(hi: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"side must be 'left' or 'right', got {side!r}")
     return torch.searchsorted(key64(hi, lo), key64(q_hi, q_lo), side=side,
                               out_int32=True)
+
+
+def morton_keys_2word(ijk: torch.Tensor,
+                      bits: int = 20) -> tuple[torch.Tensor, torch.Tensor]:
+    """3D Morton (Z-curve) code of int32 coords (N, 3) with up to ``bits``
+    <= 20 bits per axis, as two int32 words: ``lo`` interleaves the low 10
+    bits of each axis, ``hi`` the bits above, the i axis in the lowest
+    bit.  Lexicographic (hi, lo) order is the full 3 * bits Morton
+    order."""
+    assert bits <= 20
+    low10 = (1 << 10) - 1
+
+    def spread10(v):
+        # b9..b0 -> bits 27, 24, ..., 0 (every third position)
+        v = v & low10
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+
+    i, j, k = ijk[:, 0], ijk[:, 1], ijk[:, 2]
+    lo = (spread10(k) << 2) | (spread10(j) << 1) | spread10(i)
+    hi = (spread10(k >> 10) << 2) | (spread10(j >> 10) << 1) \
+        | spread10(i >> 10)
+    return hi, lo
 
 
 def sort_by_2word_key(hi: torch.Tensor, lo: torch.Tensor,
