@@ -19,8 +19,9 @@ no prep); and for the fallbacks, config 1's ``run()`` on the tile path
 9 rigid bodies) and config 1's ``run_scalar()``, each moving; and for
 z-sort at config 1, ``prepare_zsort`` on the cell path (after a
 ``run()``) and on the per-point path (no run) and ``apply_zsort_batch``
-of ``chip_smoke.py``'s eight arrays; after two settling calls, it
-prints:
+of ``chip_smoke.py``'s eight arrays; and for config 1's ``run()`` under
+a one-rank mesh over NCCL (the sharded search of ``parallel/sharded.py``
+at world size 1), moving; after two settling calls, it prints:
 
 - the call's host time, synchronised, median over 10 calls;
 - ``torch.profiler``'s device time over 5 calls, by kernel name and per
@@ -183,9 +184,12 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import (N_BODIES, bodies_engine, card_line, config3_data,
-                            config3_engine, config4_data, config4_engine,
-                            density_fn, make_engine, zsort_arrays)
+    import torch.distributed as dist
+
+    from chip_smoke import (N_BODIES, bodies_engine, card_line,
+                            config3_data, config3_engine, config4_data,
+                            config4_engine, density_fn, free_port,
+                            make_engine, one_dim_mesh, zsort_arrays)
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -247,6 +251,17 @@ def main() -> int:
     profile(cell, f"config 1 apply_zsort_batch ({len(arrays)} arrays)", card,
             call=lambda: cell.apply_zsort_batch(0, arrays, strides),
             kernel="", moving=False)
+    del cell, point, arrays
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        sharded = make_engine(pts, RADIUS)
+        sharded.distribute(one_dim_mesh("cuda", 1))
+        profile(sharded, "config 1 run() under a one-rank mesh (NCCL)", card,
+                kernel="")
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

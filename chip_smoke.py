@@ -106,6 +106,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and ``profile_run`` (its trace names K1 and K2a); ``prepare_zsort``
    on both paths, the batch, the step and ``run()`` before and after the
    reorder (carried and rebuilt), timed, medians of 5, printed only.
+16. the sharded search (``parallel/sharded.py``): world size 1 over NCCL
+   in this process, a one-rank ``DeviceMesh`` named "d": config 1's
+   ``run()`` (32,759,462 pairs), config 4's, ``run_reduce`` of the density
+   at config 1 and config 1's ``run_scalar()``, each a settling and 5 (3
+   for ``run_scalar``) jittered calls under ``distribute`` beside the same
+   calls on one device, every query's count and row set equal at the last
+   positions (the density within 5e-5, bit-equality printed), with the
+   ms/call of both, the launches and the peak device memory; then four
+   gloo ranks spawned on the one card, exchanging CUDA tensors, at configs
+   1 (K2a) and 3 (K2b): every query equal to one device's on rank 0, each
+   rank's owned, halo and local rows, peak memory, launches and its times
+   on the shared card (printed, not judged).  A line of the sharded
+   launches by kernel id precedes the kernels line.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
@@ -1917,6 +1930,318 @@ def run_zsort_path(pts_t, card: str, data3: tuple) -> dict:
     return {"launches": launches, "ms": times}
 
 
+# ------------------------------------------------- phase 16: sharded
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def one_dim_mesh(dev_type: str, ranks: int):
+    """A ``DeviceMesh`` of ``ranks`` ranks with one dimension, "d"."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(dev_type, list(range(ranks)), mesh_dim_names=("d",))
+
+
+def _pairs_equal(one, many, label: str) -> int:
+    """Every active pair of the mesh engine ``many`` against the one-device
+    engine ``one``: counts equal for every query, rows equal as sets.
+    Returns the pair total (collective on ``many``)."""
+    total = 0
+    for i, j in zip(*np.nonzero(one._active)):
+        total += equal_as_sets(one.get_neighbors(int(i), int(j)),
+                               many.get_neighbors(int(i), int(j)),
+                               f"{label} pair {i}->{j}")
+    return total
+
+
+def _sharded_pair(make, jitter_of, label: str, path: tuple, card: str,
+                  mesh, call=None, runs: int = N_RUNS,
+                  pairs_of=None) -> dict:
+    """One path of phase 16 at world size 1: ``drive`` on a one-device
+    engine and on the same engine under ``mesh`` (same points, same
+    jitter), then every query of the last positions compared.  Returns
+    both drives, the pair total and the mesh run's peak memory."""
+    import torch
+    one, many = make(), make()
+    many.distribute(mesh)
+    r1 = drive(one, f"{label} one device", path, jitter_of(one), card,
+               call=call and call(one), runs=runs, pairs_of=pairs_of)
+    dev = many.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rm = drive(many, f"{label} mesh", path, jitter_of(many), card,
+               call=call and call(many), runs=runs, pairs_of=pairs_of)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else float("nan")
+    return {"one": r1, "mesh": rm, "one_eng": one, "mesh_eng": many,
+            "peak_gb": peak}
+
+
+def _jitter_state(radii=None):
+    """A jitter for ``drive`` that moves every set of an engine by the
+    same noise on each call, so two engines stay at the same points."""
+    def of(eng):
+        state = [s.points for s in eng._sets]
+
+        def jitter(noise):
+            for k, p in enumerate(state):
+                state[k] = p + noise(tuple(p.shape))
+                eng.resize_point_set(k, state[k],
+                                     None if radii is None else radii[k])
+        return jitter
+    return of
+
+
+def run_sharded_path(pts_t, mass_t, card: str, data3: tuple,
+                     data4: tuple) -> dict:
+    """Phase 16: the sharded search (``parallel/sharded.py``).  World size
+    1 over NCCL (gloo on the CPU) in this process: config 1's ``run()``,
+    config 4's, ``run_reduce`` of the density at config 1 and config 1's
+    ``run_scalar()``, each a settling and jittered calls under the mesh
+    beside the same calls on one device, every query's counts and rows
+    equal at the last positions (the density within 5e-5), 32,759,462
+    pairs at seed 0.  Then four gloo ranks on the one card
+    (``run_gloo_ranks``) at configs 1 and 3."""
+    import torch
+    import torch.distributed as dist
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
+    t0 = time.perf_counter()
+    dev = pts_t.device
+    n = pts_t.shape[0]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = one_dim_mesh(dev.type, 1)
+        k1, k2a = pairs.expand_query_tiles, pairs.pairs_nbrs_fixed
+        c1 = _sharded_pair(lambda: make_engine(pts_t, RADIUS),
+                           _jitter_state(), "sharded config 1",
+                           (k1, k2a), card, mesh)
+        total = _pairs_equal(c1["one_eng"], c1["mesh_eng"],
+                             "sharded config 1")
+        if n == N and c1["mesh"]["pairs0"] != TPU_PAIRS_SEED0:
+            raise AssertionError(f"sharded config 1: {c1['mesh']['pairs0']} "
+                                 "pairs before the jitter")
+        out["config 1"] = c1
+        print(f"sharded config 1: {c1['mesh']['pairs0']} pairs before the "
+              f"jitter, every query's count and row set equal to one "
+              f"device's on the last positions ({total} pairs)", flush=True)
+
+        p4, r4 = data4
+        c4 = _sharded_pair(lambda: config4_engine(p4, r4),
+                           _jitter_state([r4]), "sharded config 4",
+                           (k1, pairs.pairs_nbrs_variable), card, mesh)
+        total = _pairs_equal(c4["one_eng"], c4["mesh_eng"],
+                             "sharded config 4")
+        out["config 4"] = c4
+        print(f"sharded config 4: every query's count and row set equal "
+              f"to one device's ({total} pairs)", flush=True)
+
+        def density(eng):
+            return lambda: eng.run_reduce(density_fn, 1, payload=[mass_t])
+
+        cr = _sharded_pair(lambda: make_engine(pts_t, RADIUS),
+                           _jitter_state(), "sharded run_reduce",
+                           (k1, red.pairs_reduce), card, mesh, call=density,
+                           pairs_of=lambda _: c1["mesh"]["pairs0"])
+        a = density(cr["one_eng"])()[0]
+        b = density(cr["mesh_eng"])()[0]
+        if not torch.allclose(a, b, rtol=DENSITY_RTOL, atol=0):
+            raise AssertionError("sharded run_reduce: density differs")
+        worst = float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
+        print(f"sharded run_reduce: the density of all {n} points within "
+              f"{DENSITY_RTOL} of one device's (worst relative difference "
+              f"{worst:.3e}; bit-equal: {bool(torch.equal(a, b))})",
+              flush=True)
+        out["run_reduce"] = cr
+
+        cs = _sharded_pair(lambda: make_engine(pts_t, RADIUS),
+                           _jitter_state(), "sharded run_scalar", (),
+                           card, mesh, call=lambda e: e.run_scalar,
+                           runs=N_SLOW_RUNS)
+        total = _pairs_equal(cs["one_eng"], cs["mesh_eng"],
+                             "sharded run_scalar")
+        if cs["mesh_eng"]._last_stats["path"] != "reference":
+            raise AssertionError("sharded run_scalar: not the pipeline")
+        out["run_scalar"] = cs
+        print(f"sharded run_scalar: every query equal to one device's "
+              f"({total} pairs)", flush=True)
+        for label, r in out.items():
+            print(f"sharded {label} (world size 1, {backend}): mesh "
+                  f"{r['mesh']['ms']:.3f} ms/call beside one device "
+                  f"{r['one']['ms']:.3f} ms/call; launches "
+                  f"{ {k: v for k, v in r['mesh']['launches'].items() if v} }; "
+                  f"peak device memory {r['peak_gb']:.3f} GB ({card})",
+                  flush=True)
+            del r["one_eng"], r["mesh_eng"]
+    finally:
+        dist.destroy_process_group()
+    out["gloo"] = run_gloo_ranks(dev, n, data3[0].shape[0],
+                                 data3[1].shape[0], card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+N_RANKS = 4            # phase 16: gloo ranks sharing the one card
+RANK_TIMEOUT = 300     # seconds a gloo rank may wait in a collective
+
+
+def _rank_main(rank: int, rdv: str, dev_type: str, sizes: tuple,
+               queue) -> None:
+    """One of the four gloo ranks of phase 16: configs 1 and 3 through
+    the mesh engine (K1 with K2a, then with K2b), rank 0 also on one
+    device to compare; puts its figures on ``queue``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from treensearch_tpu_torch.ops import pairs
+    torch.set_num_threads(2)
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" \
+        else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=N_RANKS,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    out = {"rank": rank}
+    try:
+        mesh = one_dim_mesh(dev_type, N_RANKS)
+        n1, n_fluid, n_boundary = sizes
+        pts = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, (n1, 3)).astype(np.float32)).to(dev)
+        fluid, boundary = config3_data(dev, n_fluid, n_boundary)
+        kernels = pairs_kernels()
+        for label, make, kernel in (
+                ("config 1", lambda: make_engine(pts, RADIUS),
+                 pairs.pairs_nbrs_fixed),
+                ("config 3", lambda: config3_engine(fluid, boundary),
+                 pairs.pairs_nbrs_sets)):
+            eng = make()
+            eng.distribute(mesh)
+            for k in kernels:
+                k.launches = 0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            times = []
+            for _ in range(1 + N_SLOW_RUNS):
+                sync(dev)
+                t = time.perf_counter()
+                eng.run()
+                sync(dev)
+                times.append((time.perf_counter() - t) * 1e3)
+            launches = {k.__name__: k.launches for k in kernels
+                        if k.launches}
+            if dev.type == "cuda" and min(
+                    launches.get(k.__name__, 0)
+                    for k in (pairs.expand_query_tiles, kernel)) < 1 + \
+                    N_SLOW_RUNS:
+                raise AssertionError(f"rank {rank} {label}: launches "
+                                     f"{launches}")
+            rec = {"launches": launches, "ms": times,
+                   "rows": eng._last_stats["slab_rows"],
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                   if dev.type == "cuda" else float("nan")}
+            if rank == 0:
+                one = make()
+                one.run()
+                rec["pairs"] = _pairs_equal(one, eng, f"gloo {label}")
+                del one
+            else:
+                for i, j in zip(*np.nonzero(eng._active)):
+                    eng.get_neighbors(int(i), int(j))
+            out[label] = rec
+            del eng
+    finally:
+        dist.destroy_process_group()
+    queue.put(out)
+
+
+def run_gloo_ranks(dev, n1: int, n_fluid: int, n_boundary: int,
+                   card: str) -> list:
+    """Phase 16, second half: four gloo ranks spawned on the one card (on
+    the CPU in a rehearsal) exchange their tensors where they lie; each
+    runs the port's kernels on its slab.  Their times share the card and
+    are printed, not judged.  Every process is joined; one that fails or
+    hangs fails the phase."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    import queue as queue_mod
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="rdv_", dir=build)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, os.path.join(tmp, "rdv"), dev.type,
+                               (n1, n_fluid, n_boundary), q))
+             for r in range(N_RANKS)]
+    results = []
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + RANK_TIMEOUT
+        while len(results) < N_RANKS:
+            try:
+                results.append(q.get(timeout=5))
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) \
+                        or time.monotonic() > deadline:
+                    raise AssertionError(
+                        "gloo ranks: a rank failed or hung (exit codes "
+                        f"{[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"gloo ranks: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    results.sort(key=lambda r: r["rank"])
+    for label in ("config 1", "config 3"):
+        print(f"gloo {N_RANKS} ranks on one card, {label}: "
+              f"{results[0][label]['pairs']} pairs, every query's count "
+              "and row set equal to one device's", flush=True)
+        for r in results:
+            rec = r[label]
+            own, left, right = rec["rows"]
+            print(f"  rank {r['rank']}: {own} owned + {left + right} halo "
+                  f"= {own + left + right} local rows; peak device memory "
+                  f"{rec['peak_gb']:.3f} GB; launches {rec['launches']}; "
+                  "ms/call on the shared card (not judged): "
+                  + " ".join(f"{t:.1f}" for t in rec["ms"]) + f" ({card})",
+                  flush=True)
+    return results
+
+
+def sharded_launches(sharded: dict) -> dict:
+    """Phase 16's launches by kernel id: the world-size-1 paths' and every
+    gloo rank's."""
+    ids = {"expand_query_tiles": "K1", "pairs_nbrs_fixed": "K2a",
+           "pairs_nbrs_sets": "K2b", "pairs_nbrs_variable": "K2c",
+           "pairs_reduce": "K3"}
+    out = {k: 0 for k in ids.values()}
+    runs = [r["mesh"]["launches"] for k, r in sharded.items() if k != "gloo"]
+    runs += [r[c]["launches"] for r in sharded["gloo"]
+             for c in ("config 1", "config 3")]
+    for launches in runs:
+        for name, count in launches.items():
+            if name in ids:
+                out[ids[name]] += count
+    return out
+
+
 def build_all() -> None:
     """Phase 2: ``csrc/pairs.cu`` and K3 for each of CALLBACKS, one nvcc
     each, all started together."""
@@ -2030,6 +2355,8 @@ def main() -> int:
     main13 = run_bodies(*config3_data(dev), card)           # phase 13
     main14 = run_pipeline_path(pts_t, card, config4_data(dev))  # 14
     run_zsort_path(pts_t, card, config3_data(dev))          # phase 15
+    sharded = run_sharded_path(pts_t, torch.from_numpy(mass).to(dev),  # 16
+                               card, config3_data(dev), config4_data(dev))
     kernels += [k2b, k2c, k3, k4, k5, k1r]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,
@@ -2045,6 +2372,8 @@ def main() -> int:
           f"{N_BODIES + 1} candidate sets {main13['ms']:.3f}, run_scalar "
           f"config 1 {main14['config 1']['ms']:.3f}, run_scalar config 4 "
           f"{main14['config 4']['ms']:.3f} ({card})", flush=True)
+    print("sharded launches: " + json.dumps(sharded_launches(sharded)),
+          flush=True)
     print(json.dumps({"pairs_reduce (density4_fn, n_out 4)": {
         k: k3_4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms")}}))

@@ -17,7 +17,9 @@ legs equal, the others within 3e-5 of the sum of the terms' magnitudes
 padded records bit-equal.  The tile path and the search-based pipeline
 on the card: neighbor sets equal to brute force, and to the CPU engine's
 rows slot for slot.  Z-sort on the card: the per-point and
-cell-granular orders equal the CPU engine's bit for bit.
+cell-granular orders equal the CPU engine's bit for bit.  The sharded
+search's local fast path, rank by rank: counts equal and neighbor sets
+equal to the one-device ``run()``.
 """
 
 import ctypes
@@ -1037,3 +1039,72 @@ def test_zsort_orders_on_card_equal_the_cpu(dev):
                               sets[0].astype(np.float64)[cell[0]])
     for g, c in zip(*orders):
         assert g.dtype == np.int32 and np.array_equal(g, c)
+
+
+# ---------------------------------------------------------- sharded search
+def _slab_union(d, variable):
+    """The fast path's local search (``parallel/sharded.py``) of each of 4
+    ranks, built in one process: every rank's local rows as the routing
+    leaves them (its owned rows ascending, then rank r - 1's, then rank
+    r + 1's) and its slab window (``owned_rng``, ``lin_base``); the owned
+    rows' results put back by orig.  Returns the union, the one-device
+    ``run()``'s counts and rows, and the launches of K1 and the pairs
+    kernel."""
+    from treensearch_tpu_torch.parallel import sharded as sh
+    rng = np.random.default_rng(12)
+    n0, n1 = 6000, 2000
+    pts = torch.from_numpy(rng.uniform(0, 1, (n0 + n1, 3))
+                           .astype(np.float32)).to(d)
+    rad = torch.from_numpy(rng.uniform(0.02, 0.03, n0 + n1)
+                           .astype(np.float32)).to(d) if variable else None
+    eng = TreeNSearch(device=d)
+    eng.add_point_set(pts[:n0], None if rad is None else rad[:n0])
+    eng.add_point_set(pts[n0:], None if rad is None else rad[n0:])
+    eng.set_active_search(0, 0, True)
+    eng.set_active_search(0, 1, True)
+    if not variable:
+        eng.set_search_radius(0.025)
+    eng.run()
+    cfg = eng._make_cfg(eng._last_stats["stencil_w"])
+    knobs, state = eng._knobs(), eng._grid_state
+    sr = eng._search_radius or 0.0
+    owner = sh.owners(pts, state, cfg, 4)
+    orig = torch.arange(n0 + n1, dtype=torch.int32, device=d)
+    set_ids = fp.set_ids_of(cfg, d)
+    blocks = len({sj for _, sj in cfg.active_pairs})
+    counts = torch.zeros((n0 + n1, blocks), dtype=torch.int32, device=d)
+    nbrs = [None] * blocks
+    kernel = pairs.pairs_nbrs_variable if variable else pairs.pairs_nbrs_sets
+    before = (pairs.expand_query_tiles.launches, kernel.launches)
+    for r in range(4):
+        rows = torch.cat([torch.nonzero(owner == o)[:, 0]
+                          for o in (r, r - 1, r + 1) if 0 <= o < 4])
+        n_own = int((owner == r).sum())
+        local = sh.records(pts[rows], None if rad is None else rad[rows],
+                           orig[rows], set_ids[rows])
+        res = sh.search_fast_local(local, n_own, r, 4, sr, state, cfg, knobs)
+        mine = rows[:n_own]
+        counts[mine] = res["counts"]
+        for b, nb in enumerate(res["nbrs"]):
+            if nbrs[b] is None:
+                nbrs[b] = torch.full((n0 + n1, nb.shape[1]), -1,
+                                     dtype=torch.int32, device=d)
+            nbrs[b][mine] = nb
+    launches = (pairs.expand_query_tiles.launches - before[0],
+                kernel.launches - before[1])
+    return counts, nbrs, eng, launches
+
+
+@pytest.mark.parametrize("variable", [False, True])
+def test_sharded_local_search_on_card_equals_one_device(dev, variable):
+    # no collective: the four ranks' local searches run one after another
+    # on the card, K1 and K2b/K2c launched for each
+    counts, nbrs, eng, launches = _slab_union(dev, variable)
+    assert launches == (4, 4)
+    n0 = eng.get_n_points_in_set(0)
+    for b, sj in enumerate((0, 1)):
+        c1, nb1 = eng.get_neighbors(0, sj)
+        assert torch.equal(counts[:n0, b], c1) and int(c1.sum()) > 0
+        for i in range(n0):
+            assert torch.equal(torch.sort(nbrs[b][i, :c1[i]]).values,
+                               torch.sort(nb1[i, :c1[i]]).values), (sj, i)

@@ -285,11 +285,19 @@ NOT_PORTED = {
                    FUSED_GATE),
     "run_mask": (lambda e: (e.set_cell_size(0.05), e.run_mask()),
                  FUSED_GATE),
-    "distribute": (lambda e: e.distribute(object()),
-                   "ROADMAP.md Queue 1 item 14"),
-    "mesh": (lambda e: TreeNSearch(device="cpu", mesh=object()),
-             "ROADMAP.md Queue 1 item 14"),
+    # as the JAX engine (treensearch_tpu/api.py:664-671), the mask refuses
+    # a mesh
+    "run_mask_mesh": (lambda e: (e.distribute(_mesh("cpu")), e.run_mask()),
+                      "no mesh"),
 }
+
+
+def _mesh(device_type, name="d"):
+    """A one-rank ``DeviceMesh`` that needs no process group (the calls
+    below raise before any collective)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(device_type, [0], mesh_dim_names=(name,),
+                      _init_backend=False, _rank=0)
 
 
 @pytest.mark.parametrize("what", list(NOT_PORTED))
@@ -299,6 +307,25 @@ def test_outside_the_slice_raises_not_implemented(what):
     call, match = NOT_PORTED[what]
     with pytest.raises(NotImplementedError, match=match):
         call(eng)
+
+
+MESH_MISUSE = {
+    # a mesh without the named dimension (treensearch_tpu/api.py:187-188)
+    "distribute": (lambda e: e.distribute(_mesh("cpu", "x")), "dimension"),
+    # a mesh of another device type than the engine's
+    "mesh": (lambda e: TreeNSearch(device="cpu", mesh=_mesh("cuda")),
+             "device type"),
+}
+
+
+@pytest.mark.parametrize("what", list(MESH_MISUSE))
+def test_mesh_misuse_raises_value_error(what):
+    eng = _port(np.random.default_rng(0).uniform(0, 1, (5, 3))
+                .astype(np.float32), 0.4, run=False)
+    call, match = MESH_MISUSE[what]
+    with pytest.raises(ValueError, match=match):
+        call(eng)
+    assert eng.get_mesh() is None
 
 
 WIDE_STENCIL = {"variable_radii": _variable_wide_stencil,

@@ -2,6 +2,7 @@
 when CUDA is asked for, and no plain-version substitute when the kernels
 cannot be built."""
 
+import multiprocessing
 import os
 import re
 import subprocess
@@ -23,6 +24,7 @@ def test_import_leaves_jax_out():
             " treensearch_tpu_torch.ops.fastpath,"
             " treensearch_tpu_torch.ops.pipeline,"
             " treensearch_tpu_torch.ops.reduce,"
+            " treensearch_tpu_torch.parallel.sharded,"
             " treensearch_tpu_torch.utils.compact,"
             " treensearch_tpu_torch.utils.keys; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
@@ -90,6 +92,34 @@ def test_cached_build_keeps_its_nvcc_log(monkeypatch, tmp_path):
     assert first.command and not again.command
     assert "Used 7 registers" in first.log
     assert again.log == first.log
+
+
+def _build_probe(build_dir: str) -> None:
+    pairs.build_library("probe", b"// probe", Path(build_dir))
+
+
+def test_ranks_that_build_together_run_one_nvcc(monkeypatch, tmp_path):
+    # four processes started together (the ranks of a mesh) build the same
+    # source: the build lock lets one stand-in nvcc run, slowly, and the
+    # other three load its library
+    lib = Path(torch.__file__).parent / "lib" / "libc10.so"
+    runs = tmp_path / "runs"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(f'#!/bin/sh\necho run >> {runs}\nsleep 1\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    f'cp {lib} "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_build_probe, args=(str(tmp_path / "b"),))
+             for _ in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(120)
+    assert [p.exitcode for p in procs] == [0] * 4
+    assert runs.read_text().splitlines() == ["run"]
 
 
 def test_kernel_route_does_not_fall_back(monkeypatch, tmp_path):

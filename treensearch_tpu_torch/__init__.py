@@ -8,8 +8,9 @@ contracts ``run_reduce`` and ``run_mask``: grid update, sort and
 row-aligned tile layout in PyTorch, the query-tile, padded-record, pairs
 and mask kernels in ``csrc/pairs.cu``, the fused reduce in
 ``csrc/reduce.cu``, and the tile path and the search-based pipeline
-(``ops/pipeline.py``) in PyTorch.  The package imports torch and numpy,
-never jax.
+(``ops/pipeline.py``) in PyTorch, and the multi-GPU domain
+decomposition (``parallel/sharded.py``) on ``torch.distributed``.  The
+package imports torch and numpy, never jax.
 """
 
 from .api import TreeNSearch

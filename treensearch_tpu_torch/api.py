@@ -22,8 +22,10 @@ CUDA is absent; the CPU runs only when asked for by name
 Z-sort (``prepare_zsort``, ``apply_zsort[_batch]``, ``get_zsort_order``;
 the per-step ``ops.zsort.make_zsort_step``) and the diagnostics
 (``print_state``, ``profile_run``) are ported too.  Multi-GPU execution
-(``mesh=``, ``distribute``) raises ``NotImplementedError`` naming its item
-in ``ROADMAP.md`` Queue 1.
+(``mesh=``, ``distribute``) runs the domain decomposition of
+``parallel/sharded.py`` over one dimension of a ``torch.distributed``
+``DeviceMesh``, SPMD: every rank builds the same engine and makes the same
+calls.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from .config import SearchConfig, round_up
-from .neighborlist import NeighborList, NeighborSolution
+from .neighborlist import NeighborList, NeighborSolution, ShardedSolution
 from .ops.fastpath import (MAX_STENCIL_W, FastKnobs, applicable,
                            build_and_search_fast,
                            build_and_search_fast_carry, contracts_applicable,
@@ -47,6 +49,8 @@ from .ops.pipeline import build_and_search
 from .ops.reduce import ReduceSpec
 from .ops.zsort import (apply_order, world_box, zsort_orders,
                         zsort_orders_from_cells)
+from .parallel.sharded import (MeshAxis, build_and_search_sharded,
+                               build_and_search_sharded_fast)
 from .utils.keys import MAX_CELLS_PER_DIM
 
 _DEFAULT_NBR_CAP = 80
@@ -57,12 +61,6 @@ _MAX_GROW_ROUNDS = 16
 _MAX_DENSE_CAP = 1 << 26   # 256 MB table; sparser domains take the pipeline
 _FUSED_GATE = (f"the fused kernels: set_use_pallas on, <= {MAX_BLOCKS} "
                f"candidate sets, a stencil of at most {MAX_STENCIL_W} cells")
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to treensearch_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})")
 
 
 def _require_descriptor_stencil(w: int) -> None:
@@ -121,11 +119,15 @@ def _as_tensor(x, device, shape) -> torch.Tensor:
 class TreeNSearch:
     """Neighborhood search over point sets at a fixed radius or with
     per-point radii, on a CUDA device (default) or, when asked for by
-    name, the CPU."""
+    name, the CPU.
 
-    def __init__(self, device="cuda", mesh=None):
-        if mesh is not None:
-            raise _not_ported("multi-GPU execution (mesh=)", 14)
+    Multi-GPU: pass ``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` with
+    a dimension named ``mesh_axis``) or call ``distribute(mesh)``, on every
+    rank of that dimension, and every later search runs the
+    domain-decomposed engines of ``parallel/sharded.py`` with the same
+    regrow loop as on one device (``treensearch_tpu/api.py:95-197``)."""
+
+    def __init__(self, device="cuda", mesh=None, mesh_axis: str = "d"):
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -166,6 +168,40 @@ class TreeNSearch:
         self._zsort_maps: Optional[List[torch.Tensor]] = None
         self._last_stats: dict = {}
         self._n_threads = 1        # stored for get_n_threads; one device
+        self._axis: Optional[MeshAxis] = None   # multi-GPU: mesh dimension
+        if mesh is not None:
+            self.distribute(mesh, mesh_axis)
+
+    # ------------------------------------------------------------ multi-GPU
+    def distribute(self, mesh, axis: str = "d") -> None:
+        """Run every later search over dimension ``axis`` of ``mesh``, a
+        ``torch.distributed`` ``DeviceMesh`` of this engine's device type
+        (``treensearch_tpu/api.py:179-194``).  Call it, and every search
+        and getter after it, on every rank of that dimension with the same
+        arguments: each rank builds its slab's structures and holds the
+        results of its share of the points (``parallel/sharded.py``).
+        ``run()`` takes the sharded fast path where the fused gate admits
+        the config, else the sharded pipeline, as does ``run_scalar()``;
+        ``run_reduce`` runs sharded, ``run_mask`` raises.  Searches under a
+        mesh do not ride the carry.  ``mesh=None`` returns the engine to
+        one device.  A mesh without the dimension, or of another device
+        type, raises ``ValueError``."""
+        axis_of = None
+        if mesh is not None:
+            axis_of = MeshAxis(mesh, axis)
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh's device type {mesh.device_type!r} is not "
+                    f"the engine's device {self.device}")
+        self._axis = axis_of
+        # the carry is a single-device structure
+        self._fast_carry = None
+        self._carry_key = None
+        self._solution = None
+
+    def get_mesh(self):
+        """The mesh of ``distribute``/``mesh=``, or None on one device."""
+        return None if self._axis is None else self._axis.mesh
 
     # ------------------------------------------------------------------ sets
     def add_point_set(self, points, radii=None, n_points: int = None) -> int:
@@ -384,7 +420,7 @@ class TreeNSearch:
         points, radii, sr, cell, w = self._setup()
         _require_descriptor_stencil(w)
         sol = self._execute(points, radii, sr, cell, w)
-        self._solution = NeighborSolution(sol["pairs"])
+        self._solution = self._solution_of(sol)
         self._last_stats["path"] = "fast" if "dense_overflow" in sol \
             else "reference"
 
@@ -394,8 +430,15 @@ class TreeNSearch:
         implementation, ``TreeNSearch.cpp:150-160``), at any stencil
         width; ``set_scalar_double_accum`` selects float64 d^2."""
         sol = self._execute(*self._setup(), fast=False)
-        self._solution = NeighborSolution(sol["pairs"])
+        self._solution = self._solution_of(sol)
         self._last_stats["path"] = "reference"
+
+    def _solution_of(self, sol: dict) -> NeighborSolution:
+        """The getters' view of a search's pairs: under a mesh each rank
+        holds its own rows, which the getters gather."""
+        if self._axis is None:
+            return NeighborSolution(sol["pairs"])
+        return ShardedSolution(sol["pairs"], self._axis.gather_rows)
 
     def run_reduce(self, fn: Callable, n_out: int = 1,
                    payload=None) -> dict:
@@ -502,9 +545,20 @@ class TreeNSearch:
         occupied cells, largest count (0 without neighbor lists), widest
         cut window or candidate count (``cand_max``), cell size, stencil,
         whether the carry served it (``carried``, whose ``desc``
-        ``print_state`` reads) and whether the structure was rebuilt."""
+        ``print_state`` reads) and whether the structure was rebuilt.
+
+        Under a mesh (``treensearch_tpu/api.py:685-718``) the sharded
+        engines run in the JAX order: the reduce, then the fast path where
+        the fused gate admits the config, else the pipeline; the mask
+        raises.  Each attempt's flags are the maxima over the ranks, so
+        every rank regrows alike.  A mesh run bypasses the carry and the
+        tile-slot snug."""
         n = self.get_total_n_points()
         contract = mode.get("reduce") is not None or mode.get("mask", False)
+        if mode.get("mask") and self._axis is not None:
+            raise NotImplementedError(
+                "run_mask requires the single-chip Pallas fast path "
+                f"({_FUSED_GATE}, no mesh)")
         use_fast = fast
         if self._dense_cap is None:
             self._dense_cap = self._default_dense_cap()
@@ -522,7 +576,15 @@ class TreeNSearch:
                 raise NotImplementedError(
                     f"{what} requires the Pallas fast path ({_FUSED_GATE})")
             fused = use_fast and (contract or applicable(cfg, knobs))
-            if fused and self._use_carry and n > 0:
+            if self._axis is not None and fused:
+                sol, state = build_and_search_sharded_fast(
+                    points, radii, sr, cell, self._grid_state, cfg, knobs,
+                    self._axis.mesh, self._axis.axis, **mode)
+            elif self._axis is not None:
+                sol, state = build_and_search_sharded(
+                    points, radii, sr, cell, self._grid_state, cfg,
+                    self._axis.mesh, self._axis.axis)
+            elif fused and self._use_carry and n > 0:
                 sol, state, self._fast_carry = build_and_search_fast_carry(
                     points, sr, cell, self._grid_state,
                     self._get_carry(cfg, knobs), cfg, knobs, radii=radii,
@@ -600,6 +662,8 @@ class TreeNSearch:
                                 "cell_size": cell, "stencil_w": w,
                                 "carried": "rebuilt" in sol,
                                 "rebuilt": flags.get("rebuilt", 1)}
+            if "slab_rows" in sol:   # this rank's owned, left, right rows
+                self._last_stats["slab_rows"] = sol["slab_rows"]
             return sol
         raise RuntimeError(
             "padding caps failed to converge "
@@ -634,7 +698,9 @@ class TreeNSearch:
             if snug < self._dense_cap:
                 self._dense_cap = snug
             self._dense_snug = True
-        if not self._tiles_snug and self._tiles_auto:
+        if not self._tiles_snug and self._tiles_auto and self._axis is None:
+            # (under a mesh the owned-row filter kills interior tiles, so
+            # the used tiles are not a prefix of the layout)
             used = int(sol["tiles_used"])
             if used > 0:
                 snug = round_up(int(used * 1.04) + 32, 8)
@@ -652,23 +718,31 @@ class TreeNSearch:
         return cap
 
     # ------------------------------------------------------------- queries
+    # Under a mesh each rank holds the rows of its own points; the getters
+    # gather every rank's rows of the pair at their first call after a
+    # search, so they are collective: call them on every rank alike.
     def get_neighborlist(self, set_i: int, set_j: int,
                          i: int) -> NeighborList:
+        """Neighbors in set_j of point i of set_i (collective under a
+        mesh)."""
         self._require_solution()
         return self._solution.get_neighborlist(set_i, set_j, i)
 
     def for_each_neighbor(self, set_i: int, set_j: int, i: int,
                           f: Callable[[int], None]) -> None:
+        """``f(j)`` for each neighbor j (collective under a mesh)."""
         for j in self.get_neighborlist(set_i, set_j, i):
             f(j)
 
     def get_neighbors(self, set_i: int, set_j: int):
-        """Device tensors ``(counts (n_i,), nbrs (n_i, cap))``, -1 padded."""
+        """Device tensors ``(counts (n_i,), nbrs (n_i, cap))``, -1 padded
+        (collective under a mesh)."""
         self._require_solution()
         return self._solution.get_neighbors_device(set_i, set_j)
 
     def get_counts(self, set_i: int, set_j: int) -> np.ndarray:
-        """Neighbor counts without materializing the neighbor rows."""
+        """Neighbor counts without materializing the neighbor rows
+        (collective under a mesh)."""
         self._require_solution()
         return self._solution.get_counts(set_i, set_j)
 
@@ -683,11 +757,6 @@ class TreeNSearch:
 
     def get_n_threads(self) -> int:
         return self._n_threads
-
-    def get_mesh(self):
-        """The device mesh: always None, multi-GPU execution is not ported
-        (``mesh=`` and ``distribute`` raise)."""
-        return None
 
     def get_n_points_in_set(self, set_i: int) -> int:
         self._require_set(set_i)
@@ -816,10 +885,6 @@ class TreeNSearch:
 
             return step, fresh_state(dev)
         return step, (fresh_state(dev), make_fast_carry0(cfg, knobs, dev))
-
-    # ------------------------------------------------- not yet ported
-    def distribute(self, mesh, axis: str = "d") -> None:
-        raise _not_ported("multi-GPU execution (distribute)", 14)
 
     # ---------------------------------------------------------------- zsort
     def prepare_zsort(self) -> None:

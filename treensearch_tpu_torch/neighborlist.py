@@ -5,7 +5,8 @@ pair (set_i, set_j) the solution holds ``counts`` (n_i,) and tile-layout
 neighbor rows that ``materialize_nbrs`` turns into (n_i, cap) rows with -1
 padding.  ``NeighborList`` handles mirror the reference's
 ``NeighborList.h:8-39``; ``get_neighbors_device`` keeps everything on the
-device as torch tensors.
+device as torch tensors.  ``ShardedSolution`` is a mesh run's form, which
+gathers each rank's rows on demand.
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ class NeighborList:
         return f"NeighborList(n={self.size()})"
 
 
+def _inactive(si: int, sj: int) -> KeyError:
+    return KeyError(f"search ({si} -> {sj}) is not active; activate it with "
+                    "set_active_search before run()")
+
+
 class NeighborSolution:
     """One run's results for all active pairs; each pair's arrays are
     copied to the host at most once."""
@@ -54,9 +60,7 @@ class NeighborSolution:
     def _pair(self, si: int, sj: int) -> dict:
         key = f"{si}-{sj}"
         if key not in self._dev:
-            raise KeyError(
-                f"search ({si} -> {sj}) is not active; activate it with "
-                "set_active_search before run()")
+            raise _inactive(si, sj)
         return self._dev[key]
 
     def _fetch(self, si: int, sj: int):
@@ -98,3 +102,33 @@ class NeighborSolution:
                 else p["nbrs_tiles"].shape[1]
             total += 4 * n * (1 + cap)
         return total
+
+
+class ShardedSolution(NeighborSolution):
+    """A mesh run's results (``parallel/sharded.py``): on each rank every
+    pair holds the counts and rows of the rank's own points of its query
+    set, and ``rows``, the number each rank holds.  A pair's first getter
+    call gathers every rank's rows (``gather(tensor, rows)``), so the
+    getters are collective: every rank calls them alike, as it calls the
+    search."""
+
+    def __init__(self, pairs_local: dict, gather):
+        super().__init__({})
+        self._local = pairs_local
+        self._gather = gather
+
+    def _pair(self, si: int, sj: int) -> dict:
+        key = f"{si}-{sj}"
+        if key not in self._local:
+            raise _inactive(si, sj)
+        if key not in self._dev:
+            p = self._local[key]
+            self._dev[key] = {"counts": self._gather(p["counts"], p["rows"]),
+                              "nbrs": self._gather(p["nbrs"], p["rows"])}
+        return self._dev[key]
+
+    def n_bytes(self) -> int:
+        """``NeighborSolution.n_bytes`` over every rank's rows; no
+        collective."""
+        return sum(4 * sum(p["rows"]) * (1 + p["nbrs"].shape[1])
+                   for p in self._local.values())

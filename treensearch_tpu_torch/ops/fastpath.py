@@ -147,14 +147,21 @@ def _lin_coords(ijk: torch.Tensor, w: int, dy, dz) -> torch.Tensor:
 
 
 def _padded_lin(points: torch.Tensor, state: GridState, cfg: SearchConfig,
-                knobs: FastKnobs):
-    """Linear padded cell id per point, plus the padded grid strides."""
+                knobs: FastKnobs, lin_base=None):
+    """Linear padded cell id per point, plus the padded grid strides.
+    ``lin_base`` (a device scalar) rebases the id to a contiguous window
+    of the global grid (a rank's slab and halos, ``parallel/sharded.py``);
+    quantization keeps the global grid origin, so the cell of every point
+    is the one-device cell (``fastpath.py:477-497`` of the JAX
+    package)."""
     w = cfg.stencil_w
     dy = state.n_cells[1] + 2 * w
     dz = state.n_cells[2] + 2 * w
     inv_cell = 1.0 / state.cell_size
     ijk = K.quantize(points, state.grid_min, inv_cell, state.n_cells)
     lin = _lin_coords(ijk, w, dy, dz)
+    if lin_base is not None:
+        lin = lin - lin_base
     lin = torch.clamp(lin, 0, knobs.dense_cap - 1)
     return lin, dy, dz, inv_cell
 
@@ -174,7 +181,9 @@ def _i32(x) -> torch.Tensor:
 
 def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
           knobs: FastKnobs, radii: torch.Tensor | None = None,
-          padded: bool = False) -> FastCarry:
+          padded: bool = False, valid: torch.Tensor | None = None,
+          owned_rng: tuple | None = None, lin_base=None,
+          span_i=None) -> FastCarry:
     """Sort, dense table, row-aligned layout and window descriptors
     (``_pallas_prep``, row layout, window starts in sorted space: the
     ``win_sorted`` branch that production ``rec_expand`` uses).  With
@@ -185,7 +194,17 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     its length.  In variable mode (``cfg.variable``, ``radii`` (n,)
     float32) each window reaches only as far as the larger of the tile's
     and the neighbor row's largest radius.  Requires ``cfg.n_points >
-    0``.  ``_prep.calls`` counts its calls."""
+    0``.  ``_prep.calls`` counts its calls.
+
+    The sharded search's parameters (``fastpath.py:499-515, 699-705,
+    733-736`` of the JAX package): ``valid`` ((n,) bool) parks the rows
+    flagged False in the last dense-table slot, after every real row;
+    ``lin_base`` rebases the cell ids (``_padded_lin``); ``span_i``, the
+    padded i-extent of that window, replaces the grid's in the dense and
+    row overflow checks; ``owned_rng`` ((lo, hi) in rebased padded row-i
+    units, ``trow // dy``) leaves the tiles of grid rows outside [lo, hi)
+    no windows and marks them dead (FAT_COL = 2), so only the owned rows
+    are queries while every row serves as a candidate."""
     _prep.calls += 1
     st = _statics(cfg, knobs)
     n = cfg.n_points
@@ -198,8 +217,10 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     def arange(m):
         return torch.arange(m, dtype=torch.int32, device=dev)
 
-    dx = state.n_cells[0] + 2 * w
-    lin, dy, dz, inv_cell = _padded_lin(points, state, cfg, knobs)
+    dx = state.n_cells[0] + 2 * w if span_i is None else span_i
+    lin, dy, dz, inv_cell = _padded_lin(points, state, cfg, knobs, lin_base)
+    if valid is not None:
+        lin = torch.where(valid, lin, dense_cap - 1)
     # in float, so a huge sparse domain cannot wrap int32
     dense_size_f = (dx.to(torch.float32) * dy.to(torch.float32)
                     * dz.to(torch.float32))
@@ -295,6 +316,10 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     else:
         starts = torch.clamp(s, 0, n)
     n_win = len(st["offs_2d"])
+    if owned_rng is not None:
+        i_pad = trow // dy
+        has = has & (i_pad >= owned_rng[0]) & (i_pad < owned_rng[1])
+        lens = lens * has[:, None]
 
     desc = torch.zeros((nt8, DESC_W), dtype=torch.int32, device=dev)
     desc[:tiles_cap, :n_win] = starts
@@ -346,13 +371,15 @@ def make_fast_carry0(cfg: SearchConfig, knobs: FastKnobs,
 def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
                    radii: torch.Tensor | None = None,
                    set_ids: torch.Tensor | None = None,
-                   payload: torch.Tensor | None = None) -> torch.Tensor:
+                   payload: torch.Tensor | None = None,
+                   orig: torch.Tensor | None = None) -> torch.Tensor:
     """Sorted field-major records (8, n) int32: x, y, z and r as float32
     bit patterns (r = 0 without ``radii``), orig (the index into the
-    concatenated sets), the set id (0 without ``set_ids``), and the
-    reduce contract's payload p0, p1 as float32 bit patterns (0 without
-    ``payload`` (n, 2) float32; ``fastpath.py:1119-1123, 1178-1198`` of
-    the JAX package)."""
+    concatenated sets: ``idx_s``, or with ``orig`` (n,) int32 that of
+    each row, as the sharded search's routed rows carry it), the set id
+    (0 without ``set_ids``), and the reduce contract's payload p0, p1 as
+    float32 bit patterns (0 without ``payload`` (n, 2) float32;
+    ``fastpath.py:1119-1123, 1178-1198`` of the JAX package)."""
     n = points.shape[0]
     order = idx_s.long()
     recs_t = torch.zeros((N_FIELDS, n), dtype=torch.int32,
@@ -360,7 +387,7 @@ def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
     recs_t[F_X:F_Z + 1] = points[order].view(torch.int32).t()
     if radii is not None:
         recs_t[F_R] = radii[order].view(torch.int32)
-    recs_t[F_ORIG] = idx_s
+    recs_t[F_ORIG] = idx_s if orig is None else orig[order]
     if set_ids is not None:
         recs_t[F_SET] = set_ids[order]
     if payload is not None:
@@ -394,15 +421,24 @@ class KernelInputs(NamedTuple):
 def kernel_inputs(points: torch.Tensor, search_radius: float,
                   carry: FastCarry, cfg: SearchConfig, knobs: FastKnobs,
                   radii: torch.Tensor | None = None,
-                  payload: torch.Tensor | None = None) -> KernelInputs:
+                  payload: torch.Tensor | None = None,
+                  orig: torch.Tensor | None = None,
+                  set_ids: torch.Tensor | None = None) -> KernelInputs:
     """Record build and the kernels' static arguments (``_pallas_search``,
     ``fastpath.py:1083-1098, 1158-1232``); ``payload`` (n, 2) float32
-    rides the records for the fused reduce."""
+    rides the records for the fused reduce.  ``orig`` and ``set_ids``
+    ((n,) int32) give each row's concatenated index and set when the rows
+    are not the sets of ``cfg`` themselves: the sharded search's routed
+    rows, whose ``carry`` covers only them (the role of ``_pallas_search
+    (orig_ids=, set_ids_data=)``); ``cfg`` then still describes the
+    global sets."""
     st = _statics(cfg, knobs)
     multi = cfg.n_sets > 1
+    if set_ids is None and multi:
+        set_ids = set_ids_of(cfg, points.device)
     recs = sorted_records(
-        points, carry.idx_s, radii if cfg.variable else None,
-        set_ids_of(cfg, points.device) if multi else None, payload)
+        points, carry.idx_s, radii if cfg.variable else None, set_ids,
+        payload, orig)
     r = np.float32(search_radius)
     cand = st["cand_sets"]
     return KernelInputs(

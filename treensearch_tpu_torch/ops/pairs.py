@@ -40,6 +40,7 @@ other.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -117,9 +118,11 @@ def build_library(name: str, text: bytes, build_dir: Path | None = None,
                   source: Path | None = None) -> _Library:
     """Build the CUDA source ``text`` into ``build_dir/<name>_<hash>.so``
     and load it, once per hash of the text and the flags, in and across
-    processes.  ``source`` is the file the text was read from; without
-    one the text is first written to ``<name>_<hash>.cu`` beside the
-    library (a generated source).
+    processes: a build holds an exclusive lock on ``<name>_<hash>.lock``,
+    so processes that start together (the ranks of a mesh) run one
+    ``nvcc`` and the others load its library.  ``source`` is the file the
+    text was read from; without one the text is first written to
+    ``<name>_<hash>.cu`` beside the library (a generated source).
 
     Raises ``RuntimeError`` when ``nvcc`` is missing or the build fails.
     """
@@ -130,8 +133,6 @@ def build_library(name: str, text: bytes, build_dir: Path | None = None,
         return _LOADED[str(out)]
     command, log, seconds = [], "(cached build)", 0.0
     log_file = out.with_suffix(".log")   # nvcc's output, kept for reuse
-    if out.exists() and log_file.exists():
-        log = log_file.read_text()
     if not out.exists():
         nvcc = _find_nvcc()
         if nvcc is None:
@@ -139,24 +140,36 @@ def build_library(name: str, text: bytes, build_dir: Path | None = None,
                 "cannot build the CUDA kernels: nvcc not found (set "
                 "CUDA_HOME or put nvcc on PATH)")
         build_dir.mkdir(parents=True, exist_ok=True)
-        if source is None:
-            source = out.with_suffix(".cu")
-            _replace_atomically(text, source, ".cu")
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-        os.close(fd)
-        command = [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(command, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        _replace_atomically(log.encode(), log_file, ".log")
-        os.replace(tmp, out)
+        with open(out.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)   # released when closed
+            if not out.exists():
+                command, log, seconds = _nvcc(nvcc, text, out, source)
+    if not command and log_file.exists():
+        log = log_file.read_text()
     loaded = _Library(ctypes.CDLL(str(out)), out, command, log, seconds)
     _LOADED[str(out)] = loaded
     return loaded
+
+
+def _nvcc(nvcc: str, text: bytes, out: Path, source: Path | None):
+    """One nvcc build of ``text`` into ``out`` and its log beside it;
+    returns the command, nvcc's output and its seconds."""
+    if source is None:
+        source = out.with_suffix(".cu")
+        _replace_atomically(text, source, ".cu")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    command = [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    _replace_atomically(log.encode(), out.with_suffix(".log"), ".log")
+    os.replace(tmp, out)
+    return command, log, seconds
 
 
 def load_library(build_dir: Path | None = None) -> _Library:

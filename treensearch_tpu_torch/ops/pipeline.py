@@ -64,18 +64,26 @@ class SortedStructure(NamedTuple):
 
 def sorted_structure(points: torch.Tensor, radii: Optional[torch.Tensor],
                      search_radius: float, state: GridState,
-                     cfg: SearchConfig) -> SortedStructure:
+                     cfg: SearchConfig, orig: Optional[torch.Tensor] = None,
+                     set_ids: Optional[torch.Tensor] = None
+                     ) -> SortedStructure:
     """Quantize, key and sort (``pipeline.py:78-118`` of the JAX
-    package).  ``points`` (n, 3) float32 holds the concatenated sets."""
+    package).  ``points`` (n, 3) float32 holds the concatenated sets; or,
+    with ``orig`` and ``set_ids`` ((n,) int32: each row's concatenated
+    index and set), any rows of them, as the sharded search's routed rows
+    (``parallel/sharded.py``)."""
     dev = points.device
     n = points.shape[0]
     inv_cell = 1.0 / state.cell_size
     ijk = K.quantize(points, state.grid_min, inv_cell, state.n_cells)
     hi, lo = K.cell_keys(ijk)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
-    hi_s, lo_s, idx_s = K.sort_by_2word_key(hi, lo, iota)
+    hi_s, lo_s, perm = K.sort_by_2word_key(hi, lo, iota)
     key_s = K.key64(hi_s, lo_s)
-    order = idx_s.long()
+    order = perm.long()
+    idx_s = perm if orig is None else orig[order]
+    if set_ids is None:
+        set_ids = set_ids_of(cfg, dev)
     if n > 1:
         n_cells_stat = 1 + (key_s[1:] != key_s[:-1]).sum().to(torch.int32)
     else:
@@ -83,7 +91,7 @@ def sorted_structure(points: torch.Tensor, radii: Optional[torch.Tensor],
     r = torch.tensor(search_radius, dtype=torch.float32, device=dev)
     return SortedStructure(
         hi_s=hi_s, lo_s=lo_s, idx_s=idx_s,
-        pts_s=points[order], set_id_s=set_ids_of(cfg, dev)[order],
+        pts_s=points[order], set_id_s=set_ids[order],
         r_s=radii[order] if cfg.variable else None, ijk_s=ijk[order],
         n_cells_xyz=state.n_cells, r2_fixed=r * r,
         offsets_arr=torch.tensor(cfg.set_offsets, dtype=torch.int32,
@@ -91,14 +99,21 @@ def sorted_structure(points: torch.Tensor, radii: Optional[torch.Tensor],
         n_cells_stat=n_cells_stat, key_s=key_s)
 
 
-def make_chunk_body(s: SortedStructure,
-                    cfg: SearchConfig) -> Callable[[int, int], dict]:
+def make_chunk_body(s: SortedStructure, cfg: SearchConfig,
+                    queries: Optional[dict] = None
+                    ) -> Callable[[int, int], dict]:
     """The search of sorted query rows [r0, r1) (``pipeline.py:121-258``
     of the JAX package; the role of the reference's ``_brute_force_simd``,
     ``TreeNSearch.cpp:2400-2569``): ``body(r0, r1)`` returns
     ``{"cand_total": (r1 - r0,) int32 candidates before the cap, "<si>-
     <sj>": {"counts": (r1 - r0,) int32, "nbrs": (r1 - r0, nbr_cap)
-    int32}}`` in sorted order."""
+    int32}}`` in sorted order.
+
+    ``queries`` decouples the queries from the sorted candidates: a dict
+    of ``orig`` (m,), ``ijk`` (m, 3), ``pts`` (m, 3), ``set_id`` (m,) and,
+    in variable mode, ``r`` (m,), whose rows [r0, r1) the body then
+    searches (the sharded search's owned rows, while its halo rows serve
+    as candidates only)."""
     n = s.idx_s.shape[0]
     dev = s.idx_s.device
     w = cfg.stencil_w
@@ -110,13 +125,16 @@ def make_chunk_body(s: SortedStructure,
     slot = torch.arange(cap, dtype=torch.int64, device=dev)
     f64 = cfg.scalar_f64
     dtype = torch.float64 if f64 else torch.float32
+    if queries is None:
+        queries = {"orig": s.idx_s, "ijk": s.ijk_s, "pts": s.pts_s,
+                   "set_id": s.set_id_s, "r": s.r_s}
 
     def body(r0: int, r1: int) -> dict:
         b = r1 - r0
-        my_orig = s.idx_s[r0:r1]
-        my_ijk = s.ijk_s[r0:r1]
-        my_pos = s.pts_s[r0:r1]
-        my_set = s.set_id_s[r0:r1]
+        my_orig = queries["orig"][r0:r1]
+        my_ijk = queries["ijk"][r0:r1]
+        my_pos = queries["pts"][r0:r1]
+        my_set = queries["set_id"][r0:r1]
         # (2W+1)^2 contiguous candidate ranges per query
         ii = my_ijk[:, 0, None] + di[None, :]
         jj = my_ijk[:, 1, None] + dj[None, :]
@@ -146,7 +164,7 @@ def make_chunk_body(s: SortedStructure,
         dx, dy, dz = d.unbind(-1)
         d2 = (dx * dx + dy * dy) + dz * dz       # fixed add order
         if cfg.variable:
-            q_r = s.r_s[r0:r1]
+            q_r = queries["r"][r0:r1]
             crit = d2 <= (q_r * q_r).to(dtype)[:, None]
             if cfg.symmetric:
                 c_r = s.r_s[cand].to(dtype)
