@@ -14,7 +14,10 @@ then K5) at config 1, each call with every set's points moved by up to
 beforehand), so the temporal-coherence carry rebuilds in every call as
 in ``chip_smoke.py``'s paths; and for config 1's ``run()`` and
 ``make_step_fn(reuse=True)`` step at static positions (the carry reused,
-no prep); and for the fallbacks, config 1's ``run()`` on the tile path
+no prep), and for that step captured as one CUDA graph
+(``chip_smoke.py``'s ``capture_step``) and replayed at static positions
+and with positions moved by up to 1e-4 copied into its input before each
+replay (every replay rebuilds); and for the fallbacks, config 1's ``run()`` on the tile path
 (``set_use_pallas(False)``), ten candidate sets (config 3's boundary as
 9 rigid bodies) and config 1's ``run_scalar()``, each moving; and for
 z-sort at config 1, ``prepare_zsort`` on the cell path (after a
@@ -228,6 +231,30 @@ def main() -> int:
     profile(eng, "config 1 make_step_fn(reuse=True), static positions",
             card, call=static_step, moving=False)
     del eng, step, state, carried
+    # the same step captured as one CUDA graph (chip_smoke.py phase 17),
+    # replayed at static positions, then with jittered positions copied
+    # into its input before each replay (every replay rebuilds)
+    from chip_smoke import capture_step
+    eng = make_engine(pts, RADIUS)
+    eng.run()
+    eng.run()
+    step, state = eng.make_step_fn(reuse=True)
+    static = pts.clone()
+    graph, _, state, _ = capture_step(step, state, (static,), {})
+    profile(eng, "config 1 step graph replay, static positions", card,
+            call=graph.replay, kernel="", moving=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = iter([pts + (torch.rand(pts.shape, generator=gen, device=dev)
+                        * 2 - 1) * JITTER
+                 for _ in range(2 + N_TIMED + N_PROFILED)])
+
+    def jittered_replay():
+        static.copy_(next(pool))
+        graph.replay()
+
+    profile(eng, "config 1 step graph replay, jittered", card,
+            call=jittered_replay, kernel="", moving=False)
+    del eng, step, state, graph, pool, static
     tile = make_engine(pts, RADIUS)
     tile.set_use_pallas(False)
     profile(tile, "config 1 run(), tile path", card, kernel="tile search")

@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: the card's name and power limit from nvidia-smi; CUDA required;
-2. build: ``csrc/pairs.cu`` and the fused reduce's kernel for each of the
+2. build: ``csrc/pairs.cu``, ``csrc/cond.cu`` (the step graphs'
+   conditional node) and the fused reduce's kernel for each of the
    five callbacks below (``csrc/reduce.cu`` with the traced callback),
    compiled by nvcc for sm_90a, one nvcc each, all started together, with
    their times and each kernel's registers, shared memory and spills
@@ -119,6 +120,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    rank's owned, halo and local rows, peak memory, launches and its times
    on the shared card (printed, not judged).  A line of the sharded
    launches by kernel id precedes the kernels line.
+17. step graphs (``torch.cuda.graph`` of ``make_step_fn`` steps, each
+   after an eager warm-up of a rebuilding and a reusing step; each graph
+   launches every kernel of its path once, counted at capture): config
+   1's ``reuse=True`` step replayed 50 times at static positions with
+   ``bench.py``'s checksum of ``counts[::257]`` (32,759,462 pairs), then at
+   in-cell moves and at 1e-4 jitter, the next positions copied into the
+   graph's input before each replay, every replay's ``rebuilt``, counts
+   and rows equal to an eager step's on the same positions; torch.profiler
+   over replays shows K1 once per replay and sort kernels (the prep's)
+   only on rebuilding ones; ms per replay beside phase 11's eager ms/step.
+   Then the density step (K3) against ``run_reduce``, the mask step (K4
+   with its static row cap) against ``run_mask`` on the live rows, a mask
+   step capped below its rows flagging ``mask_overflow`` with exact
+   counts, the split step (K4 then K5), config 3's two-set step (K2b) and
+   config 4's variable symmetric step (K2c; a radius change at static
+   positions rebuilds), each replayed against eager steps, bit for bit.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
@@ -355,7 +372,9 @@ def settled_inputs(eng, payload=None, padded: bool = False):
     cell = eng._effective_cell_size(bounds)
     cfg = eng._make_cfg(eng._stencil_w(cell, bounds))
     knobs = eng._knobs()
-    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii, padded)
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii, padded,
+                     consts=fp.step_constants(cfg, knobs, cell,
+                                              points.device))
     flags = [int(carry.dense_overflow), int(carry.rows_overflow),
              int(carry.tile_overflow)]
     if any(flags):
@@ -617,8 +636,10 @@ def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
 
 def check_k4(a, allow, q, name: str = "pairs_mask") -> dict:
     """K4 against its plain version on these inputs: row bases, bits word
-    for word and counts equal; its time in turns with the plain version
-    and its bound (``name`` labels the lines)."""
+    for word and counts equal, uncapped and with a static row cap below
+    and above the row count (the live rows below the cap); its time in
+    turns with the plain version and its bound (``name`` labels the
+    lines)."""
     import torch
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs
@@ -639,6 +660,20 @@ def check_k4(a, allow, q, name: str = "pairs_mask") -> dict:
     if words or err:
         raise AssertionError(f"{name}: {words} bit words differ, counts "
                              f"by up to {err}")
+    rows = b_k.shape[0]
+    for cap in (rows // 2, rows + 1000):
+        (c_k, b_kc, _), (c_p, b_pc, _) = (
+            f(*args, **kw, rows_cap=cap)
+            for f in (pairs.pairs_mask, pairs.pairs_mask_plain))
+        live = min(cap, rows)
+        if not (b_kc.shape[0] == cap and torch.equal(c_k, c_p)
+                and torch.equal(b_kc[:live], b_pc[:live])
+                and torch.equal(b_kc[:live], b_k[:live])):
+            raise AssertionError(f"{name}: with a {cap}-row cap the kernel "
+                                 "differs from plain")
+        print(f"{name}: with a {cap}-row cap, counts and the {live} live "
+              "rows equal to plain and to the uncapped bits", flush=True)
+    del b_kc, b_pc
     rec = {"name": name, "max_abs_err": err}
     rec.update(k4_bound(a, b_k.shape[0]))
     print(f"{name}: bits equal word for word over {b_k.shape[0]} "
@@ -1449,13 +1484,427 @@ def run_carry_path(pts_t, mass_t, card: str) -> dict:
     sol, _, out["mask"] = run_steps(
         step, state, lambda k: pts_t, "carry mask step", card,
         (pairs.expand_query_tiles, pairs.pairs_mask))
+    rows = int(mask["cand_base"][-1])   # the step's bits have a row cap
     if out["mask"]["rebuilt"] != [1] + [0] * (N_STEPS - 1) or not all(
             torch.equal(sol["mask"][k], mask[k])
-            for k in ("bits", "cand_base", "counts_flat", "qpos")):
+            for k in ("cand_base", "counts_flat", "qpos")) \
+            or not torch.equal(sol["mask"]["bits"][:rows], mask["bits"]) \
+            or int(sol["mask_overflow"]):
         raise AssertionError("carry mask step differs from run_mask")
     print("carry: the density step equal to run_reduce and the mask step "
           "to run_mask bit for bit, steps 2-6 reusing the carry",
           flush=True)
+    return out
+
+
+# ------------------------------------------------ phase 17: step graphs
+N_REPLAYS = 50          # phase 17: bench.py's loop of steps
+N_PROFILED_REPLAYS = 5  # phase 17: replays under torch.profiler
+
+
+def capture_step(step, state, args: tuple, kw: dict, extra=None):
+    """A ``make_step_fn`` step captured as one CUDA graph, after an eager
+    warm-up of two steps on ``args`` (the first rebuilds, the second
+    reuses: every kernel is built and every workspace made) on a side
+    stream.  ``extra(sol)`` is recorded after the step (bench.py's
+    checksum).  Every kernel's count is set to 0 just before the capture;
+    the counts after it are the graph's launches per replay.  Returns
+    (graph, the static solution, state, launches)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            sol, state = step(state, *args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    del sol
+    kernels = pairs_kernels()
+    for k in kernels:
+        k.launches = 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sol, state = step(state, *args, **kw)
+        if extra is not None:
+            extra(sol)
+    torch.cuda.synchronize()
+    return graph, sol, state, {k.__name__: k.launches for k in kernels}
+
+
+def _check_graph_launches(launches: dict, label: str, path: tuple) -> None:
+    names = {k.__name__ for k in path}
+    if any(v != (1 if k in names else 0) for k, v in launches.items()):
+        raise AssertionError(f"{label}: the captured step does not launch "
+                             f"each kernel of its path once: {launches}")
+
+
+def _pair_rows(pair):
+    """A pair's counts and materialized rows, read from a copy of its dict
+    (``materialize_nbrs`` rewrites the dict, a graph's static output)."""
+    from treensearch_tpu_torch.ops import fastpath as fp
+    return pair["counts"].clone(), fp.materialize_nbrs(dict(pair))
+
+
+def _same_pairs(got: dict, want: dict, label: str) -> None:
+    """Every pair's counts equal and rows equal slot for slot."""
+    import torch
+    for name in want:
+        (c_g, r_g), (c_w, r_w) = _pair_rows(got[name]), _pair_rows(want[name])
+        if not (torch.equal(c_g, c_w) and torch.equal(r_g, r_w)):
+            raise AssertionError(f"{label}: pair {name} differs from the "
+                                 "eager step")
+
+
+def _same_mask(got: dict, want: dict, label: str) -> int:
+    """Two mask solutions: row bases, per-slot counts and query slots
+    equal, the live rows word for word.  Returns the live rows."""
+    import torch
+    g, w = got["mask"], want["mask"]
+    rows = int(w["cand_base"][-1])
+    if not (all(torch.equal(g[k], w[k]) for k in ("cand_base",
+                                                  "counts_flat", "qpos"))
+            and torch.equal(g["bits"][:rows], w["bits"][:rows])):
+        raise AssertionError(f"{label}: the mask differs on its live rows")
+    return rows
+
+
+def replay_profile(replay, label: str, card: str) -> dict:
+    """N_PROFILED_REPLAYS calls of ``replay`` under torch.profiler: device
+    events by kernel per replay, device work per replay and idle share."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_profile import busy_ms
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(N_PROFILED_REPLAYS):
+            replay()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError(f"{label}: the profiler saw no device event")
+    names = collections.Counter(e.name for e in events)
+    busy, window = busy_ms(events)
+    out = {"events": len(events) / N_PROFILED_REPLAYS,
+           "device_ms": busy / N_PROFILED_REPLAYS,
+           "idle": 1 - busy / window,
+           "k1": sum(v for k, v in names.items()
+                     if "expand_query_tiles_kernel" in k),
+           "sort": sum(v for k, v in names.items() if "sort" in k.lower())}
+    print(f"{label}: {N_PROFILED_REPLAYS} replays profiled, "
+          f"{out['events']:.1f} device events and {out['device_ms']:.4f} "
+          f"ms of device work per replay, idle share {out['idle']:.3f}, "
+          f"K1 {out['k1']} launches, sort kernels {out['sort']} ({card})",
+          flush=True)
+    return out
+
+
+def _timed_replays(replay, count: int) -> float:
+    """Host ms per ``replay()`` over ``count`` calls, synchronised before
+    and after the loop (bench.py's measure)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        replay()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / count
+
+
+def moves(pts_t, state, count: int, amp: float, in_cell: bool,
+          seed: int) -> list:
+    """``count`` position sets, each moved from the last by up to ``amp``
+    per coordinate; with ``in_cell`` a move that would change a point's
+    cell under the grid of ``state`` is dropped."""
+    import torch
+    from treensearch_tpu_torch.utils.keys import quantize
+    grid = state[0]
+    inv_cell = 1.0 / grid.cell_size
+    gen = torch.Generator(device=pts_t.device).manual_seed(seed)
+    cur, out = pts_t, []
+    cells = quantize(pts_t, grid.grid_min, inv_cell, grid.n_cells)
+    for _ in range(count):
+        nxt = cur + (torch.rand(cur.shape, generator=gen,
+                                device=cur.device) * 2 - 1) * amp
+        if in_cell:
+            keep = (quantize(nxt, grid.grid_min, inv_cell, grid.n_cells)
+                    == cells).all(dim=1)
+            nxt = torch.where(keep[:, None], nxt, cur)
+        out.append(nxt)
+        cur = nxt
+    return out
+
+
+def run_reuse_graph(pts_t, card: str, eager: dict) -> dict:
+    """Phase 17 at config 1: ``make_step_fn(reuse=True)`` captured once and
+    replayed 50 times at static positions with bench.py's checksum, then
+    at in-cell moves and at 1e-4 jitter (the next positions copied into
+    the graph's input before each replay), each replay against an eager
+    step on the same positions (``rebuilt``, counts, rows slot for slot);
+    torch.profiler shows the prep's kernels only on rebuilding replays.
+    ``eager``: phase 11's ms/step by workload."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    n = pts_t.shape[0]
+    eng = make_engine(pts_t, RADIUS)
+    eng.run()
+    eng.run()   # the first run's snug resizes the caps: settle at them
+    path = (pairs.expand_query_tiles, pairs.pairs_nbrs_fixed)
+    static = pts_t.clone()
+    acc = torch.zeros((), dtype=torch.int32, device=pts_t.device)
+
+    def checksum(sol):
+        acc.add_(sol["pairs"]["0-0"]["counts"][::257].sum(dtype=torch.int32))
+
+    step, state = eng.make_step_fn(reuse=True)
+    graph, sol, state, launches = capture_step(step, state, (static,), {},
+                                               checksum)
+    _check_graph_launches(launches, "step graph", path)
+    estep, estate = eng.make_step_fn(reuse=True)
+    for _ in range(2):
+        want, estate = estep(estate, static)
+    out = {}
+    acc.zero_()
+    ms = _timed_replays(graph.replay, N_REPLAYS)
+    pairs0 = int(sol["pairs"]["0-0"]["counts"].sum(dtype=torch.int64))
+    want_sum = int(want["pairs"]["0-0"]["counts"][::257]
+                   .sum(dtype=torch.int64))
+    if int(acc) != N_REPLAYS * want_sum or int(sol["rebuilt"]) != 0:
+        raise AssertionError(f"step graph static: checksum {int(acc)}, "
+                             f"expected {N_REPLAYS} x {want_sum}")
+    if n == N and pairs0 != TPU_PAIRS_SEED0:
+        raise AssertionError(f"step graph static: {pairs0} pairs")
+    _same_pairs(sol["pairs"], want["pairs"], "step graph static")
+    out["static"] = {"ms": ms, "eager_ms": eager["static"]["ms"]}
+    print(f"step graph static: {N_REPLAYS} replays, checksum {int(acc)} = "
+          f"{N_REPLAYS} x {want_sum}, {pairs0} pairs, rows equal to the "
+          f"eager step; {ms:.4f} ms per replay, eager {eager['static']['ms']:.3f}"
+          f" ms/step ({card})", flush=True)
+    out["static"]["profile"] = replay_profile(graph.replay,
+                                              "step graph static", card)
+    if out["static"]["profile"]["sort"] or \
+            out["static"]["profile"]["k1"] != N_PROFILED_REPLAYS:
+        raise AssertionError("step graph static: a replay ran the prep or "
+                             "not K1 once")
+
+    cur = {"k": 0}
+    for label, amp, in_cell, seed in (("in-cell", IN_CELL, True, 4),
+                                      ("jitter", JITTER, False, 5)):
+        seq = moves(static.clone(), state, N_STEPS, amp, in_cell, seed)
+        rebuilt = []
+        for p in seq:
+            static.copy_(p)
+            graph.replay()
+            want, estate = estep(estate, p)
+            rebuilt.append(int(sol["rebuilt"]))
+            if rebuilt[-1] != int(want["rebuilt"]):
+                raise AssertionError(f"step graph {label}: rebuilt differs")
+            _same_pairs(sol["pairs"], want["pairs"], f"step graph {label}")
+        if (label == "in-cell") == any(rebuilt):
+            raise AssertionError(f"step graph {label}: rebuilt {rebuilt}")
+
+        def replay_next():
+            static.copy_(seq[cur["k"] % len(seq)])
+            cur["k"] += 1
+            graph.replay()
+
+        ms = _timed_replays(replay_next, 5 * N_STEPS)
+        out[label] = {"ms": ms, "eager_ms": eager[
+            "in_cell" if in_cell else "jiggle"]["ms"], "rebuilt": rebuilt}
+        print(f"step graph {label}: rebuilt {rebuilt}, counts and rows "
+              f"equal to the eager step in every replay; {ms:.4f} ms per "
+              f"replay (positions copied in), eager "
+              f"{out[label]['eager_ms']:.3f} ms/step ({card})", flush=True)
+        out[label]["profile"] = replay_profile(
+            replay_next, f"step graph {label}", card)
+    if out["in-cell"]["profile"]["sort"]:
+        raise AssertionError("step graph in-cell: a replay ran the prep")
+    prof = out["jitter"]["profile"]
+    if prof["sort"] < N_PROFILED_REPLAYS or \
+            prof["k1"] != N_PROFILED_REPLAYS:
+        raise AssertionError("step graph jitter: a rebuilding replay ran no "
+                             "prep, or not K1 once")
+    del graph, sol, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_vs_eager(label: str, make, args: tuple, kw: dict, path: tuple,
+                   moved: list, same) -> tuple:
+    """One captured step (``make()`` returns ``(step, state)``) against
+    eager steps on the same inputs: the graph and an eager state warmed
+    alike on ``args``, then each entry of ``moved`` (a tuple of new values
+    for ``args``) copied in and replayed beside an eager step, ``same(got,
+    want, label)`` comparing their solutions.  Returns the graph, its
+    static solution, ms per replay and each moved replay's ``rebuilt``."""
+    import torch
+    step, state = make()
+    graph, sol, state, launches = capture_step(step, state, args, kw)
+    _check_graph_launches(launches, label, path)
+    estep, estate = make()
+    for _ in range(2):
+        want, estate = estep(estate, *args, **kw)
+    graph.replay()
+    same(sol, want, f"{label} static")
+    if int(sol["rebuilt"]):
+        raise AssertionError(f"{label}: a static replay rebuilt")
+    rebuilt = []
+    for values in moved:
+        for t, v in zip(args, values):
+            t.copy_(v)
+        graph.replay()
+        want, estate = estep(estate, *args, **kw)
+        rebuilt.append(int(sol["rebuilt"]))
+        if rebuilt[-1] != int(want["rebuilt"]):
+            raise AssertionError(f"{label}: rebuilt differs")
+        same(sol, want, f"{label} moved")
+    ms = _timed_replays(graph.replay, 10)
+    print(f"{label}: captured once, launches {launches}; static and "
+          f"{len(moved)} moved replays equal to the eager step (rebuilt "
+          f"{rebuilt}); {ms:.4f} ms per replay at the last inputs",
+          flush=True)
+    return graph, sol, ms, rebuilt
+
+
+def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
+                    eager: dict) -> dict:
+    """Phase 17: the reuse step (``run_reuse_graph``), then the density
+    step (K3) against ``run_reduce``, the mask step (K4 capped) against
+    ``run_mask`` on the live rows, a mask step capped below its rows
+    flagging ``mask_overflow`` with exact counts, the split step (K4 then
+    K5), config 3's two-set step (K2b) and config 4's variable symmetric
+    step (K2c, a radius change rebuilding), each captured and replayed
+    against eager steps."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import reduce as red
+    t0 = time.perf_counter()
+    out = run_reuse_graph(pts_t, card, eager)
+    k1 = pairs.expand_query_tiles
+
+    def jittered(base: tuple, count: int = 2) -> list:
+        gen = torch.Generator(device=base[0].device).manual_seed(6)
+        return [(base[0] + (torch.rand(base[0].shape, generator=gen,
+                                       device=base[0].device) * 2 - 1)
+                 * JITTER, *base[1:]) for _ in range(count)]
+
+    def same_lists(got, want, label):
+        _same_pairs(got["pairs"], want["pairs"], label)
+
+    eng = make_engine(pts_t, RADIUS)
+    payload = torch.stack([mass_t, torch.zeros_like(mass_t)], dim=1)
+    rho = eng.run_reduce(density_fn, 1, payload=[mass_t])[0][:, 0]
+    rho = eng.run_reduce(density_fn, 1, payload=[mass_t])[0][:, 0]
+    static = pts_t.clone()
+
+    def same_sums(got, want, label):
+        if not torch.equal(got["reduce"]["s0"], want["reduce"]["s0"]):
+            raise AssertionError(f"{label}: the density differs")
+
+    graph, sol, ms, _ = graph_vs_eager(
+        "density step graph", lambda: eng.make_step_fn(reduce=(density_fn,
+                                                               1)),
+        (static,), {"payload": payload}, (k1, red.pairs_reduce),
+        jittered((pts_t,)), same_sums)
+    static.copy_(pts_t)
+    graph.replay()
+    if not torch.equal(sol["reduce"]["s0"][0], rho):
+        raise AssertionError("density step graph differs from run_reduce")
+    out["density"] = {"ms": ms, "eager_ms": eager["reduce"]["ms"]}
+    del graph, sol
+
+    eng.run_mask()
+    mask, _ = eng.run_mask()
+
+    def same_masks(got, want, label):
+        _same_mask(got, want, label)
+        if int(got["mask_overflow"]):
+            raise AssertionError(f"{label}: mask_overflow")
+
+    static.copy_(pts_t)
+    graph, sol, ms, _ = graph_vs_eager(
+        "mask step graph", lambda: eng.make_step_fn(mask_output=True),
+        (static,), {}, (k1, pairs.pairs_mask), jittered((pts_t,)),
+        same_masks)
+    static.copy_(pts_t)
+    graph.replay()
+    rows = _same_mask(sol, {"mask": mask}, "mask step graph vs run_mask")
+    out["mask"] = {"ms": ms, "eager_ms": eager["mask"]["ms"], "rows": rows,
+                   "cap": sol["mask"]["bits"].shape[0]}
+    print(f"mask step graph: {rows} live rows of a {out['mask']['cap']}-row "
+          "cap equal to run_mask's word for word", flush=True)
+    del graph, sol
+
+    # a cap below the rows: the flag, the counts still exact
+    eng._last_stats["mask_rows"] = rows // 2
+    step, state = eng.make_step_fn(mask_output=True)
+    static.copy_(pts_t)
+    graph, sol, state, _ = capture_step(step, state, (static,), {})
+    graph.replay()
+    cap = sol["mask"]["bits"].shape[0]
+    if not (cap < rows and int(sol["mask_overflow"]) == 1
+            and int(sol["mask_rows"]) == rows
+            and torch.equal(sol["mask"]["counts_flat"], mask["counts_flat"])
+            and torch.equal(sol["mask"]["bits"][:cap], mask["bits"][:cap])):
+        raise AssertionError("capped mask step graph: no overflow flag or "
+                             "inexact counts")
+    print(f"capped mask step graph: {rows} rows past a {cap}-row cap, "
+          "mask_overflow = 1, counts equal to run_mask's, the first "
+          f"{cap} rows too", flush=True)
+    del graph, sol, state, eng, mask
+
+    eng = make_engine(pts_t, RADIUS)
+    eng.set_split_stage(True)
+    eng.run()
+    eng.run()
+    static.copy_(pts_t)
+
+    def same_split(got, want, label):
+        same_lists(got, want, label)
+        if int(got["mask_overflow"]):
+            raise AssertionError(f"{label}: mask_overflow")
+
+    graph, sol, ms, _ = graph_vs_eager(
+        "split step graph", lambda: eng.make_step_fn(reuse=True), (static,),
+        {}, (k1, pairs.pairs_mask, pairs.pairs_nbrs_from_bits),
+        jittered((pts_t,)), same_split)
+    out["split"] = {"ms": ms}
+    del graph, sol, eng
+
+    fluid, boundary = data3
+    eng = config3_engine(fluid, boundary)
+    eng.run()
+    eng.run()
+    both = torch.cat([fluid, boundary])
+    static3 = both.clone()
+    graph, sol, ms, _ = graph_vs_eager(
+        "config 3 step graph", lambda: eng.make_step_fn(reuse=True),
+        (static3,), {}, (k1, pairs.pairs_nbrs_sets), jittered((both,)),
+        same_lists)
+    out["config 3"] = {"ms": ms}
+    del graph, sol, eng, static3
+
+    pts4, rad4 = data4
+    eng = config4_engine(pts4, rad4)
+    eng.run()
+    eng.run()
+    static4, radii4 = pts4.clone(), rad4.clone()
+    graph, sol, ms, rebuilt = graph_vs_eager(
+        "config 4 step graph", lambda: eng.make_step_fn(reuse=True),
+        (static4, radii4), {}, (k1, pairs.pairs_nbrs_variable),
+        [(pts4, rad4 * np.float32(0.999))] + jittered((pts4, rad4), 1),
+        same_lists)
+    if rebuilt[0] != 1:
+        raise AssertionError("config 4 step graph: a radius change at "
+                             "static positions did not rebuild (r_chk)")
+    out["config 4"] = {"ms": ms}
+    del graph, sol, eng
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2243,13 +2692,14 @@ def sharded_launches(sharded: dict) -> dict:
 
 
 def build_all() -> None:
-    """Phase 2: ``csrc/pairs.cu`` and K3 for each of CALLBACKS, one nvcc
-    each, all started together."""
+    """Phase 2: ``csrc/pairs.cu``, ``csrc/cond.cu`` and K3 for each of
+    CALLBACKS, one nvcc each, all started together."""
     from functools import partial
 
-    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops import cond, pairs
     from treensearch_tpu_torch.ops import reduce as red
-    jobs = [("pairs.cu", pairs.load_library)] + [
+    jobs = [("pairs.cu", pairs.load_library),
+            ("cond.cu", cond.cond_library)] + [
         (f"reduce.cu + {fn.__name__}",
          partial(red.reduce_library, red.ReduceSpec(fn, n_out), variable))
         for fn, n_out, variable in CALLBACKS]
@@ -2357,6 +2807,9 @@ def main() -> int:
     run_zsort_path(pts_t, card, config3_data(dev))          # phase 15
     sharded = run_sharded_path(pts_t, torch.from_numpy(mass).to(dev),  # 16
                                card, config3_data(dev), config4_data(dev))
+    graphs = run_step_graphs(pts_t, torch.from_numpy(mass).to(dev),  # 17
+                             card, config3_data(dev), config4_data(dev),
+                             steps)
     kernels += [k2b, k2c, k3, k4, k5, k1r]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,
@@ -2374,6 +2827,11 @@ def main() -> int:
           f"{main14['config 4']['ms']:.3f} ({card})", flush=True)
     print("sharded launches: " + json.dumps(sharded_launches(sharded)),
           flush=True)
+    print("config 1 step graph ms per replay: " + ", ".join(
+        f"{k} {v['ms']:.4f} (eager {v['eager_ms']:.3f} ms/step)"
+        for k, v in graphs.items() if "eager_ms" in v)
+        + "; " + ", ".join(f"{k} {v['ms']:.4f}" for k, v in graphs.items()
+                           if "eager_ms" not in v) + f" ({card})", flush=True)
     print(json.dumps({"pairs_reduce (density4_fn, n_out 4)": {
         k: k3_4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms")}}))

@@ -297,8 +297,15 @@ def test_reduce_and_mask_steps_equal_run_reduce_and_run_mask():
     for rebuilt in (1, 0):
         sol, state = step(state, p)
         assert int(sol["rebuilt"]) == rebuilt
-        for k in ("bits", "cand_base", "counts_flat", "qpos"):
+        for k in ("cand_base", "counts_flat", "qpos"):
             assert torch.equal(sol["mask"][k], mask[k]), k
+        # the step's bits have its static row cap: the live rows are
+        # run_mask's, and none was dropped
+        rows = int(mask["cand_base"][-1])
+        assert sol["mask"]["bits"].shape[0] >= rows
+        assert torch.equal(sol["mask"]["bits"][:rows], mask["bits"])
+        assert int(sol["mask_overflow"]) == 0
+        assert int(sol["mask_rows"]) == rows
 
 
 BAD_STEP_ARGS = {

@@ -19,7 +19,10 @@ on the card: neighbor sets equal to brute force, and to the CPU engine's
 rows slot for slot.  Z-sort on the card: the per-point and
 cell-granular orders equal the CPU engine's bit for bit.  The sharded
 search's local fast path, rank by rank: counts equal and neighbor sets
-equal to the one-device ``run()``.
+equal to the one-device ``run()``.  K4 under a static row cap: counts
+exact, the rows below the cap word for word.  The captured step: every
+replay's ``rebuilt``, counts and rows equal to an eager step's, and a
+conditional node's body runs only on a true predicate.
 """
 
 import ctypes
@@ -78,7 +81,8 @@ def test_kernels_match_plain_on_card(dev, case):
     eng.run()
     cfg = SearchConfig((n,), ((0, 0),), 1, cap)
     knobs = eng._knobs()
-    carry = fp._prep(pts, eng._grid_state, cfg, knobs)
+    carry = fp._prep(pts, eng._grid_state, cfg, knobs,
+                     consts=fp.step_constants(cfg, knobs, cell, dev))
     assert int(carry.dense_overflow) == 0 and int(carry.rows_overflow) == 0
     assert int(carry.tile_overflow) == 0
     a = fp.kernel_inputs(pts, r, carry, cfg, knobs)
@@ -114,8 +118,10 @@ def test_clipped_ranges_match_plain_on_card(dev):
     n = pts.shape[0]
     cfg = SearchConfig((n,), ((0, 0),), 1, 32)
     knobs = fp.FastKnobs(dense_cap=1 << 18, tiles_cap=1200)
-    carry = fp._prep(pts, update_grid(fresh_state(dev), pts, 0.08), cfg,
-                     knobs)
+    consts = fp.step_constants(cfg, knobs, 0.08, dev)
+    carry = fp._prep(pts, update_grid(fresh_state(dev), pts,
+                                      consts.cell_size), cfg, knobs,
+                     consts=consts)
     assert int(carry.tile_overflow) == 0
     recs = fp.sorted_records(pts, carry.idx_s)
     desc = carry.desc.clone()
@@ -168,7 +174,10 @@ def _settled(eng, caps=None):
     if caps is not None:
         cfg = cfg._replace(nbr_caps=caps, nbr_cap=max(caps))
     knobs = eng._knobs()
-    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii)
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii,
+                     consts=fp.step_constants(
+                         cfg, knobs, float(eng._grid_state.cell_size),
+                         points.device))
     assert int(carry.tile_overflow) == 0 and int(carry.dense_overflow) == 0
     return carry, fp.kernel_inputs(points, eng._search_radius or 0.0, carry,
                                    cfg, knobs, radii)
@@ -300,7 +309,10 @@ def _active_inputs(eng, payload=None):
     cfg = eng._make_cfg(eng._stencil_w(eng._effective_cell_size(bounds),
                                        bounds))
     knobs = eng._knobs()
-    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii)
+    carry = fp._prep(points, eng._grid_state, cfg, knobs, radii,
+                     consts=fp.step_constants(
+                         cfg, knobs, float(eng._grid_state.cell_size),
+                         points.device))
     assert int(carry.tile_overflow) == 0 and int(carry.dense_overflow) == 0
     a = fp.kernel_inputs(points, eng._search_radius or 0.0, carry, cfg,
                          knobs, radii, payload)
@@ -1067,6 +1079,7 @@ def _slab_union(d, variable):
     eng.run()
     cfg = eng._make_cfg(eng._last_stats["stencil_w"])
     knobs, state = eng._knobs(), eng._grid_state
+    consts = fp.step_constants(cfg, knobs, float(state.cell_size), d)
     sr = eng._search_radius or 0.0
     owner = sh.owners(pts, state, cfg, 4)
     orig = torch.arange(n0 + n1, dtype=torch.int32, device=d)
@@ -1082,7 +1095,8 @@ def _slab_union(d, variable):
         n_own = int((owner == r).sum())
         local = sh.records(pts[rows], None if rad is None else rad[rows],
                            orig[rows], set_ids[rows])
-        res = sh.search_fast_local(local, n_own, r, 4, sr, state, cfg, knobs)
+        res = sh.search_fast_local(local, n_own, r, 4, sr, state, cfg, knobs,
+                                   consts=consts)
         mine = rows[:n_own]
         counts[mine] = res["counts"]
         for b, nb in enumerate(res["nbrs"]):
@@ -1108,3 +1122,156 @@ def test_sharded_local_search_on_card_equals_one_device(dev, variable):
         for i in range(n0):
             assert torch.equal(torch.sort(nbrs[b][i, :c1[i]]).values,
                                torch.sort(nb1[i, :c1[i]]).values), (sj, i)
+
+
+# ------------------------------------------------------------ step graphs
+@pytest.mark.parametrize("mode", ["fixed", "variable", "symmetric"])
+def test_k4_row_cap_equals_plain_across_window_and_chunk_edges(dev, mode):
+    # K4 with a static row cap below, at and above the row count, on the
+    # chunk- and window-edge descriptors: counts exact, rows below the
+    # cap word for word those of plain (which drops the same rows) and
+    # of the uncapped kernel
+    rng = np.random.default_rng(23)
+    sets = [(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+             None if mode == "fixed" else
+             rng.uniform(0.03, 0.07, m).astype(np.float32))
+            for m in (2500, 1500)]
+    eng = _sets_engine(dev, sets, r=0.1 if mode == "fixed" else None,
+                       symmetric=mode == "symmetric",
+                       active=[(0, 0), (0, 1), (1, 0)])
+    if mode == "fixed":
+        eng.set_cell_size(0.05)   # a 25-window stencil
+    a, allow, _, _ = _active_inputs(eng)
+    a = a._replace(desc=_window_desc(a, rng))
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
+    args = (a.desc, q, a.recs_t, a.n_win, a.tiles_cap, a.cand_sets, allow)
+    kw = fp.active_args(a)
+    c_full, b_full, base = pairs.pairs_mask(*args, **kw)
+    rows = int(base[-1])
+    # a cap inside the tile with the 257-candidate window, one at a
+    # 256-row chunk edge, the count and past it
+    for cap in (rows // 3, 256 * (rows // 512), rows, rows + 300):
+        c_k, b_k, base_k = pairs.pairs_mask(*args, **kw, rows_cap=cap)
+        c_p, b_p, _ = pairs.pairs_mask_plain(*args, **kw, rows_cap=cap)
+        torch.cuda.synchronize()
+        live = min(cap, rows)
+        assert b_k.shape == (cap, pairs.MASK_WORDS)
+        assert torch.equal(base_k, base) and torch.equal(c_k, c_full)
+        assert torch.equal(c_k, c_p), cap
+        assert torch.equal(b_k[:live], b_p[:live]), cap
+        assert torch.equal(b_k[:live], b_full[:live]), cap
+        assert int(fp._mask_flags(base_k, cap)["mask_overflow"]) \
+            == int(cap < rows)
+
+
+def test_conditional_body_launches_k1_and_k2a(dev):
+    # K1 and K2a recorded inside an IF node (rebuild_if under capture):
+    # a replay with the predicate true runs them and writes their results
+    # into buffers made before the capture; with it false the buffers
+    # keep what they held, though the inputs changed
+    from treensearch_tpu_torch.ops.cond import rebuild_if
+    pts = torch.from_numpy(np.random.default_rng(29).uniform(
+        0, 1, (20_000, 3)).astype(np.float32)).to(dev)
+    eng = TreeNSearch(device=dev)
+    eng.add_point_set(pts)
+    eng.set_search_radius(0.03)
+    eng.set_all_searches(True)
+    eng.run()
+    cfg = eng._make_cfg(1)
+    knobs = eng._knobs()
+    carry = fp._prep(pts, eng._grid_state, cfg, knobs,
+                     consts=fp.step_constants(
+                         cfg, knobs, float(eng._grid_state.cell_size), dev))
+    a = fp.kernel_inputs(pts, 0.03, carry, cfg, knobs)
+    recs = a.recs_t.clone()
+    q_out = torch.zeros((8, a.tiles_cap * 128), dtype=torch.int32,
+                        device=dev)
+    c_out = torch.zeros(a.tiles_cap * 128, dtype=torch.int32, device=dev)
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+
+    def body():
+        q = pairs.expand_query_tiles(a.desc, recs, a.tiles_cap, 20_000)
+        c, _ = pairs.pairs_nbrs_fixed(a.desc, q, recs, a.r2, a.n_win,
+                                      a.k8s[0], a.tiles_cap)
+        q_out.copy_(q)
+        c_out.copy_(c)
+
+    body()   # eager warm-up
+    torch.cuda.synchronize()
+    want_q, want_c = q_out.clone(), c_out.clone()
+    q_out.zero_()
+    c_out.zero_()
+    launches = (pairs.expand_query_tiles.launches,
+                pairs.pairs_nbrs_fixed.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rebuild_if(pred, body)
+    assert (pairs.expand_query_tiles.launches,
+            pairs.pairs_nbrs_fixed.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    torch.cuda.synchronize()
+    assert not q_out.any() and not c_out.any()   # capture ran nothing
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(q_out, want_q) and torch.equal(c_out, want_c)
+    recs[pairs.F_X].view(torch.float32).add_(0.5)   # other inputs
+    pred.fill_(False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(q_out, want_q) and torch.equal(c_out, want_c)
+    pred.fill_(True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(q_out, want_q)
+
+
+def test_reuse_step_graph_equals_eager_static_in_cell_jittered(dev):
+    # make_step_fn(reuse=True) captured once; replays at static positions,
+    # in-cell moves and jitter equal an eager step on the same positions,
+    # rebuilt, counts and rows slot for slot, step by step
+    from treensearch_tpu_torch.utils.keys import quantize
+    rng = np.random.default_rng(31)
+    pts = torch.from_numpy(rng.uniform(0, 1, (30_000, 3))
+                           .astype(np.float32)).to(dev)
+    eng = TreeNSearch(device=dev)
+    eng.add_point_set(pts)
+    eng.set_search_radius(0.03)
+    eng.set_all_searches(True)
+    eng.run()
+    eng.run()
+    static = pts.clone()
+    step, state = eng.make_step_fn(reuse=True)
+    estep, estate = eng.make_step_fn(reuse=True)
+    for _ in range(2):
+        sol, state = step(state, static)
+        want, estate = estep(estate, static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sol, state = step(state, static)
+    grid = state[0]
+    inv = 1.0 / grid.cell_size
+    cells = quantize(pts, grid.grid_min, inv, grid.n_cells)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    seq, cur = [pts] * 2, pts
+    for amp, in_cell in ((1e-6, True),) * 3 + ((2e-3, False),) * 3:
+        nxt = cur + (torch.rand(cur.shape, generator=gen, device=dev)
+                     * 2 - 1) * amp
+        if in_cell:
+            keep = (quantize(nxt, grid.grid_min, inv, grid.n_cells)
+                    == cells).all(dim=1)
+            nxt = torch.where(keep[:, None], nxt, cur)
+        seq.append(nxt)
+        cur = nxt
+    rebuilt = []
+    for p in seq:
+        static.copy_(p)
+        graph.replay()
+        want, estate = estep(estate, p)
+        rebuilt.append(int(sol["rebuilt"]))
+        assert rebuilt[-1] == int(want["rebuilt"])
+        got_p, want_p = dict(sol["pairs"]["0-0"]), want["pairs"]["0-0"]
+        assert torch.equal(got_p["counts"], want_p["counts"])
+        assert torch.equal(fp.materialize_nbrs(got_p),
+                           fp.materialize_nbrs(want_p))
+    assert rebuilt[:5] == [0] * 5 and rebuilt[5:] == [1] * 3

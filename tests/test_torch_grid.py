@@ -45,7 +45,8 @@ def _step(jprev, pts, cell):
     """One update from the same prior state in both packages."""
     jnew = _update(jprev, jnp.asarray(pts), jnp.float32(cell))
     tprev = interop.grid_state_from_numpy(_jnp(jprev))
-    tnew = tgrid.update_grid(tprev, torch.from_numpy(pts), cell)
+    tnew = tgrid.update_grid(tprev, torch.from_numpy(pts),
+                             torch.tensor(cell, dtype=torch.float32))
     _assert_state(jnew, tnew)
     return jnew, tnew
 
@@ -77,7 +78,8 @@ def test_update_grid_own_chain_matches_jax():
     for step in range(6):
         pts = (pts + rng.uniform(-0.03, 0.03, pts.shape)).astype(np.float32)
         js = _update(js, jnp.asarray(pts), jnp.float32(0.04))
-        ts = tgrid.update_grid(ts, torch.from_numpy(pts), 0.04)
+        ts = tgrid.update_grid(ts, torch.from_numpy(pts),
+                               torch.tensor(0.04, dtype=torch.float32))
         _assert_state(js, ts)
 
 

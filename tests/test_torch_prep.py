@@ -122,11 +122,12 @@ def _both(case):
                    cfg=jcfg, knobs=jknobs)
     jc = {k: np.asarray(v) for k, v in jc._asdict().items()}
     tstate = interop.grid_state_from_numpy(jstate)
-    tc = tfp._prep(torch.from_numpy(pts), tstate,
-                   SearchConfig(sizes, pairs, w, 64, variable, variable),
-                   tfp.FastKnobs(dense_cap=dense_cap, tiles_cap=tiles_cap,
-                                 rows_cap=rows_cap),
-                   None if radii is None else torch.from_numpy(radii))
+    cfg = SearchConfig(sizes, pairs, w, 64, variable, variable)
+    knobs = tfp.FastKnobs(dense_cap=dense_cap, tiles_cap=tiles_cap,
+                          rows_cap=rows_cap)
+    tc = tfp._prep(torch.from_numpy(pts), tstate, cfg, knobs,
+                   None if radii is None else torch.from_numpy(radii),
+                   consts=tfp.step_constants(cfg, knobs, cell, "cpu"))
     return jc, {k: v.numpy() for k, v in tc._asdict().items()}
 
 

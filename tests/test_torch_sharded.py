@@ -152,7 +152,8 @@ def _cases_functions(mesh) -> dict:
 
     pts, rad = _cloud(ROUTE, True)
     cfg = _cfg(ROUTE, True)
-    state = update_grid(fresh_state(), _t(pts), ROUTE["cell"])
+    state = update_grid(fresh_state(), _t(pts),
+                        torch.tensor(ROUTE["cell"], dtype=torch.float32))
     out["route"] = sh._route(_t(pts), _t(rad), None, state, cfg, ax).local
 
     tiny = np.random.default_rng(1).uniform(0, 1, (3, 3)).astype(np.float32)
@@ -419,9 +420,10 @@ def test_sharded_fast_matches_one_device(functions, variable):
                      "tile_overflow": 0, "cand_max": 0}
     pts, rad = _cloud(FAST, variable)
     cfg = _cfg(FAST, variable)
+    knobs = fp.FastKnobs(dense_cap=1 << 14, tiles_cap=128)
     one, _ = fp.build_and_search_fast(
-        _t(pts), 0.1, FAST["cell"], fresh_state(), cfg,
-        fp.FastKnobs(dense_cap=1 << 14, tiles_cap=128), radii=_t(rad))
+        _t(pts), 0.1, fresh_state(), cfg, knobs, radii=_t(rad),
+        consts=fp.step_constants(cfg, knobs, FAST["cell"], "cpu"))
     _assert_same(got, {k: (v["counts"], fp.materialize_nbrs(v))
                        for k, v in one["pairs"].items()}, "port fast path")
     _assert_same(got, _jax_pipeline(pts, rad, cfg, 0.1, FAST["cell"]),
@@ -573,11 +575,12 @@ def test_prep_sharded_parameters_bit_equal_to_jax(variable):
     lin_base, span_i, (lo, hi) = sh.slab_window(st, cfg_all, 1, 4)
     sizes, pairs = (m,), ((0, 0),)
     knobs = fp.FastKnobs(dense_cap=1 << 13, tiles_cap=96)
-    tc = fp._prep(torch.from_numpy(local), st,
-                  SearchConfig(sizes, pairs, 1, 64, variable, variable),
+    cfg = SearchConfig(sizes, pairs, 1, 64, variable, variable)
+    tc = fp._prep(torch.from_numpy(local), st, cfg,
                   knobs, _t(rad[rows]) if variable else None,
                   valid=torch.from_numpy(valid), owned_rng=(lo, hi),
-                  lin_base=lin_base, span_i=span_i)
+                  lin_base=lin_base, span_i=span_i,
+                  consts=fp.step_constants(cfg, knobs, FAST["cell"], "cpu"))
     jknobs = jfp.FastKnobs(use_pallas=True, rec_expand=True, pack=8,
                            lane_batch=True, dense_cap=knobs.dense_cap,
                            tiles_cap=knobs.tiles_cap)

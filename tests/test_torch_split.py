@@ -93,9 +93,10 @@ def _port_solution(data, split):
     cfg = SearchConfig(sizes, pairs, w, CAP, rad is not None, rad is not None)
     knobs = tfp.FastKnobs(dense_cap=1 << 14, tiles_cap=48, split_stage=split)
     sol, _ = tfp.build_and_search_fast(
-        torch.from_numpy(pts), 0.0 if rad is not None else r, cell,
+        torch.from_numpy(pts), 0.0 if rad is not None else r,
         fresh_state(), cfg, knobs,
-        radii=None if rad is None else torch.from_numpy(rad))
+        radii=None if rad is None else torch.from_numpy(rad),
+        consts=tfp.step_constants(cfg, knobs, cell, "cpu"))
     assert int(sol["tile_overflow"]) == 0 and int(sol["dense_overflow"]) == 0
     return {k: (p["counts"].numpy(), tfp.materialize_nbrs(p).numpy())
             for k, p in sol["pairs"].items()}
@@ -127,8 +128,10 @@ def _kernel_inputs(data):
     radii = None if rad is None else torch.from_numpy(rad)
     cfg = SearchConfig(sizes, pairs, w, CAP, rad is not None, rad is not None)
     knobs = tfp.FastKnobs(dense_cap=1 << 14, tiles_cap=48)
-    carry = tfp._prep(points, update_grid(fresh_state(), points, cell), cfg,
-                      knobs, radii)
+    consts = tfp.step_constants(cfg, knobs, cell, "cpu")
+    carry = tfp._prep(points, update_grid(fresh_state(), points,
+                                          consts.cell_size), cfg,
+                      knobs, radii, consts=consts)
     a = tfp.kernel_inputs(points, r, carry, cfg, knobs, radii)
     q = tpp.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
     return cfg, carry, a, tfp.allow_table(cfg, a.cand_sets, "cpu"), q

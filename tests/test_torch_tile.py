@@ -109,7 +109,8 @@ def _both(case):
     tp = torch.from_numpy(pts)
     tr = None if radii is None else torch.from_numpy(radii)
     tc = tfp._prep(tp, interop.grid_state_from_numpy(jstate), cfg, knobs,
-                   tr, padded=True)
+                   tr, padded=True, consts=tfp.step_constants(
+                       cfg, knobs, float(jstate.cell_size), "cpu"))
     recs = tfp.sorted_records(tp, tc.idx_s, tr,
                               tfp.set_ids_of(cfg, "cpu") if len(sizes) > 1
                               else None)
@@ -132,7 +133,9 @@ def test_padded_prep_bit_equal(case):
     # the same windows as the sorted-space prep, shifted by row padding
     _, _, _, pts, radii, sizes, _, cfg, knobs, state = _both(case)
     sc = tfp._prep(torch.from_numpy(pts), state, cfg, knobs,
-                   None if radii is None else torch.from_numpy(radii))
+                   None if radii is None else torch.from_numpy(radii),
+                   consts=tfp.step_constants(cfg, knobs,
+                                             float(state.cell_size), "cpu"))
     sd = sc.desc.numpy()
     lens = slice(tpp.LENS_OFF, tpp.LENS_OFF + (2 * cfg.stencil_w + 1) ** 2)
     assert np.array_equal(sd[:, lens], td[:, lens])

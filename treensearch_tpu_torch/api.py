@@ -39,11 +39,12 @@ import torch
 
 from .config import SearchConfig, round_up
 from .neighborlist import NeighborList, NeighborSolution, ShardedSolution
-from .ops.fastpath import (MAX_STENCIL_W, FastKnobs, applicable,
+from .ops.fastpath import (MAX_STENCIL_W, FastKnobs, StepConsts, applicable,
                            build_and_search_fast,
                            build_and_search_fast_carry, contracts_applicable,
-                           default_tiles_cap, make_fast_carry0)
-from .ops.grid import fresh_state
+                           default_tiles_cap, make_fast_carry0, mask_rows,
+                           mask_rows_cap, step_constants)
+from .ops.grid import fresh_state, update_grid
 from .ops.pairs import LENS_OFF, MAX_BLOCKS
 from .ops.pipeline import build_and_search
 from .ops.reduce import ReduceSpec
@@ -163,6 +164,8 @@ class TreeNSearch:
         self._use_carry = True     # temporal-coherence carry in the runs
         self._fast_carry = None    # the carried FastCarry ...
         self._carry_key = None     # ... and the (cfg, knobs) it was built at
+        self._consts = None        # the searches' constant tensors ...
+        self._consts_key = None    # ... and their (cfg, knobs, cell size)
         self._grid_state = fresh_state(dev)
         self._solution: Optional[NeighborSolution] = None
         self._zsort_maps: Optional[List[torch.Tensor]] = None
@@ -545,7 +548,8 @@ class TreeNSearch:
         occupied cells, largest count (0 without neighbor lists), widest
         cut window or candidate count (``cand_max``), cell size, stencil,
         whether the carry served it (``carried``, whose ``desc``
-        ``print_state`` reads) and whether the structure was rebuilt.
+        ``print_state`` reads), whether the structure was rebuilt and,
+        where K4 ran, its row count (``mask_rows``).
 
         Under a mesh (``treensearch_tpu/api.py:685-718``) the sharded
         engines run in the JAX order: the reduce, then the fast path where
@@ -586,19 +590,19 @@ class TreeNSearch:
                     self._axis.mesh, self._axis.axis)
             elif fused and self._use_carry and n > 0:
                 sol, state, self._fast_carry = build_and_search_fast_carry(
-                    points, sr, cell, self._grid_state,
+                    points, sr, self._grid_state,
                     self._get_carry(cfg, knobs), cfg, knobs, radii=radii,
-                    **mode)
+                    consts=self._step_consts(cfg, knobs, cell), **mode)
             elif use_fast:
                 sol, state = build_and_search_fast(
-                    points, sr, cell, self._grid_state, cfg, knobs,
-                    radii=radii, **mode)
+                    points, sr, self._grid_state, cfg, knobs, radii=radii,
+                    consts=self._step_consts(cfg, knobs, cell), **mode)
             else:
                 sol, state = build_and_search(points, radii, sr, cell,
                                               self._grid_state, cfg)
             names = [k for k in ("error", "dense_overflow", "rows_overflow",
                                  "tile_overflow", "n_cells", "cand_max",
-                                 "rebuilt") if k in sol]
+                                 "rebuilt", "mask_rows") if k in sol]
             values = torch.stack(
                 [sol[k] for k in names]
                 + [p["max_count"] for p in sol["pairs"].values()]).tolist()
@@ -662,6 +666,8 @@ class TreeNSearch:
                                 "cell_size": cell, "stencil_w": w,
                                 "carried": "rebuilt" in sol,
                                 "rebuilt": flags.get("rebuilt", 1)}
+            if "mask_rows" in flags:   # K4's rows: a step's cap pads them
+                self._last_stats["mask_rows"] = flags["mask_rows"]
             if "slab_rows" in sol:   # this rank's owned, left, right rows
                 self._last_stats["slab_rows"] = sol["slab_rows"]
             return sol
@@ -671,6 +677,36 @@ class TreeNSearch:
             f"wcap={self._wcap}, cand_cap={self._cand_cap}, "
             f"dense_cap={self._dense_cap}, "
             f"tiles_cap={self._tiles_cap})")
+
+    def _step_consts(self, cfg: SearchConfig, knobs: FastKnobs,
+                     cell: float) -> StepConsts:
+        """The searches' constant tensors (``step_constants``), made once
+        per (cfg, knobs, cell size), so a search copies no constant from
+        the host."""
+        key = (cfg, knobs, cell)
+        if self._consts_key != key:
+            self._consts = step_constants(cfg, knobs, cell, self.device)
+            self._consts_key = key
+        return self._consts
+
+    def _step_rows_cap(self, cfg: SearchConfig, knobs: FastKnobs,
+                       consts: StepConsts) -> int:
+        """K4's static row cap for a step (``mask_rows_cap``): from the
+        row count of the last settled ``run_mask()`` or split ``run()`` at
+        this config and caps, else counted on the current points."""
+        rows = self._last_stats.get("mask_rows")
+        key = self._carry_key
+
+        def caps(k):
+            return k._replace(split_stage=False)
+
+        if rows is None or key is None or key[0] != cfg \
+                or caps(key[1]) != caps(knobs):
+            points, radii = self._assemble()
+            rows = mask_rows(points, update_grid(
+                self._grid_state, points, consts.cell_size), cfg, knobs,
+                consts, radii)
+        return mask_rows_cap(rows)
 
     def _get_carry(self, cfg: SearchConfig, knobs: FastKnobs):
         """The carried FastCarry when it was built at exactly this ``cfg``
@@ -812,6 +848,61 @@ class TreeNSearch:
         The carried steps need the fused route and raise ``ValueError``
         elsewhere.  ``chunk`` is the pipeline's chunk size (results do not
         depend on it).
+
+        The step writes the new grid (and carry) into the tensors of the
+        state it was given and returns that state: pass a step's state on
+        to the next step, and take ``make_step_fn``'s state anew for a new
+        sequence.  A solution shares no tensor with the state.  K4's rows
+        (``mask_output`` and split staging) are capped at the last settled
+        ``run_mask()``'s or split ``run()``'s row count (else the row
+        count on the engine's points) plus a quarter;
+        ``solution["mask_overflow"]`` (an int32 device flag, with the row
+        count in ``solution["mask_rows"]``) says that rows were dropped.
+        A mask step's counts stay exact under overflow, its ``bits`` hold
+        only the rows below the cap (``decode_mask`` refuses them); a
+        split-staging step's counts and neighbor lists come from those
+        bits, so under overflow they are short.  Check the flag: after a
+        ``run_mask()`` or split ``run()`` on the new points, a new
+        ``make_step_fn`` sizes the cap anew.
+
+        **CUDA graphs.**  The fused-route steps (``reuse``, ``reduce``,
+        ``mask_output``, split staging, and ``fast`` where the fused
+        kernels apply) read nothing back to the host, so
+        ``torch.cuda.graph`` captures one step, which a replay then runs
+        with no host sync, as the JAX step runs inside a jitted
+        ``lax.fori_loop``.  In the carried steps the reuse decision is a
+        conditional node on the device: a replay runs the prep only when a
+        point changed cells, the grid changed or a radius changed
+        (``solution["rebuilt"]`` says which).  The state is updated in
+        place, so replays carry it with no copy-back; the solution's
+        tensors are the graph's static outputs, which every replay
+        overwrites: read them before the next replay (give
+        ``ops.fastpath.materialize_nbrs`` a copy of a pair's dict, which it
+        rewrites).  Warm up eagerly
+        first, one rebuilding and one reusing step, so that the kernels are
+        built and the sort's workspace exists; ``bench.py``'s loop of 50
+        steps with a checksum then reads::
+
+            step, state = eng.make_step_fn(reuse=True)
+            static = points.clone()           # the graph's input
+            for _ in range(2):                # eager warm-up
+                sol, state = step(state, static)
+            acc = torch.zeros((), dtype=torch.int32, device="cuda")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                sol, state = step(state, static)
+                acc += sol["pairs"]["0-0"]["counts"][::257].sum(
+                    dtype=torch.int32)
+            for k in range(50):
+                static.copy_(positions[k])    # this step's points
+                graph.replay()
+
+        The carried steps' conditional bodies take their temporaries from
+        one memory pool per device (``ops/cond.py``), so graphs that hold
+        them must not replay concurrently: replay them one after another
+        on one stream.  The tile path (more than 8 candidate sets,
+        ``set_use_pallas(False)``), the ``fast=False`` pipeline and the
+        sharded step read the host and raise ``ValueError`` under capture.
         """
         _, _, sr, cell, w = self._setup()
         cfg = self._make_cfg(w, chunk or self._chunk)
@@ -833,6 +924,13 @@ class TreeNSearch:
             raise ValueError(f"{what} the Pallas fast path ({_FUSED_GATE})")
         if fast and not carried:
             _require_descriptor_stencil(w)
+        if fast:
+            consts = self._step_consts(cfg, knobs, cell)
+            # K4 runs in mask steps and in split staging on the fused route
+            rows_cap = self._step_rows_cap(cfg, knobs, consts) if n > 0 and (
+                mask_output or (reduce is None and knobs.split_stage
+                                and contracts_applicable(cfg, knobs))) \
+                else None
 
         def check(points, radii, payload=None):
             args = [("points", points, (n, 3)), ("payload", payload, (n, 2))]
@@ -860,22 +958,23 @@ class TreeNSearch:
                 check(points, radii, payload)
                 grid, carry = state
                 sol, grid, carry = build_and_search_fast_carry(
-                    points, sr, cell, grid, carry, cfg, knobs, radii=radii,
-                    reduce=spec, payload=payload)
+                    points, sr, grid, carry, cfg, knobs, radii=radii,
+                    reduce=spec, payload=payload, consts=consts)
                 return sol, (grid, carry)
         elif carried:
             def step(state, points, radii=None):
                 check(points, radii)
                 grid, carry = state
                 sol, grid, carry = build_and_search_fast_carry(
-                    points, sr, cell, grid, carry, cfg, knobs, radii=radii,
-                    mask=mask_output)
+                    points, sr, grid, carry, cfg, knobs, radii=radii,
+                    mask=mask_output, consts=consts, rows_cap=rows_cap)
                 return sol, (grid, carry)
         elif fast:
             def step(state, points, radii=None):
                 check(points, radii)
-                return build_and_search_fast(points, sr, cell, state, cfg,
-                                             knobs, radii=radii)
+                return build_and_search_fast(points, sr, state, cfg, knobs,
+                                             radii=radii, consts=consts,
+                                             rows_cap=rows_cap)
 
             return step, fresh_state(dev)
         else:

@@ -543,7 +543,9 @@ __device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
 // K2's query-major schedule with a __ballot_sync, a lane-0 shared store
 // per staged candidate and a third pass over shared memory per chunk to
 // store the words.
-// Dead tiles return at once and own no rows.
+// Dead tiles return at once and own no rows.  A row at or past rows_cap
+// (bits' size: a static cap under CUDA graph capture, else the row count)
+// is not stored; the wrapper reports cand_base[tiles] > rows_cap.
 template <bool VARIABLE, bool SYMMETRIC>
 __global__ void __launch_bounds__(TILE, 8)
 pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
@@ -551,7 +553,8 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   int n_win, float r2, CandSets cs,
                   const int* __restrict__ allow, int n_allow,
                   const long long* __restrict__ cand_base,
-                  int* __restrict__ counts, int* __restrict__ bits) {
+                  long long rows_cap, int* __restrict__ counts,
+                  int* __restrict__ bits) {
   constexpr int WORDS = TILE / 32;
   __shared__ float4 s_q[TILE];
   __shared__ int s_qo[TILE];
@@ -592,7 +595,11 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
   }
   __syncthreads();
   const int total = s_pre[n_win];
-  int4* rows = reinterpret_cast<int4*>(bits) + cand_base[t];
+  const long long row0 = cand_base[t];
+  // rows at or past rows_cap are not stored (bits holds rows_cap rows);
+  // the counts below stay exact
+  const long long stored = rows_cap - row0;
+  int4* rows = reinterpret_cast<int4*>(bits) + row0;
   int sum[WORDS] = {0, 0, 0, 0};
   int cur = 0;   // this thread's window cursor
   // warp-uniform rounds: every lane takes part in the transposes
@@ -644,8 +651,9 @@ pairs_mask_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
             if (x == w) word[x] = v;
         }
       }
-      rows[k] = make_int4((int)word[0], (int)word[1], (int)word[2],
-                          (int)word[3]);
+      if (k < stored)
+        rows[k] = make_int4((int)word[0], (int)word[1], (int)word[2],
+                            (int)word[3]);
     }
 #pragma unroll
     for (int w = 0; w < WORDS; ++w) sum[w] += __popc(transpose32(word[w], lane));
@@ -968,8 +976,9 @@ extern "C" int tns_pairs_mask(const int* desc, const int* q_t,
                               int n_win, float r2, int variable,
                               int symmetric, int n_blocks, const int* set_of,
                               const int* allow, int n_allow,
-                              const long long* cand_base, int* counts,
-                              int* bits, void* stream) {
+                              const long long* cand_base,
+                              long long rows_cap, int* counts, int* bits,
+                              void* stream) {
   if (n_blocks < 0 || n_blocks > MAX_BLOCKS || (symmetric && !variable) ||
       n_win < 1 || n_win > MAX_WIN)
     return (int)cudaErrorInvalidValue;
@@ -981,15 +990,15 @@ extern "C" int tns_pairs_mask(const int* desc, const int* q_t,
     if (!variable)
       pairs_mask_kernel<false, false><<<tiles_cap, TILE, 0, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
-          n_allow, cand_base, counts, bits);
+          n_allow, cand_base, rows_cap, counts, bits);
     else if (!symmetric)
       pairs_mask_kernel<true, false><<<tiles_cap, TILE, 0, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
-          n_allow, cand_base, counts, bits);
+          n_allow, cand_base, rows_cap, counts, bits);
     else
       pairs_mask_kernel<true, true><<<tiles_cap, TILE, 0, st>>>(
           desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, cs, allow,
-          n_allow, cand_base, counts, bits);
+          n_allow, cand_base, rows_cap, counts, bits);
   }
   return (int)cudaGetLastError();
 }

@@ -53,12 +53,13 @@ import torch
 from ..config import SearchConfig, round_up
 from ..utils import keys as K
 from ..utils.compact import compact_rows
+from .cond import assign_, rebuild_if, refuse_capture
 from .grid import GridState, update_grid
 from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Y,
                     F_Z, FAT_COL, LENS_OFF, MAX_BLOCKS, N_FIELDS, TILE,
                     clipped_windows, expand_query_tiles, expand_records,
-                    pairs_mask,
-                    pairs_mask_plain, pairs_nbrs_fixed, pairs_nbrs_fixed_plain,
+                    mask_cand_base, pairs_mask, pairs_mask_plain,
+                    pairs_nbrs_fixed, pairs_nbrs_fixed_plain,
                     pairs_nbrs_from_bits, pairs_nbrs_from_bits_plain,
                     pairs_nbrs_plain, pairs_nbrs_sets, pairs_nbrs_variable)
 from .reduce import ReduceSpec, pairs_reduce
@@ -114,6 +115,44 @@ def default_tiles_cap(n: int) -> int:
     ``tile_overflow``."""
     base = -(-n // TILE)
     return base + max(256, base // 4)
+
+
+def mask_rows_cap(rows: int) -> int:
+    """K4's static row cap for a step: a settled row count plus a quarter
+    (at least 256), as ``default_tiles_cap`` pads; past it the step
+    reports ``mask_overflow``."""
+    return rows + max(256, rows // 4)
+
+
+class StepConsts(NamedTuple):
+    """The constant tensors of a search, made once per (cfg, knobs, cell
+    size, device) by ``step_constants``, so that a step copies nothing
+    from the host: a copy from pageable memory drains the stream, and
+    stream capture forbids it."""
+    cell_size: torch.Tensor   # () float32
+    di: torch.Tensor          # (n_win,) int32: each window's row offsets
+    dj: torch.Tensor
+    set_ids: torch.Tensor | None   # (n,) int32 set of each point (several
+    #                                sets on the fused route), else None
+    allow: torch.Tensor | None     # (n_sets,) int32 active matrix
+    #       (``allow_table``) of K3, K4 and split staging on the fused
+    #       route (``contracts_applicable``), else None
+
+
+def step_constants(cfg: SearchConfig, knobs: FastKnobs, cell_size: float,
+                   device) -> StepConsts:
+    """The ``StepConsts`` of ``cfg`` and ``knobs`` at this cell size.  The
+    set ids and the active matrix only where the fused route runs: the
+    tile path makes its own, and its candidate sets may pass the 32 bits
+    of an ``allow_table`` entry."""
+    st = _statics(cfg, knobs)
+    offs = torch.tensor(st["offs_2d"], dtype=torch.int32, device=device)
+    fused = contracts_applicable(cfg, knobs)
+    return StepConsts(
+        torch.tensor(cell_size, dtype=torch.float32, device=device),
+        offs[:, 0].contiguous(), offs[:, 1].contiguous(),
+        set_ids_of(cfg, device) if fused and cfg.n_sets > 1 else None,
+        allow_table(cfg, st["cand_sets"], device) if fused else None)
 
 
 def _statics(cfg: SearchConfig, knobs: FastKnobs) -> dict:
@@ -183,7 +222,7 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
           knobs: FastKnobs, radii: torch.Tensor | None = None,
           padded: bool = False, valid: torch.Tensor | None = None,
           owned_rng: tuple | None = None, lin_base=None,
-          span_i=None) -> FastCarry:
+          span_i=None, *, consts: StepConsts) -> FastCarry:
     """Sort, dense table, row-aligned layout and window descriptors
     (``_pallas_prep``, row layout, window starts in sorted space: the
     ``win_sorted`` branch that production ``rec_expand`` uses).  With
@@ -194,7 +233,8 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     its length.  In variable mode (``cfg.variable``, ``radii`` (n,)
     float32) each window reaches only as far as the larger of the tile's
     and the neighbor row's largest radius.  Requires ``cfg.n_points >
-    0``.  ``_prep.calls`` counts its calls.
+    0``.  ``_prep.calls`` counts its calls.  ``consts`` are the search's
+    ``step_constants``, so the prep copies nothing from the host.
 
     The sharded search's parameters (``fastpath.py:499-515, 699-705,
     733-736`` of the JAX package): ``valid`` ((n,) bool) parks the rows
@@ -224,8 +264,7 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     # in float, so a huge sparse domain cannot wrap int32
     dense_size_f = (dx.to(torch.float32) * dy.to(torch.float32)
                     * dz.to(torch.float32))
-    dense_overflow = _i32(dense_size_f > torch.tensor(
-        dense_cap - 1, dtype=torch.float32, device=dev))
+    dense_overflow = _i32(dense_size_f > float(np.float32(dense_cap - 1)))
     iota = arange(n)
     lin_s, order = torch.sort(lin, stable=True)
     idx_s = _i32(order)
@@ -289,10 +328,7 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     # window = [table[row' dz + k0 - w], table[row' dz + k1 + w + 1]) of
     # neighbor row row' = trow + di dy + dj; distinct (di, dj) give
     # disjoint runs
-    di = torch.tensor([o[0] for o in st["offs_2d"]], dtype=torch.int32,
-                      device=dev)
-    dj = torch.tensor([o[1] for o in st["offs_2d"]], dtype=torch.int32,
-                      device=dev)
+    di, dj = consts.di, consts.dj
     rp = torch.clamp(trow[:, None] + di[None, :] * dy + dj[None, :], min=0)
     rp = torch.minimum(rp, dense_cap // dz)
     base = torch.clamp(rp * dz, max=dense_cap)
@@ -334,7 +370,7 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     if n > 1:
         n_cells_stat = 1 + _i32((lin_s[1:] != lin_s[:-1]).sum())
     else:
-        n_cells_stat = torch.tensor(n, dtype=torch.int32, device=dev)
+        n_cells_stat = torch.full((), n, dtype=torch.int32, device=dev)
     return FastCarry(
         valid=torch.ones((), dtype=torch.bool, device=dev),
         lin_s=lin_s, lin_chk=lin, r_chk=r_s, idx_s=idx_s, inv_perm=inv_perm,
@@ -345,6 +381,17 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
 
 
 _prep.calls = 0
+
+
+def mask_rows(points: torch.Tensor, state: GridState, cfg: SearchConfig,
+              knobs: FastKnobs, consts: StepConsts,
+              radii: torch.Tensor | None = None) -> int:
+    """K4's row count on these points and this grid (a prep and one host
+    read), for a step's ``mask_rows_cap`` where no settled count exists."""
+    st = _statics(cfg, knobs)
+    desc = _prep(points, state, cfg, knobs, radii, consts=consts).desc
+    return int(mask_cand_base(desc, cfg.n_points, len(st["offs_2d"]),
+                              st["tiles_cap"])[-1])
 
 
 def make_fast_carry0(cfg: SearchConfig, knobs: FastKnobs,
@@ -472,6 +519,24 @@ def pairs_kernel(a: KernelInputs):
     return pairs_nbrs_sets if a.multi_set else pairs_nbrs_fixed
 
 
+def split_pairs(a: KernelInputs, q_t: torch.Tensor, allow: torch.Tensor,
+                plain: bool = False, rows_cap: int | None = None):
+    """Split staging (``fastpath.py:1303-1334`` of the JAX package): K4's
+    hit bits under the active matrix ``allow``, then K5 unpacks them into
+    the pairs kernel's blocks (each pass's plain version with ``plain``).
+    ``rows_cap`` caps K4's rows (``pairs_mask``).  Returns counts
+    (n_blocks, tiles_cap * 128), one tile-layout row array per candidate
+    set and K4's ``cand_base``."""
+    mask, unpack = (pairs_mask_plain, pairs_nbrs_from_bits_plain) \
+        if plain else (pairs_mask, pairs_nbrs_from_bits)
+    _, bits, cand_base = mask(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap,
+                              a.cand_sets, allow, **active_args(a),
+                              rows_cap=rows_cap)
+    return (*unpack(a.desc, a.recs_t, bits, cand_base, a.n_win,
+                    a.tiles_cap, a.cand_sets, a.cand_offsets, a.k8s),
+            cand_base)
+
+
 def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False,
               allow: torch.Tensor | None = None):
     """The pairs kernel (or, with ``plain``, its plain version) on these
@@ -479,19 +544,11 @@ def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False,
     array per candidate set.
 
     With ``allow`` (the active matrix, ``allow_table``), split staging in
-    its place (``fastpath.py:1303-1334`` of the JAX package): K4's hit
-    bits under the active matrix, then K5 unpacks them into the same
-    blocks (each pass's plain version with ``plain``).  Only the slots of
-    active pairs are the pairs kernel's: a query whose set does not search
-    a block's candidate set counts 0 there."""
+    its place (``split_pairs``, K4 uncapped).  Only the slots of active
+    pairs are the pairs kernel's: a query whose set does not search a
+    block's candidate set counts 0 there."""
     if allow is not None:
-        mask, unpack = (pairs_mask_plain, pairs_nbrs_from_bits_plain) \
-            if plain else (pairs_mask, pairs_nbrs_from_bits)
-        _, bits, cand_base = mask(a.desc, q_t, a.recs_t, a.n_win,
-                                  a.tiles_cap, a.cand_sets, allow,
-                                  **active_args(a))
-        return unpack(a.desc, a.recs_t, bits, cand_base, a.n_win,
-                      a.tiles_cap, a.cand_sets, a.cand_offsets, a.k8s)
+        return split_pairs(a, q_t, allow, plain)[:2]
     kernel = pairs_kernel(a)
     if kernel is pairs_nbrs_fixed:
         fn = pairs_nbrs_fixed_plain if plain else pairs_nbrs_fixed
@@ -510,20 +567,30 @@ def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False,
                   *blocks)
 
 
+_FLAGS = ("n_cells", "error", "dense_overflow", "tile_overflow",
+          "rows_overflow", "tiles_used", "win_max")
+
+
 def _flags(state: GridState, carry: FastCarry, tiles_cap: int) -> dict:
-    """The regrow flags and statistics every search returns."""
-    return {
-        "n_cells": carry.n_cells_stat,
-        "error": state.error,
-        "dense_overflow": carry.dense_overflow,
-        "tile_overflow": carry.tile_overflow,
-        "rows_overflow": carry.rows_overflow,
-        # dead tiles (FAT_COL = 2) are a suffix of the layout
-        "tiles_used": _i32((carry.desc[:tiles_cap, FAT_COL] != 2).sum()),
-        "win_max": carry.win_max,
-        # no window is cut on the fused route
-        "cand_max": torch.zeros_like(carry.win_max),
-    }
+    """The regrow flags and statistics every search returns, copied out of
+    the state and carry in one stack (a step rewrites those in place)."""
+    # dead tiles (FAT_COL = 2) are a suffix of the layout
+    used = _i32((carry.desc[:tiles_cap, FAT_COL] != 2).sum())
+    flags = dict(zip(_FLAGS, torch.stack([
+        carry.n_cells_stat, state.error, carry.dense_overflow,
+        carry.tile_overflow, carry.rows_overflow, used,
+        carry.win_max]).unbind()))
+    # no window is cut on the fused route
+    flags["cand_max"] = torch.zeros_like(carry.win_max)
+    return flags
+
+
+def _mask_flags(cand_base: torch.Tensor, rows_cap: int | None) -> dict:
+    """K4's row count and, under a row cap, whether it passed the cap."""
+    rows = cand_base[-1]
+    over = rows > rows_cap if rows_cap is not None else \
+        torch.zeros_like(rows, dtype=torch.bool)
+    return {"mask_rows": rows, "mask_overflow": _i32(over)}
 
 
 def _per_set(x: torch.Tensor, cfg: SearchConfig) -> dict:
@@ -534,13 +601,14 @@ def _per_set(x: torch.Tensor, cfg: SearchConfig) -> dict:
 
 
 def _search_reduce(points, radii, payload, search_radius, state, carry,
-                   cfg, knobs, spec: ReduceSpec, allow) -> dict:
+                   cfg, knobs, spec: ReduceSpec, allow,
+                   set_ids=None) -> dict:
     """Records (with the payload), K1, K3 and the reduce epilogue
     (``fastpath.py:1350-1407`` without the fat tier to merge): one gather
     of the (n_out, slots) sums through ``qpos``, then per-set slices
     ``{"s<i>": (n_out, n_i)}``."""
     a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii,
-                      payload)
+                      payload, set_ids=set_ids)
     q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
     sums = pairs_reduce(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap, spec,
                         a.cand_sets, allow, **active_args(a))
@@ -549,38 +617,50 @@ def _search_reduce(points, radii, payload, search_radius, state, carry,
 
 
 def _search_mask(points, radii, search_radius, state, carry, cfg, knobs,
-                 allow) -> dict:
+                 allow, set_ids=None, rows_cap=None) -> dict:
     """Records, K1, K4 and the mask epilogue (``fastpath.py:1409-1463``,
-    ``cand_orig`` at ``:1229-1232``); see ``decode_mask`` for the
-    layout."""
-    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii)
+    ``cand_orig`` at ``:1229-1232``); see ``decode_mask`` for the layout.
+    ``rows_cap`` caps K4's rows (``pairs_mask``; ``mask_overflow`` says
+    whether they passed it)."""
+    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii,
+                      set_ids=set_ids)
     q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
     counts_flat, bits, cand_base = pairs_mask(
         a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap, a.cand_sets, allow,
-        **active_args(a))
+        **active_args(a), rows_cap=rows_cap)
     mask = {"bits": bits, "cand_base": cand_base, "desc": a.desc,
             "qpos": carry.qpos, "q_orig": q_t[F_ORIG], "q_set": q_t[F_SET],
             "cand_orig": a.recs_t[F_ORIG],
             "counts": _per_set(counts_flat[carry.qpos.long()], cfg),
             "counts_flat": counts_flat}
-    return {"mask": mask, "pairs": {}, **_flags(state, carry, a.tiles_cap)}
+    return {"mask": mask, "pairs": {}, **_flags(state, carry, a.tiles_cap),
+            **_mask_flags(cand_base, rows_cap)}
 
 
 def _search(points: torch.Tensor, radii: torch.Tensor | None,
             search_radius: float, state: GridState, carry: FastCarry,
             cfg: SearchConfig, knobs: FastKnobs,
-            allow: torch.Tensor | None = None) -> dict:
+            allow: torch.Tensor | None = None, set_ids=None,
+            rows_cap: int | None = None) -> dict:
     """Record build, K1, the pairs kernel and the counts epilogue
     (``_pallas_search``, neighbor-list branch, ``fastpath.py:1465-1589``);
-    with ``allow`` (split staging), K4 and K5 in the pairs kernel's place.
+    with ``allow`` (split staging), K4 (its rows capped at ``rows_cap``,
+    with ``_mask_flags``) and K5 in the pairs kernel's place.
 
     One output block per distinct candidate set: pairs (si, sj) that share
     sj share its tile-layout rows, each through its own slice of ``qpos``
     (the roles of the JAX ``blocks``/``qpos_set`` and ``attach_blocks``).
     A pair whose query set is empty gets empty arrays."""
-    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii)
+    a = kernel_inputs(points, search_radius, carry, cfg, knobs, radii,
+                      set_ids=set_ids)
     q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
-    counts_t, nbrs_t = run_pairs(a, q_t, allow=allow)
+    extra = {}
+    if allow is None:
+        counts_t, nbrs_t = run_pairs(a, q_t)
+    else:
+        counts_t, nbrs_t, cand_base = split_pairs(a, q_t, allow,
+                                                  rows_cap=rows_cap)
+        extra = _mask_flags(cand_base, rows_cap)
     # every block's counts through one gather
     gathered = counts_t[:, carry.qpos.long()]
     offs = cfg.set_offsets
@@ -599,7 +679,7 @@ def _search(points: torch.Tensor, radii: torch.Tensor | None,
         pairs[f"{si}-{sj}"] = {"counts": counts, "max_count": counts.max(),
                                "nbrs_tiles": nbrs_t[b],
                                "qpos": carry.qpos[offs[si]:offs[si] + n_i]}
-    return {"pairs": pairs, **_flags(state, carry, a.tiles_cap)}
+    return {"pairs": pairs, **_flags(state, carry, a.tiles_cap), **extra}
 
 
 def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
@@ -613,7 +693,7 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
             "nbrs": torch.full((n_i, round_up(cfg.cap_of(sj), 8)), -1,
                                dtype=torch.int32, device=dev),
             "max_count": zero}
-    return {"pairs": pairs, "n_cells": zero, "error": state.error,
+    return {"pairs": pairs, "n_cells": zero, "error": state.error.clone(),
             "dense_overflow": zero, "tile_overflow": zero,
             "rows_overflow": zero, "tiles_used": zero, "win_max": zero,
             "cand_max": zero}
@@ -638,12 +718,14 @@ def contracts_applicable(cfg: SearchConfig, knobs: FastKnobs) -> bool:
 
 
 def build_and_search_fast(points: torch.Tensor, search_radius: float,
-                          cell_size: float, state: GridState,
+                          state: GridState,
                           cfg: SearchConfig, knobs: FastKnobs,
                           radii: torch.Tensor | None = None,
                           reduce: ReduceSpec | None = None,
                           payload: torch.Tensor | None = None,
-                          mask: bool = False) -> tuple[dict, GridState]:
+                          mask: bool = False, *, consts: StepConsts,
+                          rows_cap: int | None = None
+                          ) -> tuple[dict, GridState]:
     """One full search, rebuilt on every call: grid update, prep,
     records, K1, the pairs kernel, counts; where ``applicable`` refuses,
     the tile path (``_tile_search``) instead.  ``radii`` (n,) float32 in
@@ -651,21 +733,28 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
     ``payload`` (n, 2) float32 or None) and with ``mask`` the bitmask
     kernel (K4) take the pairs kernel's place; both need ``cfg.n_points >
     0`` and ``contracts_applicable``.  ``knobs.split_stage`` runs K4 and
-    K5 for the pairs kernel."""
+    K5 for the pairs kernel.  ``rows_cap`` caps K4's rows (None: exact,
+    one host read).
+
+    The new grid is written into ``state``'s tensors, which are returned.
+    ``consts`` are ``step_constants(cfg, knobs, cell_size, device)`` and
+    give the cell size; with a ``rows_cap`` the fused route reads nothing
+    back to the host, so a CUDA graph can capture it."""
     contract = reduce is not None or mask
     if contract and not contracts_applicable(cfg, knobs):
         raise ValueError("the fused reduce and the mask need the fused "
                          "route (knobs.fused, <= 8 candidate sets, a "
                          "stencil of at most 3 cells)")
-    allow = _allow(cfg, knobs, points.device, reduce, mask)
-    state = update_grid(state, points, cell_size)
+    assign_(state, update_grid(state, points, consts.cell_size))
     if not contract and (cfg.n_points == 0 or not cfg.active_pairs):
         return _empty_solution(cfg, state), state
     if contract or applicable(cfg, knobs):
-        carry = _prep(points, state, cfg, knobs, radii)
+        carry = _prep(points, state, cfg, knobs, radii, consts=consts)
         return _search_any(points, radii, payload, search_radius, state,
-                           carry, cfg, knobs, reduce, mask, allow), state
-    carry = _prep(points, state, cfg, knobs, radii, padded=True)
+                           carry, cfg, knobs, reduce, mask, consts,
+                           rows_cap), state
+    carry = _prep(points, state, cfg, knobs, radii, padded=True,
+                  consts=consts)
     return _tile_search(points, radii, search_radius, state, carry, cfg,
                         knobs), state
 
@@ -697,6 +786,9 @@ def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
     windows load only as wide as the widest window needs (the slots past
     a window's length are masked either way), so none of this changes a
     result."""
+    refuse_capture("the tile path (more than 8 candidate sets, or "
+                   "set_use_pallas(False))", "capture a step on the fused "
+                   "route")
     st = _statics(cfg, knobs)
     dev = points.device
     n = cfg.n_points
@@ -775,19 +867,21 @@ def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
 
 
 def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
-                                cell_size: float, state: GridState,
+                                state: GridState,
                                 carry: FastCarry, cfg: SearchConfig,
                                 knobs: FastKnobs,
                                 radii: torch.Tensor | None = None,
                                 reduce: ReduceSpec | None = None,
                                 payload: torch.Tensor | None = None,
-                                mask: bool = False
+                                mask: bool = False, *,
+                                consts: StepConsts,
+                                rows_cap: int | None = None
                                 ) -> tuple[dict, GridState, FastCarry]:
     """One step of ``build_and_search_fast`` that reuses the carried cell
     structure when no point changed cells (``fastpath.py:1609-1655`` of
     the JAX package; the reference's coherence, ``TreeNSearch.cpp:417-
     424``).  Returns ``(sol, state, carry)``; ``sol["rebuilt"]`` is an
-    int32 tensor, 1 when the carry was rebuilt.
+    int32 device tensor, 1 when the carry was rebuilt.
 
     The carry is reused when it is valid, the updated grid is the previous
     one (box, cells and cell size), every point's padded linear cell id
@@ -795,62 +889,63 @@ def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
     radius is unchanged.  A stable re-sort of equal keys reproduces the
     carried order, so the table, layout and descriptors are those a
     rebuild would give; the records are built from the new points either
-    way, so results are exact.  The decision costs one host read: on
-    reuse the prep does not run at all.  ``carry`` must come from
+    way, so results are exact.  The new grid and, on a rebuild, the prep's
+    structures are written into the tensors of ``state`` and ``carry``,
+    which are returned: the prep runs under ``rebuild_if`` (eagerly after
+    one host read of the predicate; under CUDA graph capture in a
+    conditional node, so a replay runs it only when it must).  The
+    solution shares no tensor with them.  ``carry`` must come from
     ``make_fast_carry0`` or an earlier step with the same ``cfg`` and
-    ``knobs``.  Needs ``cfg.n_points > 0``."""
+    ``knobs``; ``consts`` and ``rows_cap`` as in ``build_and_search_fast``.
+    Needs ``cfg.n_points > 0``."""
     if cfg.n_points == 0:
         raise ValueError("the carried step needs at least one point")
     if not contracts_applicable(cfg, knobs):
         raise ValueError("the carried step needs the fused route "
                          "(knobs.fused, <= 8 candidate sets, a stencil of "
                          "at most 3 cells)")
-    allow = _allow(cfg, knobs, points.device, reduce, mask)
-    prev = state
-    state = update_grid(state, points, cell_size)
-    same_grid = (prev.valid & torch.all(state.grid_min == prev.grid_min)
-                 & torch.all(state.n_cells == prev.n_cells)
-                 & (state.cell_size == prev.cell_size))
+    new = update_grid(state, points, consts.cell_size)
+    same_grid = (state.valid & torch.all(new.grid_min == state.grid_min)
+                 & torch.all(new.n_cells == state.n_cells)
+                 & (new.cell_size == state.cell_size))
+    assign_(state, new)
     lin = _padded_lin(points, state, cfg, knobs)[0]
     same = carry.valid & same_grid & torch.all(lin == carry.lin_chk)
     if cfg.variable:
         same = same & torch.all(radii[carry.idx_s.long()] == carry.r_chk)
-    rebuilt = not bool(same)
-    if rebuilt:
-        carry = _prep(points, state, cfg, knobs, radii)._replace(lin_chk=lin)
+    rebuild = ~same
+
+    def rebuild_carry():
+        assign_(carry, _prep(points, state, cfg, knobs, radii,
+                             consts=consts)._replace(lin_chk=lin))
+
+    rebuild_if(rebuild, rebuild_carry)
+    # the solution keeps no buffer of the carry (its flags are copies)
+    view = carry._replace(qpos=carry.qpos.clone(),
+                          desc=carry.desc.clone() if mask else carry.desc)
     if not (reduce is not None or mask) and not cfg.active_pairs:
         sol = _empty_solution(cfg, state)
     else:
         sol = _search_any(points, radii, payload, search_radius, state,
-                          carry, cfg, knobs, reduce, mask, allow)
-    # a fill, not a copy from the host, so the step does not wait on it
-    sol["rebuilt"] = (torch.ones if rebuilt else torch.zeros)(
-        (), dtype=torch.int32, device=points.device)
+                          view, cfg, knobs, reduce, mask, consts, rows_cap)
+    sol["rebuilt"] = rebuild.to(torch.int32)
     return sol, state, carry
 
 
-def _allow(cfg: SearchConfig, knobs: FastKnobs, device, reduce,
-           mask: bool) -> torch.Tensor | None:
-    """The active matrix for K3, K4 or split staging (K4 then K5), else
-    None; made first, so its copy to the device precedes the step's
-    work."""
-    if reduce is not None or mask or knobs.split_stage:
-        return allow_table(cfg, _statics(cfg, knobs)["cand_sets"], device)
-    return None
-
-
 def _search_any(points, radii, payload, search_radius, state, carry, cfg,
-                knobs, reduce, mask, allow) -> dict:
+                knobs, reduce, mask, consts, rows_cap) -> dict:
     """The search on a prep's structures: the fused reduce, the mask or
-    the neighbor lists."""
+    the neighbor lists (with split staging under ``knobs.split_stage``)."""
     if reduce is not None:
         return _search_reduce(points, radii, payload, search_radius, state,
-                              carry, cfg, knobs, reduce, allow)
+                              carry, cfg, knobs, reduce, consts.allow,
+                              consts.set_ids)
     if mask:
         return _search_mask(points, radii, search_radius, state, carry, cfg,
-                            knobs, allow)
+                            knobs, consts.allow, consts.set_ids, rows_cap)
     return _search(points, radii, search_radius, state, carry, cfg, knobs,
-                   allow)
+                   consts.allow if knobs.split_stage else None,
+                   consts.set_ids, rows_cap)
 
 
 def materialize_nbrs(pair: dict) -> torch.Tensor:
@@ -891,9 +986,15 @@ def decode_mask(mask: dict, meta: dict, tiles=None):
     indices ascending, ``cols[row_ptr[q]:row_ptr[q + 1]]`` (the union over
     the query set's active candidate sets; ``meta["set_offsets"]`` splits
     them per pair).  ``tiles`` restricts the decode to those tile indices
-    (the queries of other tiles then count 0).
+    (the queries of other tiles then count 0).  Raises ``ValueError`` for
+    a step's mask whose rows passed its cap (``mask_overflow``): ``bits``
+    then lacks rows that ``cand_base`` counts.
     """
     bits, cand_base, q_orig = mask["bits"], mask["cand_base"], mask["q_orig"]
+    if int(cand_base[-1]) > bits.shape[0]:
+        raise ValueError(f"the mask has {bits.shape[0]} bit rows of its "
+                         f"{int(cand_base[-1])} (mask_overflow): a step's "
+                         "row cap dropped the rest; decode run_mask()'s")
     cand_orig = mask["cand_orig"]
     n, n_win = meta["n_total"], meta["n_win"]
     dev = bits.device

@@ -43,15 +43,18 @@ def fresh_state(device="cpu") -> GridState:
 
 
 def update_grid(state: GridState, points: torch.Tensor,
-                cell_size: float) -> GridState:
-    """New grid state from points (N, 3) f32 and a cell size.
+                cell_size: torch.Tensor) -> GridState:
+    """New grid state from points (N, 3) f32 and the cell size, a ()
+    float32 tensor on the points' device (a search's constant, so the
+    update copies nothing from the host; the new state's ``cell_size`` is
+    that tensor).
 
     Same float32 operations in the same order as the JAX function, so
     ``grid_min``, ``n_cells`` and ``error`` are bit-identical; ``grid_max``
     (a mul+add that XLA may contract to an FMA) may differ by one ulp.
     """
     dev = points.device
-    cs = torch.tensor(cell_size, dtype=torch.float32, device=dev)
+    cs = cell_size
     if points.shape[0] == 0:
         # degenerate: a one-cell grid at the origin; nothing is searched
         return GridState(

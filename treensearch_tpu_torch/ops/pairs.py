@@ -52,6 +52,8 @@ from typing import NamedTuple
 
 import torch
 
+from .cond import refuse_capture
+
 # record fields (rows of the field-major record arrays)
 F_X, F_Y, F_Z, F_R, F_ORIG, F_SET = 0, 1, 2, 3, 4, 5
 N_FIELDS = 8
@@ -195,7 +197,8 @@ def load_library(build_dir: Path | None = None) -> _Library:
                                    pi, pi, pi, pv, vp, vp]
     lib.tns_pairs_nbrs.restype = ci
     lib.tns_pairs_mask.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, ci,
-                                   pi, vp, ci, vp, vp, vp, vp]
+                                   pi, vp, ci, vp, ctypes.c_longlong, vp,
+                                   vp, vp]
     lib.tns_pairs_mask.restype = ci
     lib.tns_pairs_nbrs_from_bits.argtypes = [vp, vp, ci, ci, ci, vp,
                                              ctypes.c_longlong, vp, ci, pi,
@@ -711,17 +714,20 @@ def mask_cand_base(desc: torch.Tensor, n_rec: int, n_win: int,
 def pairs_mask_plain(desc: torch.Tensor, q_t: torch.Tensor,
                      recs_t: torch.Tensor, n_win: int, tiles_cap: int,
                      cand_sets, allow: torch.Tensor, r2: float | None = None,
-                     symmetric: bool = False):
+                     symmetric: bool = False, rows_cap: int | None = None):
     """Plain version of K4 over the candidates of ``_plain_chunks``, the
     active matrix applied (``allow_bits``).  Returns counts (tiles_cap *
     128,) int32, bits (rows, 4) int32 and ``cand_base``: candidate k of
     live tile t, in window order, owns row ``cand_base[t] + k``, and bit
-    ``l % 32`` of its word ``l // 32`` says that query lane l hits it."""
+    ``l % 32`` of its word ``l // 32`` says that query lane l hits it.
+    With ``rows_cap`` bits has ``rows_cap`` rows: the rows at or past it
+    are dropped, those past ``cand_base[-1]`` are 0; counts stay exact."""
     dev = desc.device
     cand_base = mask_cand_base(desc, recs_t.shape[1], n_win, tiles_cap)
     base = cand_base.tolist()
+    n_rows = base[-1] if rows_cap is None else _check_rows_cap(rows_cap)
     counts = torch.zeros(tiles_cap * TILE, dtype=torch.int32, device=dev)
-    bits = torch.zeros((base[-1], MASK_WORDS), dtype=torch.int32, device=dev)
+    bits = torch.zeros((n_rows, MASK_WORDS), dtype=torch.int32, device=dev)
     weight = torch.ones(32, dtype=torch.int64, device=dev) \
         << torch.arange(32, device=dev)
     for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap, r2,
@@ -733,27 +739,46 @@ def pairs_mask_plain(desc: torch.Tensor, q_t: torch.Tensor,
         words = (m.transpose(1, 2).reshape(nt, width, MASK_WORDS, 32)
                  .to(torch.int64) * weight).sum(dim=3)
         words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-        bits[base[ch.t0]:base[ch.t1]] = words[ch.ok].to(torch.int32)
+        lo, hi = base[ch.t0], min(base[ch.t1], n_rows)
+        if hi > lo:
+            bits[lo:hi] = words[ch.ok][:hi - lo].to(torch.int32)
     return counts, bits, cand_base
+
+
+def _check_rows_cap(rows_cap) -> int:
+    rows_cap = int(rows_cap)
+    if rows_cap < 0:
+        raise ValueError(f"rows_cap must be >= 0, got {rows_cap}")
+    return rows_cap
 
 
 def pairs_mask(desc: torch.Tensor, q_t: torch.Tensor, recs_t: torch.Tensor,
                n_win: int, tiles_cap: int, cand_sets, allow: torch.Tensor,
-               r2: float | None = None, symmetric: bool = False):
+               r2: float | None = None, symmetric: bool = False,
+               rows_cap: int | None = None):
     """K4: exact per-query counts (tiles_cap * 128,) int32 and the hit
     bits (rows, 4) int32 of every candidate row, with ``cand_base``
     (``pairs_mask_plain`` has the layout).  ``r2=None`` takes the radii
-    from the records' F_R field (K2c's criteria).  Nothing is capped, so
-    nothing can truncate; sizing ``bits`` is one host read."""
+    from the records' F_R field (K2c's criteria).  Without ``rows_cap``
+    nothing is capped, so nothing can truncate, and sizing ``bits`` is one
+    host read (refused under CUDA graph capture).  With it ``bits`` is
+    (rows_cap, 4): the kernel writes no row at or past the cap (the rows
+    past ``cand_base[-1]`` are undefined on the card), the counts stay
+    exact, and ``cand_base[-1] > rows_cap`` says that rows were dropped."""
     cand_sets = check_active_args(desc, q_t, recs_t, n_win, tiles_cap,
                                   cand_sets, allow, r2, symmetric)
     if desc.device.type == "cpu":
         return pairs_mask_plain(desc, q_t, recs_t, n_win, tiles_cap,
-                                cand_sets, allow, r2, symmetric)
+                                cand_sets, allow, r2, symmetric, rows_cap)
     lib = _cuda_lib(desc)
     n_rec = recs_t.shape[1]
     cand_base = mask_cand_base(desc, n_rec, n_win, tiles_cap)
-    n_rows = int(cand_base[-1])
+    if rows_cap is None:
+        refuse_capture("pairs_mask without rows_cap (it sizes its bits "
+                       "by the row count)", "pass a static rows_cap")
+        n_rows = int(cand_base[-1])
+    else:
+        n_rows = _check_rows_cap(rows_cap)
     counts = torch.empty(tiles_cap * TILE, dtype=torch.int32,
                          device=desc.device)
     bits = torch.empty((n_rows, MASK_WORDS), dtype=torch.int32,
@@ -763,7 +788,7 @@ def pairs_mask(desc: torch.Tensor, q_t: torch.Tensor, recs_t: torch.Tensor,
         desc.data_ptr(), q_t.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap,
         n_win, float(r2 if r2 is not None else 0.0), int(r2 is None),
         int(symmetric), len(cand_sets), set_ids_arg(cand_sets),
-        allow.data_ptr(), allow.shape[0], cand_base.data_ptr(),
+        allow.data_ptr(), allow.shape[0], cand_base.data_ptr(), n_rows,
         counts.data_ptr(), bits.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pairs_mask launch failed: CUDA error {err}")

@@ -33,6 +33,7 @@ import torch
 from ..config import SearchConfig
 from ..utils import keys as K
 from ..utils.compact import compact_rows
+from .cond import refuse_capture
 from .fastpath import set_ids_of
 from .grid import GridState, update_grid
 
@@ -251,8 +252,13 @@ def build_and_search(points: torch.Tensor, radii: Optional[torch.Tensor],
     active pair ``counts`` (n_i,) (exact), ``nbrs`` (n_i, nbr_cap) (set-
     local indices, -1 padded) and ``max_count``; ``cand_max``, the most
     candidates any query had (the host regrows ``cand_cap`` past it);
-    ``n_cells`` and ``error``."""
-    state = update_grid(state, points, cell_size)
+    ``n_cells`` and ``error``.  It reads the grid and each chunk's
+    candidate counts back to the host, so it raises ``ValueError`` under
+    CUDA graph capture."""
+    refuse_capture("the search-based pipeline (make_step_fn(fast=False), "
+                   "run_scalar)", "capture a step on the fused route")
+    state = update_grid(state, points, torch.tensor(
+        cell_size, dtype=torch.float32, device=points.device))
     n = cfg.n_points
     if n == 0:
         return _empty_solution(cfg, state), state

@@ -68,6 +68,7 @@ import torch.distributed as dist
 from ..config import SearchConfig, round_up
 from ..ops import fastpath as fp
 from ..ops import pipeline as pl
+from ..ops.cond import refuse_capture
 from ..ops.grid import GridState, update_grid
 from ..ops.pairs import (F_ORIG, F_R, F_SET, F_X, F_Z, N_FIELDS,
                          expand_query_tiles)
@@ -256,9 +257,11 @@ def slab_window(state: GridState, cfg: SearchConfig, rank: int, size: int):
 def search_fast_local(local: torch.Tensor, n_own: int, rank: int, size: int,
                       search_radius: float, state: GridState,
                       cfg: SearchConfig, knobs: fp.FastKnobs,
-                      reduce: ReduceSpec | None = None) -> dict:
+                      reduce: ReduceSpec | None = None, *,
+                      consts: fp.StepConsts) -> dict:
     """The fast path over one rank's local rows (``local[:n_own]`` owned),
-    for the global sets ``cfg``: the prep with the rank's slab window, the
+    for the global sets ``cfg`` and their ``fp.step_constants`` ``consts``:
+    the prep with the rank's slab window, the
     records with the rows' global orig and set ids (K1's sentinel orig is
     n), K1 and the pairs kernel, or K3 with ``reduce`` (the payload rides
     fields 6 and 7).  Returns per owned row ``counts`` (n_own, blocks) and
@@ -290,7 +293,7 @@ def search_fast_local(local: torch.Tensor, n_own: int, rank: int, size: int,
                              variable=cfg.variable, symmetric=cfg.symmetric)
     lin_base, span_i, owned_rng = slab_window(state, cfg, rank, size)
     carry = fp._prep(pts, state, local_cfg, knobs, rad, owned_rng=owned_rng,
-                     lin_base=lin_base, span_i=span_i)
+                     lin_base=lin_base, span_i=span_i, consts=consts)
     payload = local[:, F_P0:F_P1 + 1].contiguous().view(torch.float32) \
         if reduce is not None else None
     a = fp.kernel_inputs(pts, search_radius, carry, cfg, knobs, rad, payload,
@@ -301,9 +304,9 @@ def search_fast_local(local: torch.Tensor, n_own: int, rank: int, size: int,
                tile_overflow=carry.tile_overflow,
                rows_overflow=carry.rows_overflow)
     if reduce is not None:
-        allow = fp.allow_table(cfg, a.cand_sets, dev)
         sums = pairs_reduce(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap,
-                            reduce, a.cand_sets, allow, **fp.active_args(a))
+                            reduce, a.cand_sets, consts.allow,
+                            **fp.active_args(a))
         out["reduce"] = sums[:, ppos].t()
         return out
     counts_t, nbrs_t = fp.run_pairs(a, q_t)
@@ -411,14 +414,16 @@ def build_and_search_sharded_fast(points: torch.Tensor,
     runs instead, and ``solution["reduce"]`` holds every set's sums
     ``{"s<i>": (n_out, n_i)}`` on every rank."""
     ax = MeshAxis(mesh, axis)
-    state = update_grid(state, points, cell_size)
+    consts = fp.step_constants(cfg, knobs, cell_size, points.device)
+    state = update_grid(state, points, consts.cell_size)
     n = cfg.n_points
     if n == 0 or (reduce is None and not cfg.active_pairs):
         return _empty(cfg, state, ax.size, True), state
     dev = points.device
     rt = _route(points, radii, payload, state, cfg, ax)
     res = search_fast_local(rt.local, rt.n_own, ax.rank, ax.size,
-                            search_radius, state, cfg, knobs, reduce)
+                            search_radius, state, cfg, knobs, reduce,
+                            consts=consts)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     flags = [state.error, res["dense_overflow"], res["rows_overflow"],
              res["tile_overflow"]]
@@ -467,7 +472,8 @@ def build_and_search_sharded(points: torch.Tensor,
     ``cand_max`` (the most candidates of a query, over the ranks) for
     the host's candidate-cap regrow."""
     ax = MeshAxis(mesh, axis)
-    state = update_grid(state, points, cell_size)
+    state = update_grid(state, points, torch.tensor(
+        cell_size, dtype=torch.float32, device=points.device))
     if cfg.n_points == 0 or not cfg.active_pairs:
         return _empty(cfg, state, ax.size, False), state
     dev = points.device
@@ -500,11 +506,16 @@ def make_sharded_step(cfg: SearchConfig, mesh, cell_size: float,
     """The step over a mesh (``make_sharded_step``, ``sharded.py:565-591``
     of the JAX package): ``step(state, points, radii=None) -> (solution,
     state)`` through the fast path (``fast=True``, with ``knobs``) or the
-    pipeline.  Collective: every rank calls it with the same arrays."""
+    pipeline.  Collective: every rank calls it with the same arrays.  It
+    reads the exchange's count matrix back to the host, so it raises
+    ``ValueError`` under CUDA graph capture."""
     if fast and knobs is None:
         raise ValueError("a fast sharded step needs knobs")
 
     def step(state, points, radii=None):
+        refuse_capture("the sharded step (its exchange sizes come from a "
+                       "count matrix read on the host)", "capture a "
+                       "one-device step")
         if fast:
             return build_and_search_sharded_fast(
                 points, radii, search_radius, cell_size, state, cfg, knobs,
