@@ -136,6 +136,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    counts, the split step (K4 then K5), config 3's two-set step (K2b) and
    config 4's variable symmetric step (K2c; a radius change at static
    positions rebuilds), each replayed against eager steps, bit for bit.
+   Then the steps off the fused route, each captured once and replayed at
+   static and 2 jittered positions against eager steps (every pair's
+   counts, ``max_count`` and rows slot for slot, every flag), 3 replays
+   timed and profiled (ms per replay beside the eager ms/step, device
+   work, events and idle share, peak memory): config 1's tile-path step
+   (``set_use_pallas(False)``; K1r once per replay, the settled
+   ``tiles_cap`` and ``wcap`` beside ``tiles_used`` and ``win_max``),
+   phase 13's ten-set step, the pipeline step (``make_step_fn(fast=
+   False)``) at config 1, its lists equal to ``run_scalar()``'s as sets,
+   and at config 4; and ``make_zsort_step`` on phase 15's inputs, its
+   orders and gathers equal to the eager step's bit for bit, ms per
+   replay beside phase 15's eager ms.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
@@ -199,6 +211,7 @@ R_WIDE = (0.02, 0.1)
 N_CLUSTER = 50_000      # phase 14: points per cluster of the sparse cloud
 BOX_CELLS = 1000        # ... at opposite corners of a box this many cells
 N_ZSORT_EXTRA = 50_000  # phase 15: the third set beside config 3's two
+ZSORT_STEP_TIMING = "make_zsort_step (3 sets, 2 arrays each)"
 
 
 # ------------------------------------------------ the reduce callbacks
@@ -373,8 +386,9 @@ def settled_inputs(eng, payload=None, padded: bool = False):
     cfg = eng._make_cfg(eng._stencil_w(cell, bounds))
     knobs = eng._knobs()
     carry = fp._prep(points, eng._grid_state, cfg, knobs, radii, padded,
-                     consts=fp.step_constants(cfg, knobs, cell,
-                                              points.device))
+                     consts=fp.step_constants(
+                         cfg, knobs, cell, points.device,
+                         search_radius=eng._search_radius or 0.0))
     flags = [int(carry.dense_overflow), int(carry.rows_overflow),
              int(carry.tile_overflow)]
     if any(flags):
@@ -1504,12 +1518,16 @@ N_PROFILED_REPLAYS = 5  # phase 17: replays under torch.profiler
 
 def capture_step(step, state, args: tuple, kw: dict, extra=None):
     """A ``make_step_fn`` step captured as one CUDA graph, after an eager
-    warm-up of two steps on ``args`` (the first rebuilds, the second
-    reuses: every kernel is built and every workspace made) on a side
-    stream.  ``extra(sol)`` is recorded after the step (bench.py's
+    warm-up of two steps on ``args`` (a carried step's first rebuilds,
+    its second reuses: every kernel is built and every workspace made) on
+    a side stream.  ``extra(sol)`` is recorded after the step (bench.py's
     checksum).  Every kernel's count is set to 0 just before the capture;
     the counts after it are the graph's launches per replay.  Returns
-    (graph, the static solution, state, launches)."""
+    (graph, the static solution, state, launches, memory): ``memory``
+    holds the peak device bytes allocated during the capture, the part of
+    it above what was allocated before the capture (the step's working
+    memory, taken from the graph's pool and reused by every replay) and
+    the bytes its outputs and state still hold after it."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1522,13 +1540,19 @@ def capture_step(step, state, args: tuple, kw: dict, extra=None):
     kernels = pairs_kernels()
     for k in kernels:
         k.launches = 0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         sol, state = step(state, *args, **kw)
         if extra is not None:
             extra(sol)
     torch.cuda.synchronize()
-    return graph, sol, state, {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    memory = {"peak": peak, "work": peak - held,
+              "held": torch.cuda.memory_allocated() - held}
+    return graph, sol, state, {k.__name__: k.launches for k in kernels}, \
+        memory
 
 
 def _check_graph_launches(launches: dict, label: str, path: tuple) -> None:
@@ -1568,9 +1592,11 @@ def _same_mask(got: dict, want: dict, label: str) -> int:
     return rows
 
 
-def replay_profile(replay, label: str, card: str) -> dict:
-    """N_PROFILED_REPLAYS calls of ``replay`` under torch.profiler: device
-    events by kernel per replay, device work per replay and idle share."""
+def replay_profile(replay, label: str, card: str,
+                   replays: int = N_PROFILED_REPLAYS) -> dict:
+    """``replays`` calls of ``replay`` under torch.profiler: device events
+    per replay, device work per replay, idle share, and the launches of
+    K1, K1r and sort kernels in all."""
     import collections
 
     import torch
@@ -1580,7 +1606,7 @@ def replay_profile(replay, label: str, card: str) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(N_PROFILED_REPLAYS):
+        for _ in range(replays):
             replay()
         torch.cuda.synchronize()
     events = [e for e in prof.events()
@@ -1589,17 +1615,18 @@ def replay_profile(replay, label: str, card: str) -> dict:
         raise AssertionError(f"{label}: the profiler saw no device event")
     names = collections.Counter(e.name for e in events)
     busy, window = busy_ms(events)
-    out = {"events": len(events) / N_PROFILED_REPLAYS,
-           "device_ms": busy / N_PROFILED_REPLAYS,
+    out = {"events": len(events) / replays, "device_ms": busy / replays,
            "idle": 1 - busy / window,
            "k1": sum(v for k, v in names.items()
                      if "expand_query_tiles_kernel" in k),
+           "k1r": sum(v for k, v in names.items()
+                      if "expand_records_kernel" in k),
            "sort": sum(v for k, v in names.items() if "sort" in k.lower())}
-    print(f"{label}: {N_PROFILED_REPLAYS} replays profiled, "
+    print(f"{label}: {replays} replays profiled, "
           f"{out['events']:.1f} device events and {out['device_ms']:.4f} "
           f"ms of device work per replay, idle share {out['idle']:.3f}, "
-          f"K1 {out['k1']} launches, sort kernels {out['sort']} ({card})",
-          flush=True)
+          f"K1 {out['k1']} launches, K1r {out['k1r']}, sort kernels "
+          f"{out['sort']} ({card})", flush=True)
     return out
 
 
@@ -1661,8 +1688,8 @@ def run_reuse_graph(pts_t, card: str, eager: dict) -> dict:
         acc.add_(sol["pairs"]["0-0"]["counts"][::257].sum(dtype=torch.int32))
 
     step, state = eng.make_step_fn(reuse=True)
-    graph, sol, state, launches = capture_step(step, state, (static,), {},
-                                               checksum)
+    graph, sol, state, launches, _ = capture_step(step, state, (static,),
+                                                  {}, checksum)
     _check_graph_launches(launches, "step graph", path)
     estep, estate = eng.make_step_fn(reuse=True)
     for _ in range(2):
@@ -1734,51 +1761,79 @@ def run_reuse_graph(pts_t, card: str, eager: dict) -> dict:
 
 
 def graph_vs_eager(label: str, make, args: tuple, kw: dict, path: tuple,
-                   moved: list, same) -> tuple:
+                   moved: list, same, always_rebuilds: bool = False,
+                   replays: int = 10) -> dict:
     """One captured step (``make()`` returns ``(step, state)``) against
     eager steps on the same inputs: the graph and an eager state warmed
     alike on ``args``, then each entry of ``moved`` (a tuple of new values
     for ``args``) copied in and replayed beside an eager step, ``same(got,
-    want, label)`` comparing their solutions.  Returns the graph, its
-    static solution, ms per replay and each moved replay's ``rebuilt``."""
+    want, label)`` comparing their solutions; a carried step's replays
+    must also rebuild as the eager ones do, and not at static inputs
+    (``always_rebuilds``: a step that rebuilds every time and reports no
+    ``rebuilt``).  Returns the graph, its static solution, its launches
+    and memory (``capture_step``), host ms per replay over ``replays``
+    replays at the last inputs, the median host ms of the eager steps
+    beside the replays, and each moved replay's ``rebuilt``."""
     import torch
     step, state = make()
-    graph, sol, state, launches = capture_step(step, state, args, kw)
+    graph, sol, state, launches, memory = capture_step(step, state, args,
+                                                       kw)
     _check_graph_launches(launches, label, path)
     estep, estate = make()
     for _ in range(2):
         want, estate = estep(estate, *args, **kw)
+    eager_ms = []
+
+    def eager_step():
+        nonlocal estate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, estate = estep(estate, *args, **kw)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
     graph.replay()
-    same(sol, want, f"{label} static")
-    if int(sol["rebuilt"]):
+    same(sol, eager_step(), f"{label} static")
+    if not always_rebuilds and int(sol["rebuilt"]):
         raise AssertionError(f"{label}: a static replay rebuilt")
     rebuilt = []
     for values in moved:
         for t, v in zip(args, values):
             t.copy_(v)
         graph.replay()
-        want, estate = estep(estate, *args, **kw)
-        rebuilt.append(int(sol["rebuilt"]))
-        if rebuilt[-1] != int(want["rebuilt"]):
-            raise AssertionError(f"{label}: rebuilt differs")
+        want = eager_step()
+        if not always_rebuilds:
+            rebuilt.append(int(sol["rebuilt"]))
+            if rebuilt[-1] != int(want["rebuilt"]):
+                raise AssertionError(f"{label}: rebuilt differs")
         same(sol, want, f"{label} moved")
-    ms = _timed_replays(graph.replay, 10)
+    ms = _timed_replays(graph.replay, replays)
     print(f"{label}: captured once, launches {launches}; static and "
-          f"{len(moved)} moved replays equal to the eager step (rebuilt "
-          f"{rebuilt}); {ms:.4f} ms per replay at the last inputs",
+          f"{len(moved)} moved replays equal to the eager step"
+          + ("" if always_rebuilds else f" (rebuilt {rebuilt})")
+          + f"; {ms:.4f} ms per replay at the last inputs ({replays} "
+          f"replays), eager {statistics.median(eager_ms):.3f} ms/step; "
+          f"peak device memory at capture {memory['peak'] / 1e9:.3f} GB, "
+          f"{memory['work'] / 1e9:.3f} GB of it the step's working memory, "
+          f"{memory['held'] / 1e9:.3f} GB still held by its outputs",
           flush=True)
-    return graph, sol, ms, rebuilt
+    return {"graph": graph, "sol": sol, "launches": launches,
+            "memory": memory, "ms": ms,
+            "eager_ms": statistics.median(eager_ms), "rebuilt": rebuilt}
 
 
 def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
-                    eager: dict) -> dict:
+                    eager: dict, zsort_ms: float) -> dict:
     """Phase 17: the reuse step (``run_reuse_graph``), then the density
     step (K3) against ``run_reduce``, the mask step (K4 capped) against
     ``run_mask`` on the live rows, a mask step capped below its rows
     flagging ``mask_overflow`` with exact counts, the split step (K4 then
     K5), config 3's two-set step (K2b) and config 4's variable symmetric
     step (K2c, a radius change rebuilding), each captured and replayed
-    against eager steps."""
+    against eager steps; then the steps off the fused route
+    (``run_fallback_graphs``; ``zsort_ms``: phase 15's eager ms per
+    ``make_zsort_step`` call)."""
     import torch
     from treensearch_tpu_torch.ops import pairs
     from treensearch_tpu_torch.ops import reduce as red
@@ -1805,17 +1860,18 @@ def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
         if not torch.equal(got["reduce"]["s0"], want["reduce"]["s0"]):
             raise AssertionError(f"{label}: the density differs")
 
-    graph, sol, ms, _ = graph_vs_eager(
+    g = graph_vs_eager(
         "density step graph", lambda: eng.make_step_fn(reduce=(density_fn,
                                                                1)),
         (static,), {"payload": payload}, (k1, red.pairs_reduce),
         jittered((pts_t,)), same_sums)
+    graph, sol, ms = g["graph"], g["sol"], g["ms"]
     static.copy_(pts_t)
     graph.replay()
     if not torch.equal(sol["reduce"]["s0"][0], rho):
         raise AssertionError("density step graph differs from run_reduce")
     out["density"] = {"ms": ms, "eager_ms": eager["reduce"]["ms"]}
-    del graph, sol
+    del g, graph, sol
 
     eng.run_mask()
     mask, _ = eng.run_mask()
@@ -1826,10 +1882,11 @@ def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
             raise AssertionError(f"{label}: mask_overflow")
 
     static.copy_(pts_t)
-    graph, sol, ms, _ = graph_vs_eager(
+    g = graph_vs_eager(
         "mask step graph", lambda: eng.make_step_fn(mask_output=True),
         (static,), {}, (k1, pairs.pairs_mask), jittered((pts_t,)),
         same_masks)
+    graph, sol, ms = g["graph"], g["sol"], g["ms"]
     static.copy_(pts_t)
     graph.replay()
     rows = _same_mask(sol, {"mask": mask}, "mask step graph vs run_mask")
@@ -1837,13 +1894,13 @@ def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
                    "cap": sol["mask"]["bits"].shape[0]}
     print(f"mask step graph: {rows} live rows of a {out['mask']['cap']}-row "
           "cap equal to run_mask's word for word", flush=True)
-    del graph, sol
+    del g, graph, sol
 
     # a cap below the rows: the flag, the counts still exact
     eng._last_stats["mask_rows"] = rows // 2
     step, state = eng.make_step_fn(mask_output=True)
     static.copy_(pts_t)
-    graph, sol, state, _ = capture_step(step, state, (static,), {})
+    graph, sol, state, _, _ = capture_step(step, state, (static,), {})
     graph.replay()
     cap = sol["mask"]["bits"].shape[0]
     if not (cap < rows and int(sol["mask_overflow"]) == 1
@@ -1868,12 +1925,12 @@ def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
         if int(got["mask_overflow"]):
             raise AssertionError(f"{label}: mask_overflow")
 
-    graph, sol, ms, _ = graph_vs_eager(
+    g = graph_vs_eager(
         "split step graph", lambda: eng.make_step_fn(reuse=True), (static,),
         {}, (k1, pairs.pairs_mask, pairs.pairs_nbrs_from_bits),
         jittered((pts_t,)), same_split)
-    out["split"] = {"ms": ms}
-    del graph, sol, eng
+    out["split"] = {"ms": g["ms"]}
+    del g, eng
 
     fluid, boundary = data3
     eng = config3_engine(fluid, boundary)
@@ -1881,31 +1938,225 @@ def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
     eng.run()
     both = torch.cat([fluid, boundary])
     static3 = both.clone()
-    graph, sol, ms, _ = graph_vs_eager(
+    g = graph_vs_eager(
         "config 3 step graph", lambda: eng.make_step_fn(reuse=True),
         (static3,), {}, (k1, pairs.pairs_nbrs_sets), jittered((both,)),
         same_lists)
-    out["config 3"] = {"ms": ms}
-    del graph, sol, eng, static3
+    out["config 3"] = {"ms": g["ms"]}
+    del g, eng, static3
 
     pts4, rad4 = data4
     eng = config4_engine(pts4, rad4)
     eng.run()
     eng.run()
     static4, radii4 = pts4.clone(), rad4.clone()
-    graph, sol, ms, rebuilt = graph_vs_eager(
+    g = graph_vs_eager(
         "config 4 step graph", lambda: eng.make_step_fn(reuse=True),
         (static4, radii4), {}, (k1, pairs.pairs_nbrs_variable),
         [(pts4, rad4 * np.float32(0.999))] + jittered((pts4, rad4), 1),
         same_lists)
-    if rebuilt[0] != 1:
+    if g["rebuilt"][0] != 1:
         raise AssertionError("config 4 step graph: a radius change at "
                              "static positions did not rebuild (r_chk)")
-    out["config 4"] = {"ms": ms}
-    del graph, sol, eng
+    out["config 4"] = {"ms": g["ms"]}
+    del g, eng
     torch.cuda.empty_cache()
+    out.update(run_fallback_graphs(pts_t, card, data3, data4, zsort_ms))
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+N_SLOW_REPLAYS = 3     # phase 17: timed and profiled replays of the
+#                        device-bound steps off the fused route
+
+
+def _same_solution(got: dict, want: dict, label: str) -> None:
+    """Two solutions of a step that rebuilds every time: every pair's
+    counts, ``max_count`` and rows (slot for slot) equal, and every flag."""
+    import torch
+    _same_pairs(got["pairs"], want["pairs"], label)
+    for name, w in want["pairs"].items():
+        if not torch.equal(got["pairs"][name]["max_count"], w["max_count"]):
+            raise AssertionError(f"{label}: pair {name}'s max_count differs")
+    for k, v in want.items():
+        if k != "pairs" and not torch.equal(got[k], v):
+            raise AssertionError(f"{label}: flag {k} differs")
+
+
+def _fallback_graph(label: str, make, args: tuple, path: tuple, card: str,
+                    after=None) -> dict:
+    """One step off the fused route captured and replayed against eager
+    steps at static and 2 jittered positions (``graph_vs_eager``,
+    ``_same_solution``), 3 replays timed and profiled, the tile path's
+    caps printed; ``after(graph, sol)`` checks more before the graph is
+    freed and returns numbers to add, or None.  Returns its numbers."""
+    import torch
+    gen = torch.Generator(device=args[0].device).manual_seed(7)
+    moved = [(args[0] + (torch.rand(args[0].shape, generator=gen,
+                                    device=args[0].device) * 2 - 1)
+              * JITTER, *args[1:]) for _ in range(2)]
+    g = graph_vs_eager(label, make, args, {}, path, moved, _same_solution,
+                       always_rebuilds=True, replays=N_SLOW_REPLAYS)
+    prof = replay_profile(g["graph"].replay, label, card, N_SLOW_REPLAYS)
+    if prof["k1r"] != N_SLOW_REPLAYS * len(path) or prof["k1"]:
+        raise AssertionError(f"{label}: K1r not once per replay, or K1 ran")
+    sol = g["sol"]
+    rec = {"ms": g["ms"], "eager_ms": g["eager_ms"],
+           "device_ms": prof["device_ms"], "events": prof["events"],
+           "idle": prof["idle"], "peak_gb": g["memory"]["peak"] / 1e9,
+           "work_gb": g["memory"]["work"] / 1e9}
+    if after is not None:
+        rec.update(after(g["graph"], sol) or {})
+    print(f"{label}: {rec['ms']:.4f} ms per replay beside {rec['eager_ms']:.3f}"
+          f" ms/eager step; {rec['device_ms']:.4f} ms of device work in "
+          f"{rec['events']:.1f} events per replay, idle share "
+          f"{rec['idle']:.3f}; peak device memory {rec['peak_gb']:.3f} GB, "
+          f"{rec['work_gb']:.3f} GB of it the step's ({card})", flush=True)
+    del g, sol
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_fallback_graphs(pts_t, card: str, data3: tuple, data4: tuple,
+                        zsort_ms: float) -> dict:
+    """Phase 17 off the fused route: the tile-path step at config 1
+    (``set_use_pallas(False)``, K1r once per replay) and with ten
+    candidate sets (phase 13's), the pipeline step
+    (``make_step_fn(fast=False)``) at config 1, its lists equal to
+    ``run_scalar()``'s as sets, and at config 4; each captured, replayed
+    against eager steps (counts, ``max_count``, the flags and the rows
+    slot for slot) and timed, with its device work, idle share, peak
+    memory and, on the tile path, the settled ``tiles_cap`` and ``wcap``
+    beside the live tiles and the widest window.  Then
+    ``make_zsort_step`` on phase 15's inputs, its orders and gathers
+    equal to the eager step's bit for bit."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    out = {}
+
+    def tile_caps(label, eng):
+        def after(graph, sol):
+            k = eng._knobs()
+            caps = {"tiles_cap": k.tiles_cap, "tiles_used":
+                    int(sol["tiles_used"]), "wcap": k.wcap,
+                    "win_max": int(sol["win_max"])}
+            print(f"{label}: " + ", ".join(f"{a} {b}"
+                                           for a, b in caps.items()),
+                  flush=True)
+            return caps
+        return after
+
+    label = "config 1 tile-path step graph"
+    eng = make_engine(pts_t, RADIUS)
+    eng.set_use_pallas(False)
+    eng.run()
+    eng.run()
+    out[label] = _fallback_graph(
+        label, eng.make_step_fn, (pts_t.clone(),), (pairs.expand_records,),
+        card, tile_caps(label, eng))
+    del eng
+
+    label = f"{N_BODIES + 1} candidate sets step graph"
+    fluid, boundary = data3
+    bodies = list(torch.tensor_split(boundary, N_BODIES))
+    eng = bodies_engine(fluid, bodies)
+    eng.run()
+    eng.run()
+    out[label] = _fallback_graph(
+        label, eng.make_step_fn, (torch.cat([fluid] + bodies),),
+        (pairs.expand_records,), card, tile_caps(label, eng))
+    del eng, bodies
+
+    label = "config 1 pipeline step graph"
+    eng = make_engine(pts_t, RADIUS)
+    eng.run_scalar()
+    eng.run_scalar()
+    static = pts_t.clone()
+
+    def vs_run_scalar(graph, sol):
+        static.copy_(pts_t)
+        graph.replay()
+        total = equal_as_sets(_pair_rows(sol["pairs"]["0-0"]),
+                              eng.get_neighbors(0, 0), label)
+        print(f"{label}: the replay's lists equal run_scalar()'s as sets "
+              f"({total} pairs; candidate cap {eng._cand_cap}, cand_max "
+              f"{int(sol['cand_max'])})", flush=True)
+
+    out[label] = _fallback_graph(
+        label, lambda: eng.make_step_fn(fast=False), (static,), (), card,
+        vs_run_scalar)
+    del eng, static
+
+    label = "config 4 pipeline step graph"
+    p4, r4 = data4
+    eng = config4_engine(p4, r4)
+    eng.run_scalar()
+    eng.run_scalar()
+
+    def cand(graph, sol):
+        print(f"{label}: candidate cap {eng._cand_cap}, cand_max "
+              f"{int(sol['cand_max'])}", flush=True)
+
+    out[label] = _fallback_graph(
+        label, lambda: eng.make_step_fn(fast=False), (p4.clone(),
+                                                      r4.clone()),
+        (), card, cand)
+    del eng
+    out["make_zsort_step graph"] = run_zsort_graph(pts_t, data3, card,
+                                                   zsort_ms)
+    return out
+
+
+def run_zsort_graph(pts_t, data3: tuple, card: str, eager_ms: float) -> dict:
+    """``make_zsort_step`` over config 3's two sets and a third (phase 15's
+    inputs, 2 arrays each) captured once, replayed at the static points
+    and at 2 jittered ones (copied into the graph's inputs) against the
+    eager step, orders, points and arrays bit for bit; 10 replays
+    timed beside phase 15's eager ms per step."""
+    import torch
+    from treensearch_tpu_torch.ops import zsort as zs
+    dev = pts_t.device
+    extra = torch.rand((N_ZSORT_EXTRA, 3), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(5))
+    sets3 = [p.clone() for p in data3] + [extra]
+    per_set = [[torch.ones_like(p), p[:, 0].clone()] for p in sets3]
+    step = zs.make_zsort_step(len(sets3))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(sets3, per_set)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step(sets3, per_set)
+
+    def flat(out):
+        orders, pts, arrs = out
+        return list(orders) + list(pts) + [a for per in arrs for a in per]
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for k in range(3):
+        if k:
+            for p in sets3:
+                p.add_((torch.rand(p.shape, generator=gen, device=dev) * 2
+                        - 1) * JITTER)
+        graph.replay()
+        want = step(sets3, per_set)
+        if not all(torch.equal(a, b) for a, b in zip(flat(got),
+                                                       flat(want))):
+            raise AssertionError(f"make_zsort_step graph: replay {k} "
+                                 "differs from the eager step")
+    ms = _timed_replays(graph.replay, 10)
+    print(f"make_zsort_step graph: {len(sets3)} sets "
+          f"({', '.join(str(p.shape[0]) for p in sets3)} points, 2 arrays "
+          "each) captured once; static and 2 jittered replays equal to the "
+          f"eager step bit for bit; {ms:.4f} ms per replay (10 replays) "
+          f"beside phase 15's eager {eager_ms:.4f} ms/step ({card})",
+          flush=True)
+    del graph, got
+    return {"ms": ms, "eager_ms": eager_ms}
 
 
 # ---------------------------------------------- phases 12-14: fallbacks
@@ -2364,8 +2615,8 @@ def run_zsort_path(pts_t, card: str, data3: tuple) -> dict:
         "prepare_zsort per-point path": median_ms(prepare_point, dev, reps=5),
         f"apply_zsort_batch ({len(arrays)} arrays)": median_ms(
             lambda: eng.apply_zsort_batch(0, arrays, strides), dev, reps=5),
-        f"make_zsort_step ({len(sets3)} sets, 2 arrays each)": median_ms(
-            lambda: step(sets3, per_set), dev, reps=5)}
+        ZSORT_STEP_TIMING: median_ms(lambda: step(sets3, per_set), dev,
+                                     reps=5)}
     unsorted = make_engine(pts_t, RADIUS)
     for label, e in (("before the reorder", unsorted),
                      ("after the reorder", eng)):
@@ -2804,12 +3055,12 @@ def main() -> int:
     k1r, main12 = run_tile_path(pts_t, card)                # phase 12
     main13 = run_bodies(*config3_data(dev), card)           # phase 13
     main14 = run_pipeline_path(pts_t, card, config4_data(dev))  # 14
-    run_zsort_path(pts_t, card, config3_data(dev))          # phase 15
+    zsort = run_zsort_path(pts_t, card, config3_data(dev))  # phase 15
     sharded = run_sharded_path(pts_t, torch.from_numpy(mass).to(dev),  # 16
                                card, config3_data(dev), config4_data(dev))
     graphs = run_step_graphs(pts_t, torch.from_numpy(mass).to(dev),  # 17
                              card, config3_data(dev), config4_data(dev),
-                             steps)
+                             steps, zsort["ms"][ZSORT_STEP_TIMING])
     kernels += [k2b, k2c, k3, k4, k5, k1r]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,

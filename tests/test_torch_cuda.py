@@ -22,7 +22,9 @@ search's local fast path, rank by rank: counts equal and neighbor sets
 equal to the one-device ``run()``.  K4 under a static row cap: counts
 exact, the rows below the cap word for word.  The captured step: every
 replay's ``rebuilt``, counts and rows equal to an eager step's, and a
-conditional node's body runs only on a true predicate.
+conditional node's body runs only on a true predicate; the tile-path and
+pipeline steps captured too, every replay's counts, ``max_count``, rows
+and flags equal to an eager step's.
 """
 
 import ctypes
@@ -82,7 +84,8 @@ def test_kernels_match_plain_on_card(dev, case):
     cfg = SearchConfig((n,), ((0, 0),), 1, cap)
     knobs = eng._knobs()
     carry = fp._prep(pts, eng._grid_state, cfg, knobs,
-                     consts=fp.step_constants(cfg, knobs, cell, dev))
+                     consts=fp.step_constants(cfg, knobs, cell, dev,
+                                              search_radius=r))
     assert int(carry.dense_overflow) == 0 and int(carry.rows_overflow) == 0
     assert int(carry.tile_overflow) == 0
     a = fp.kernel_inputs(pts, r, carry, cfg, knobs)
@@ -118,7 +121,7 @@ def test_clipped_ranges_match_plain_on_card(dev):
     n = pts.shape[0]
     cfg = SearchConfig((n,), ((0, 0),), 1, 32)
     knobs = fp.FastKnobs(dense_cap=1 << 18, tiles_cap=1200)
-    consts = fp.step_constants(cfg, knobs, 0.08, dev)
+    consts = fp.step_constants(cfg, knobs, 0.08, dev, search_radius=0.0)
     carry = fp._prep(pts, update_grid(fresh_state(dev), pts,
                                       consts.cell_size), cfg, knobs,
                      consts=consts)
@@ -177,7 +180,8 @@ def _settled(eng, caps=None):
     carry = fp._prep(points, eng._grid_state, cfg, knobs, radii,
                      consts=fp.step_constants(
                          cfg, knobs, float(eng._grid_state.cell_size),
-                         points.device))
+                         points.device,
+                         search_radius=eng._search_radius or 0.0))
     assert int(carry.tile_overflow) == 0 and int(carry.dense_overflow) == 0
     return carry, fp.kernel_inputs(points, eng._search_radius or 0.0, carry,
                                    cfg, knobs, radii)
@@ -312,7 +316,8 @@ def _active_inputs(eng, payload=None):
     carry = fp._prep(points, eng._grid_state, cfg, knobs, radii,
                      consts=fp.step_constants(
                          cfg, knobs, float(eng._grid_state.cell_size),
-                         points.device))
+                         points.device,
+                         search_radius=eng._search_radius or 0.0))
     assert int(carry.tile_overflow) == 0 and int(carry.dense_overflow) == 0
     a = fp.kernel_inputs(points, eng._search_radius or 0.0, carry, cfg,
                          knobs, radii, payload)
@@ -1079,8 +1084,9 @@ def _slab_union(d, variable):
     eng.run()
     cfg = eng._make_cfg(eng._last_stats["stencil_w"])
     knobs, state = eng._knobs(), eng._grid_state
-    consts = fp.step_constants(cfg, knobs, float(state.cell_size), d)
     sr = eng._search_radius or 0.0
+    consts = fp.step_constants(cfg, knobs, float(state.cell_size), d,
+                               search_radius=sr)
     owner = sh.owners(pts, state, cfg, 4)
     orig = torch.arange(n0 + n1, dtype=torch.int32, device=d)
     set_ids = fp.set_ids_of(cfg, d)
@@ -1181,7 +1187,8 @@ def test_conditional_body_launches_k1_and_k2a(dev):
     knobs = eng._knobs()
     carry = fp._prep(pts, eng._grid_state, cfg, knobs,
                      consts=fp.step_constants(
-                         cfg, knobs, float(eng._grid_state.cell_size), dev))
+                         cfg, knobs, float(eng._grid_state.cell_size), dev,
+                         search_radius=0.03))
     a = fp.kernel_inputs(pts, 0.03, carry, cfg, knobs)
     recs = a.recs_t.clone()
     q_out = torch.zeros((8, a.tiles_cap * 128), dtype=torch.int32,
@@ -1275,3 +1282,72 @@ def test_reuse_step_graph_equals_eager_static_in_cell_jittered(dev):
         assert torch.equal(fp.materialize_nbrs(got_p),
                            fp.materialize_nbrs(want_p))
     assert rebuilt[:5] == [0] * 5 and rebuilt[5:] == [1] * 3
+
+
+def _fallback_engine(dev, kind):
+    """A small engine whose step leaves the fused route, settled by the
+    call a user makes first, and whether its step is ``fast``."""
+    rng = np.random.default_rng(37)
+    pts = rng.uniform(0, 1, (6000, 3)).astype(np.float32)
+    if kind == "tile_ten_sets":
+        # a fluid and nine bodies: past the fused kernels' 8 candidate sets
+        bodies = [(rng.uniform(0, 0.3, (300, 3)) + rng.uniform(0, 0.7, 3))
+                  .astype(np.float32) for _ in range(9)]
+        eng = _sets_engine(dev, [(pts, None)] + [(b, None) for b in bodies],
+                           r=0.05, active=[(0, j) for j in range(10)]
+                           + [(3, 0)])
+    elif kind == "pipeline_variable_symmetric":
+        eng = _sets_engine(dev, [(pts, rng.uniform(0.03, 0.06, 6000)
+                                  .astype(np.float32))])
+    else:
+        eng = _sets_engine(dev, [(pts, None)], r=0.05)
+    if kind == "tile_use_pallas_off":
+        eng.set_use_pallas(False)
+    fast = kind.startswith("tile")
+    for _ in range(2):
+        eng.run() if fast else eng.run_scalar()
+    return eng, fast
+
+
+@pytest.mark.parametrize("kind", ["tile_ten_sets", "tile_use_pallas_off",
+                                  "pipeline_fixed",
+                                  "pipeline_variable_symmetric"])
+def test_fallback_step_graph_equals_eager(dev, kind):
+    # the tile-path and pipeline steps captured once; replays at static
+    # and jittered positions equal an eager step on the same positions:
+    # every pair's counts, max_count and rows slot for slot, every flag
+    eng, fast = _fallback_engine(dev, kind)
+    points, radii = eng._assemble()
+    args = (points.clone(),) + (() if radii is None else (radii,))
+    step, state = eng.make_step_fn(fast=fast)
+    estep, estate = eng.make_step_fn(fast=fast)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            sol, state = step(state, *args)
+            want, estate = estep(estate, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    launches = pairs.expand_records.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sol, state = step(state, *args)
+    assert pairs.expand_records.launches == launches + fast
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for k in range(3):
+        if k:
+            args[0].add_((torch.rand(args[0].shape, generator=gen,
+                                     device=dev) * 2 - 1) * 2e-3)
+        graph.replay()
+        want, estate = estep(estate, *args)
+        assert set(sol) == set(want)
+        for key, v in want.items():
+            if key != "pairs":
+                assert torch.equal(sol[key], v), (k, key)
+        for name, w in want["pairs"].items():
+            g = sol["pairs"][name]
+            for f in ("counts", "max_count", "nbrs"):
+                assert torch.equal(g[f], w[f]), (k, name, f)
+        assert int(want["cand_max"]) == 0 or not fast
+    assert int(sum(p["counts"].sum() for p in want["pairs"].values())) > 0

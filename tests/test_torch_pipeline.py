@@ -37,6 +37,7 @@ from treensearch_tpu.utils import compact as jcompact
 from treensearch_tpu.utils import keys as jkeys
 from treensearch_tpu_torch import TreeNSearch, interop
 from treensearch_tpu_torch.config import SearchConfig
+from treensearch_tpu_torch.ops import fastpath as tfp
 from treensearch_tpu_torch.ops import pipeline as tpl
 from treensearch_tpu_torch.utils import compact as tcompact
 from treensearch_tpu_torch.utils import keys as tkeys
@@ -185,8 +186,10 @@ def _case(name):
     jss = _ss_jit(jnp.asarray(pts), jr, jnp.float32(sr), jstate, cfg=jcfg)
     tstate = interop.grid_state_from_numpy(jstate)
     tr = None if radii is None else _t(radii)
-    tsol, _ = tpl.build_and_search(_t(pts), tr, sr, cell, tstate, tcfg)
-    tss = tpl.sorted_structure(_t(pts), tr, sr, tstate, tcfg)
+    consts = tfp.step_constants(tcfg, tfp.FastKnobs(), cell, "cpu",
+                                search_radius=sr)
+    tss = tpl.sorted_structure(_t(pts), tr, tstate, tcfg, consts)
+    tsol, _ = tpl.build_and_search(_t(pts), tr, tstate, tcfg, consts=consts)
     return (jax.tree_util.tree_map(np.asarray, jsol), tsol,
             {k: None if v is None else np.asarray(v)
              for k, v in jss._asdict().items()}, tss, w)

@@ -127,7 +127,8 @@ def _both(case):
                           rows_cap=rows_cap)
     tc = tfp._prep(torch.from_numpy(pts), tstate, cfg, knobs,
                    None if radii is None else torch.from_numpy(radii),
-                   consts=tfp.step_constants(cfg, knobs, cell, "cpu"))
+                   consts=tfp.step_constants(cfg, knobs, cell, "cpu",
+                                             search_radius=0.0))
     return jc, {k: v.numpy() for k, v in tc._asdict().items()}
 
 

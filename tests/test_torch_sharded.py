@@ -328,8 +328,10 @@ def test_sharded_pipeline_matches_one_device(functions, variable):
     assert flags["error"] == 0 and flags["cand_max"] <= 512
     pts, rad = _cloud(PIPE, variable)
     cfg = _cfg(PIPE, variable)
-    one, _ = build_and_search(_t(pts), _t(rad), 0.1, PIPE["cell"],
-                              fresh_state(), cfg)
+    one, _ = build_and_search(
+        _t(pts), _t(rad), fresh_state(), cfg,
+        consts=fp.step_constants(cfg, fp.FastKnobs(), PIPE["cell"], "cpu",
+                                 search_radius=0.1))
     _assert_same(got, {k: (v["counts"], v["nbrs"])
                        for k, v in one["pairs"].items()}, "port pipeline")
     _assert_same(got, _jax_pipeline(pts, rad, cfg, 0.1, PIPE["cell"]),
@@ -423,7 +425,8 @@ def test_sharded_fast_matches_one_device(functions, variable):
     knobs = fp.FastKnobs(dense_cap=1 << 14, tiles_cap=128)
     one, _ = fp.build_and_search_fast(
         _t(pts), 0.1, fresh_state(), cfg, knobs, radii=_t(rad),
-        consts=fp.step_constants(cfg, knobs, FAST["cell"], "cpu"))
+        consts=fp.step_constants(cfg, knobs, FAST["cell"], "cpu",
+                                 search_radius=0.1))
     _assert_same(got, {k: (v["counts"], fp.materialize_nbrs(v))
                        for k, v in one["pairs"].items()}, "port fast path")
     _assert_same(got, _jax_pipeline(pts, rad, cfg, 0.1, FAST["cell"]),
@@ -580,7 +583,8 @@ def test_prep_sharded_parameters_bit_equal_to_jax(variable):
                   knobs, _t(rad[rows]) if variable else None,
                   valid=torch.from_numpy(valid), owned_rng=(lo, hi),
                   lin_base=lin_base, span_i=span_i,
-                  consts=fp.step_constants(cfg, knobs, FAST["cell"], "cpu"))
+                  consts=fp.step_constants(cfg, knobs, FAST["cell"], "cpu",
+                                           search_radius=0.1))
     jknobs = jfp.FastKnobs(use_pallas=True, rec_expand=True, pack=8,
                            lane_batch=True, dense_cap=knobs.dense_cap,
                            tiles_cap=knobs.tiles_cap)

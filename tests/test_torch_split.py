@@ -96,7 +96,9 @@ def _port_solution(data, split):
         torch.from_numpy(pts), 0.0 if rad is not None else r,
         fresh_state(), cfg, knobs,
         radii=None if rad is None else torch.from_numpy(rad),
-        consts=tfp.step_constants(cfg, knobs, cell, "cpu"))
+        consts=tfp.step_constants(cfg, knobs, cell, "cpu",
+                                  search_radius=0.0 if rad is not None
+                                  else r))
     assert int(sol["tile_overflow"]) == 0 and int(sol["dense_overflow"]) == 0
     return {k: (p["counts"].numpy(), tfp.materialize_nbrs(p).numpy())
             for k, p in sol["pairs"].items()}
@@ -128,7 +130,7 @@ def _kernel_inputs(data):
     radii = None if rad is None else torch.from_numpy(rad)
     cfg = SearchConfig(sizes, pairs, w, CAP, rad is not None, rad is not None)
     knobs = tfp.FastKnobs(dense_cap=1 << 14, tiles_cap=48)
-    consts = tfp.step_constants(cfg, knobs, cell, "cpu")
+    consts = tfp.step_constants(cfg, knobs, cell, "cpu", search_radius=r)
     carry = tfp._prep(points, update_grid(fresh_state(), points,
                                           consts.cell_size), cfg,
                       knobs, radii, consts=consts)

@@ -21,9 +21,10 @@ graph capture of it needs, checked without a card.
   counts exact, the live rows those of the uncapped call; the mask step
   with a cap below its rows flags ``mask_overflow`` with exact counts.
 - **Capture refusals.**  With the capturing check patched to say yes, the
-  tile path, the pipeline step and the sharded step raise ``ValueError``,
-  and ``rebuild_if`` raises for a host predicate and where PyTorch has no
-  memory pool for a conditional node's body.
+  sharded step raises ``ValueError``, and ``rebuild_if`` raises for a host
+  predicate and where PyTorch has no memory pool for a conditional node's
+  body.  (The tile-path and pipeline steps capture:
+  ``test_torch_step_graph_fallbacks.py``.)
 
 Tolerance: none, everything is compared bit for bit, except the JAX
 grid's ``grid_max``, a mul+add that XLA may contract to an FMA: within
@@ -36,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_step_guard import assert_same, no_host_reads
 from treensearch_tpu import TreeNSearch as JaxTreeNSearch
 from treensearch_tpu.oracle import BruteforceNSearch
 from treensearch_tpu_torch import TreeNSearch, interop
@@ -48,11 +50,6 @@ from treensearch_tpu_torch.parallel.sharded import make_sharded_step
 from treensearch_tpu_torch.utils.keys import quantize
 
 N, R = 160, 0.25
-KERNELS = ("expand_query_tiles", "pairs_nbrs_fixed", "pairs_nbrs_sets",
-           "pairs_nbrs_variable", "pairs_mask", "pairs_nbrs_from_bits",
-           "pairs_reduce")
-HOST_READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
-              "__float__", "__index__")
 
 
 def _cloud(n=N, seed=0):
@@ -111,49 +108,6 @@ def _step_case(kind):
     return step, state, args, kw
 
 
-def _assert_same(got, want, path="sol"):
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for k in want:
-            _assert_same(got[k], want[k], f"{path}[{k}]")
-    elif isinstance(want, (list, tuple)):
-        assert len(got) == len(want), path
-        for k, (g, w) in enumerate(zip(got, want)):
-            _assert_same(g, w, f"{path}[{k}]")
-    else:
-        assert got.dtype == want.dtype and torch.equal(got, want), path
-
-
-def _no_host_reads(monkeypatch):
-    """Tensor reads back to the host and ``torch.tensor`` raise, except
-    inside a kernel wrapper of ``ops/fastpath.py``."""
-    inside = [0]
-
-    def kernel(orig):
-        def call(*args, **kwargs):
-            inside[0] += 1
-            try:
-                return orig(*args, **kwargs)
-            finally:
-                inside[0] -= 1
-        return call
-
-    def guarded(orig, name):
-        def call(*args, **kwargs):
-            if not inside[0]:
-                raise AssertionError(f"the step called {name}")
-            return orig(*args, **kwargs)
-        return call
-
-    for name in KERNELS:
-        monkeypatch.setattr(tfp, name, kernel(getattr(tfp, name)))
-    for name in HOST_READS:
-        monkeypatch.setattr(torch.Tensor, name,
-                            guarded(getattr(torch.Tensor, name), name))
-    monkeypatch.setattr(torch, "tensor", guarded(torch.tensor,
-                                                 "torch.tensor"))
-
-
 STEP_KINDS = ("reuse", "density", "mask", "split", "fused",
               "variable_symmetric", "two_sets")
 GUARD_CASES = [(k, b) for k in STEP_KINDS
@@ -171,11 +125,11 @@ def test_step_reads_nothing_back(monkeypatch, kind, branch):
                             lambda pred, fn: fn() if branch == "rebuild"
                             else None)
     calls = tfp._prep.calls
-    _no_host_reads(monkeypatch)
+    no_host_reads(monkeypatch)
     got, state = step(state, *args, **kw)
     monkeypatch.undo()
     assert tfp._prep.calls - calls == int(branch != "reuse")
-    _assert_same(got, want)
+    assert_same(got, want)
 
 
 def test_eager_carried_step_reads_its_predicate_once(monkeypatch):
@@ -307,7 +261,7 @@ def _k4_inputs():
     carry = tfp._prep(pts, eng._grid_state, cfg, knobs,
                       consts=tfp.step_constants(
                           cfg, knobs, float(eng._grid_state.cell_size),
-                          "cpu"))
+                          "cpu", search_radius=R))
     a = tfp.kernel_inputs(pts, R, carry, cfg, knobs)
     q = tpp.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, N)
     allow = tfp.allow_table(cfg, a.cand_sets, "cpu")
@@ -414,21 +368,6 @@ def test_tile_path_run_and_step_with_33_candidate_sets():
 @pytest.fixture
 def capturing(monkeypatch):
     monkeypatch.setattr(tcond, "capturing", lambda: True)
-
-
-def test_tile_path_step_refuses_capture(capturing):
-    eng = _engine([_cloud()])
-    eng.set_use_pallas(False)
-    step, state = eng.make_step_fn()
-    with pytest.raises(ValueError, match="tile path"):
-        step(state, torch.from_numpy(_cloud()))
-
-
-def test_pipeline_step_refuses_capture(capturing):
-    eng = _engine([_cloud()])
-    step, state = eng.make_step_fn(fast=False)
-    with pytest.raises(ValueError, match="pipeline"):
-        step(state, torch.from_numpy(_cloud()))
 
 
 def test_sharded_step_refuses_capture(capturing):

@@ -110,7 +110,8 @@ def _both(case):
     tr = None if radii is None else torch.from_numpy(radii)
     tc = tfp._prep(tp, interop.grid_state_from_numpy(jstate), cfg, knobs,
                    tr, padded=True, consts=tfp.step_constants(
-                       cfg, knobs, float(jstate.cell_size), "cpu"))
+                       cfg, knobs, float(jstate.cell_size), "cpu",
+                       search_radius=0.0))
     recs = tfp.sorted_records(tp, tc.idx_s, tr,
                               tfp.set_ids_of(cfg, "cpu") if len(sizes) > 1
                               else None)
@@ -135,7 +136,8 @@ def test_padded_prep_bit_equal(case):
     sc = tfp._prep(torch.from_numpy(pts), state, cfg, knobs,
                    None if radii is None else torch.from_numpy(radii),
                    consts=tfp.step_constants(cfg, knobs,
-                                             float(state.cell_size), "cpu"))
+                                             float(state.cell_size), "cpu",
+                                             search_radius=0.0))
     sd = sc.desc.numpy()
     lens = slice(tpp.LENS_OFF, tpp.LENS_OFF + (2 * cfg.stencil_w + 1) ** 2)
     assert np.array_equal(sd[:, lens], td[:, lens])
@@ -316,10 +318,12 @@ def test_off_the_fused_route_the_contracts_and_carried_steps_raise():
                {"reduce": (lambda env: env["d2"], 1)}):
         with pytest.raises(ValueError, match="require"):
             eng.make_step_fn(**kw)
+    # settled caps first, as make_step_fn asks: the tile path's step tests
+    # every tile of the cap at the full window cap
+    eng.run()
     step, state = eng.make_step_fn()   # the tile path's step
     sol, _ = step(state, torch.from_numpy(np.concatenate(
         [np.asarray(s.points) for s in eng._sets])))
-    eng.run()
     for key, pair in sol["pairs"].items():
         i, j = map(int, key.split("-"))
         assert torch.equal(pair["counts"], eng.get_neighbors(i, j)[0])

@@ -165,7 +165,7 @@ class TreeNSearch:
         self._fast_carry = None    # the carried FastCarry ...
         self._carry_key = None     # ... and the (cfg, knobs) it was built at
         self._consts = None        # the searches' constant tensors ...
-        self._consts_key = None    # ... and their (cfg, knobs, cell size)
+        self._consts_key = None    # ... and their (cfg, knobs, cell, radius)
         self._grid_state = fresh_state(dev)
         self._solution: Optional[NeighborSolution] = None
         self._zsort_maps: Optional[List[torch.Tensor]] = None
@@ -592,14 +592,18 @@ class TreeNSearch:
                 sol, state, self._fast_carry = build_and_search_fast_carry(
                     points, sr, self._grid_state,
                     self._get_carry(cfg, knobs), cfg, knobs, radii=radii,
-                    consts=self._step_consts(cfg, knobs, cell), **mode)
+                    consts=self._step_consts(cfg, knobs, cell, sr), **mode)
             elif use_fast:
+                # the tile path sized by its live tiles and widest window:
+                # the flags are read after the attempt anyway
                 sol, state = build_and_search_fast(
                     points, sr, self._grid_state, cfg, knobs, radii=radii,
-                    consts=self._step_consts(cfg, knobs, cell), **mode)
+                    consts=self._step_consts(cfg, knobs, cell, sr),
+                    snug_tiles=True, **mode)
             else:
-                sol, state = build_and_search(points, radii, sr, cell,
-                                              self._grid_state, cfg)
+                sol, state = build_and_search(
+                    points, radii, self._grid_state, cfg,
+                    consts=self._step_consts(cfg, knobs, cell, sr))
             names = [k for k in ("error", "dense_overflow", "rows_overflow",
                                  "tile_overflow", "n_cells", "cand_max",
                                  "rebuilt", "mask_rows") if k in sol]
@@ -656,8 +660,8 @@ class TreeNSearch:
                     grew = True
             if grew:
                 continue
-            if fused:
-                self._post_run_tune(sol, state, w)
+            if use_fast and (fused or self._axis is None):
+                self._post_run_tune(sol, state, w)   # fused or tile route
             self._grid_state = state
             self._last_stats = {"n_cells": flags["n_cells"],
                                 "cand_max": cand_max,
@@ -679,13 +683,14 @@ class TreeNSearch:
             f"tiles_cap={self._tiles_cap})")
 
     def _step_consts(self, cfg: SearchConfig, knobs: FastKnobs,
-                     cell: float) -> StepConsts:
+                     cell: float, sr: float) -> StepConsts:
         """The searches' constant tensors (``step_constants``), made once
-        per (cfg, knobs, cell size), so a search copies no constant from
-        the host."""
-        key = (cfg, knobs, cell)
+        per (cfg, knobs, cell size, search radius), so a search copies no
+        constant from the host."""
+        key = (cfg, knobs, cell, sr)
         if self._consts_key != key:
-            self._consts = step_constants(cfg, knobs, cell, self.device)
+            self._consts = step_constants(cfg, knobs, cell, self.device,
+                                          search_radius=sr)
             self._consts_key = key
         return self._consts
 
@@ -726,7 +731,11 @@ class TreeNSearch:
     def _post_run_tune(self, sol: dict, state, w: int) -> None:
         """One-shot shrink of the dense table to the measured domain and of
         the tile slots to the measured layout (the dense and tile "snug"
-        parts of ``api._post_run_tune``); both only size the next run."""
+        parts of ``api._post_run_tune``), after a run on the fused route
+        or the tile path; both only size the next run.  On the tile path
+        the JAX package has no tile count to snug to; here it keeps a
+        step, which tests every tile, from paying for the default's
+        slack."""
         if not self._dense_snug:
             k = state.n_cells.cpu().numpy().astype(np.int64)
             needed = int(np.prod(k + 2 * w))
@@ -865,12 +874,17 @@ class TreeNSearch:
         ``run_mask()`` or split ``run()`` on the new points, a new
         ``make_step_fn`` sizes the cap anew.
 
-        **CUDA graphs.**  The fused-route steps (``reuse``, ``reduce``,
-        ``mask_output``, split staging, and ``fast`` where the fused
-        kernels apply) read nothing back to the host, so
-        ``torch.cuda.graph`` captures one step, which a replay then runs
-        with no host sync, as the JAX step runs inside a jitted
-        ``lax.fori_loop``.  In the carried steps the reuse decision is a
+        **CUDA graphs.**  Every step made here reads nothing back to the
+        host, so ``torch.cuda.graph`` captures one step, which a replay
+        then runs with no host sync, as the JAX step runs inside a jitted
+        ``lax.fori_loop``: the carried steps (``reuse``, ``reduce``,
+        ``mask_output``), ``fast`` on the fused route (split staging
+        included) and on the tile path (more than 8 candidate sets,
+        ``set_use_pallas(False)``), and the ``fast=False`` pipeline.  The
+        tile path's step tests every tile at the full window cap, as the
+        JAX tile path does (``run()`` tests only the live tiles and the
+        widest window, with the same result), and reports a window past
+        the cap in ``cand_max``.  In the carried steps the reuse decision is a
         conditional node on the device: a replay runs the prep only when a
         point changed cells, the grid changed or a radius changed
         (``solution["rebuilt"]`` says which).  The state is updated in
@@ -900,9 +914,9 @@ class TreeNSearch:
         The carried steps' conditional bodies take their temporaries from
         one memory pool per device (``ops/cond.py``), so graphs that hold
         them must not replay concurrently: replay them one after another
-        on one stream.  The tile path (more than 8 candidate sets,
-        ``set_use_pallas(False)``), the ``fast=False`` pipeline and the
-        sharded step read the host and raise ``ValueError`` under capture.
+        on one stream.  Only the sharded step
+        (``parallel/sharded.py::make_sharded_step``) reads the host and
+        raises ``ValueError`` under capture.
         """
         _, _, sr, cell, w = self._setup()
         cfg = self._make_cfg(w, chunk or self._chunk)
@@ -924,13 +938,12 @@ class TreeNSearch:
             raise ValueError(f"{what} the Pallas fast path ({_FUSED_GATE})")
         if fast and not carried:
             _require_descriptor_stencil(w)
-        if fast:
-            consts = self._step_consts(cfg, knobs, cell)
-            # K4 runs in mask steps and in split staging on the fused route
-            rows_cap = self._step_rows_cap(cfg, knobs, consts) if n > 0 and (
-                mask_output or (reduce is None and knobs.split_stage
-                                and contracts_applicable(cfg, knobs))) \
-                else None
+        consts = self._step_consts(cfg, knobs, cell, sr)
+        # K4 runs in mask steps and in split staging on the fused route
+        rows_cap = self._step_rows_cap(cfg, knobs, consts) if fast and n > 0 \
+            and (mask_output or (reduce is None and knobs.split_stage
+                                 and contracts_applicable(cfg, knobs))) \
+            else None
 
         def check(points, radii, payload=None):
             args = [("points", points, (n, 3)), ("payload", payload, (n, 2))]
@@ -980,7 +993,8 @@ class TreeNSearch:
         else:
             def step(state, points, radii=None):
                 check(points, radii)
-                return build_and_search(points, radii, sr, cell, state, cfg)
+                return build_and_search(points, radii, state, cfg,
+                                        consts=consts)
 
             return step, fresh_state(dev)
         return step, (fresh_state(dev), make_fast_carry0(cfg, knobs, dev))

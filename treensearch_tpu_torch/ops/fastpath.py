@@ -53,7 +53,7 @@ import torch
 from ..config import SearchConfig, round_up
 from ..utils import keys as K
 from ..utils.compact import compact_rows
-from .cond import assign_, rebuild_if, refuse_capture
+from .cond import assign_, rebuild_if
 from .grid import GridState, update_grid
 from .pairs import (A_COL, CNT_COL, DESC_W, F_ORIG, F_R, F_SET, F_X, F_Y,
                     F_Z, FAT_COL, LENS_OFF, MAX_BLOCKS, N_FIELDS, TILE,
@@ -126,33 +126,39 @@ def mask_rows_cap(rows: int) -> int:
 
 class StepConsts(NamedTuple):
     """The constant tensors of a search, made once per (cfg, knobs, cell
-    size, device) by ``step_constants``, so that a step copies nothing
-    from the host: a copy from pageable memory drains the stream, and
-    stream capture forbids it."""
+    size, search radius, device) by ``step_constants``, so that a step
+    copies nothing from the host: a copy from pageable memory drains the
+    stream, and stream capture forbids it."""
     cell_size: torch.Tensor   # () float32
     di: torch.Tensor          # (n_win,) int32: each window's row offsets
-    dj: torch.Tensor
+    dj: torch.Tensor          # (the stencil offsets of every route)
+    r2: torch.Tensor          # () float32 square of the float32 radius
+    #                           (the tile path and the pipeline)
+    set_off: torch.Tensor     # (n_sets + 1,) int32 first index of each set
     set_ids: torch.Tensor | None   # (n,) int32 set of each point (several
-    #                                sets on the fused route), else None
+    #                                sets), else None
     allow: torch.Tensor | None     # (n_sets,) int32 active matrix
     #       (``allow_table``) of K3, K4 and split staging on the fused
     #       route (``contracts_applicable``), else None
 
 
 def step_constants(cfg: SearchConfig, knobs: FastKnobs, cell_size: float,
-                   device) -> StepConsts:
-    """The ``StepConsts`` of ``cfg`` and ``knobs`` at this cell size.  The
-    set ids and the active matrix only where the fused route runs: the
-    tile path makes its own, and its candidate sets may pass the 32 bits
-    of an ``allow_table`` entry."""
+                   device, *, search_radius: float) -> StepConsts:
+    """The ``StepConsts`` of ``cfg`` and ``knobs`` at this cell size and
+    search radius (0 in variable mode, where no search reads it).  The
+    active matrix only where the fused route runs: off it the candidate
+    sets may pass the 32 bits of an ``allow_table`` entry."""
     st = _statics(cfg, knobs)
     offs = torch.tensor(st["offs_2d"], dtype=torch.int32, device=device)
-    fused = contracts_applicable(cfg, knobs)
+    r = np.float32(search_radius)
     return StepConsts(
         torch.tensor(cell_size, dtype=torch.float32, device=device),
         offs[:, 0].contiguous(), offs[:, 1].contiguous(),
-        set_ids_of(cfg, device) if fused and cfg.n_sets > 1 else None,
-        allow_table(cfg, st["cand_sets"], device) if fused else None)
+        torch.tensor(r * r, dtype=torch.float32, device=device),
+        torch.tensor(cfg.set_offsets, dtype=torch.int32, device=device),
+        set_ids_of(cfg, device) if cfg.n_sets > 1 else None,
+        allow_table(cfg, st["cand_sets"], device)
+        if contracts_applicable(cfg, knobs) else None)
 
 
 def _statics(cfg: SearchConfig, knobs: FastKnobs) -> dict:
@@ -724,7 +730,8 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
                           reduce: ReduceSpec | None = None,
                           payload: torch.Tensor | None = None,
                           mask: bool = False, *, consts: StepConsts,
-                          rows_cap: int | None = None
+                          rows_cap: int | None = None,
+                          snug_tiles: bool = False
                           ) -> tuple[dict, GridState]:
     """One full search, rebuilt on every call: grid update, prep,
     records, K1, the pairs kernel, counts; where ``applicable`` refuses,
@@ -734,12 +741,17 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
     kernel (K4) take the pairs kernel's place; both need ``cfg.n_points >
     0`` and ``contracts_applicable``.  ``knobs.split_stage`` runs K4 and
     K5 for the pairs kernel.  ``rows_cap`` caps K4's rows (None: exact,
-    one host read).
+    one host read).  The tile path tests every tile's windows at the
+    full window cap (``_xla_tile_search``'s static sizes); with
+    ``snug_tiles`` it reads the live tile count and the widest window
+    back first (one host read) and tests only as far as they reach,
+    with the same result.
 
     The new grid is written into ``state``'s tensors, which are returned.
-    ``consts`` are ``step_constants(cfg, knobs, cell_size, device)`` and
-    give the cell size; with a ``rows_cap`` the fused route reads nothing
-    back to the host, so a CUDA graph can capture it."""
+    ``consts`` are ``step_constants(cfg, knobs, cell_size, device,
+    search_radius=search_radius)`` and give the cell size; with a
+    ``rows_cap`` and without ``snug_tiles`` no route reads anything back
+    to the host, so a CUDA graph can capture the search."""
     contract = reduce is not None or mask
     if contract and not contracts_applicable(cfg, knobs):
         raise ValueError("the fused reduce and the mask need the fused "
@@ -755,13 +767,22 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
                            rows_cap), state
     carry = _prep(points, state, cfg, knobs, radii, padded=True,
                   consts=consts)
-    return _tile_search(points, radii, search_radius, state, carry, cfg,
-                        knobs), state
+    st = _statics(cfg, knobs)
+    n_tiles, width = st["tiles_cap"], st["wcap"]
+    if snug_tiles:
+        # dead tiles (FAT_COL = 2) are a suffix of the layout
+        used, win_max = torch.stack([
+            (carry.desc[:n_tiles, FAT_COL] != 2).sum(),
+            carry.win_max.long()]).tolist()
+        n_tiles, width = used, max(1, min(width, win_max))
+    return _tile_search(points, radii, state, carry, cfg, knobs, consts,
+                        n_tiles, width), state
 
 
 def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
-                 search_radius: float, state: GridState, carry: FastCarry,
-                 cfg: SearchConfig, knobs: FastKnobs) -> dict:
+                 state: GridState, carry: FastCarry, cfg: SearchConfig,
+                 knobs: FastKnobs, consts: StepConsts, n_tiles: int,
+                 width: int) -> dict:
     """The tile path on a padded-layout prep (``_xla_tile_search``,
     ``fastpath.py:1730-1886`` of the JAX package; the role of the
     reference's scalar pipeline, ``TreeNSearch.cpp:1873-2160``).
@@ -769,39 +790,35 @@ def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
     K1r lays the sorted records out as ``rec_pad``, slot-major with a
     sentinel tail of ``slack`` >= wcap slots, and every query and window
     is read from it: tile t's queries are slots [128 t, 128 t + 128), its
-    window w the ``wcap`` slots from ``desc[t, w]``.  A candidate hits
-    when d^2 = (dx*dx + dy*dy) + dz*dz <= r^2 in float32 (variable: <=
-    r_i^2; symmetric: also <= r_j^2), it lies inside the window's length
-    and its orig differs from the query's (windows are disjoint runs, so
-    one compare is the self-exclusion).  Per active pair the hits of the
-    query set si in candidate set sj are counted exactly and their
-    set-local indices front-packed in window order into ``cfg.nbr_cap``
-    slots, then gathered per point through ``qpos``.  A window wider than
-    wcap is cut and ``cand_max`` reports its length, so the host regrows
-    wcap and re-runs.
+    window w the first ``width`` of the ``wcap`` slots from ``desc[t,
+    w]``.  A candidate hits when d^2 = (dx*dx + dy*dy) + dz*dz <= r^2 in
+    float32 (variable: <= r_i^2; symmetric: also <= r_j^2), it lies
+    inside the window's length and its orig differs from the query's
+    (windows are disjoint runs, so one compare is the self-exclusion).
+    Per active pair the hits of the query set si in candidate set sj are
+    counted exactly and their set-local indices front-packed in window
+    order into ``cfg.nbr_cap`` slots, then gathered per point through
+    ``qpos``.  A window wider than wcap is cut and ``cand_max`` reports
+    its length, so the host regrows wcap and re-runs.
 
-    Tiles go in groups sized so a group holds about ``_TILE_SLOTS``
-    (query, candidate) slots (the role of the JAX ``group`` knob and its
-    ``lax.map``); only the live tiles (a prefix of the layout) run, and
-    windows load only as wide as the widest window needs (the slots past
-    a window's length are masked either way), so none of this changes a
-    result."""
-    refuse_capture("the tile path (more than 8 candidate sets, or "
-                   "set_use_pallas(False))", "capture a step on the fused "
-                   "route")
+    Tiles [0, ``n_tiles``) go in groups sized so a group holds about
+    ``_TILE_SLOTS`` (query, candidate) slots (the role of the JAX
+    ``group`` knob and its ``lax.map``).  The slots past a window's
+    length are masked and dead tiles have no windows (their rows are
+    never gathered), so any ``n_tiles`` from the live tiles to
+    ``tiles_cap`` and any ``width`` from the widest window to ``wcap``
+    give the same result; ``build_and_search_fast`` picks them.  The
+    radius, set offsets and set ids come from ``consts``, so with sizes
+    that do not depend on the data nothing is read back to the host."""
     st = _statics(cfg, knobs)
     dev = points.device
     n = cfg.n_points
     tiles_cap, n_win, wcap = st["tiles_cap"], len(st["offs_2d"]), st["wcap"]
     multi = cfg.n_sets > 1
     recs_t = sorted_records(points, carry.idx_s,
-                            radii if cfg.variable else None,
-                            set_ids_of(cfg, dev) if multi else None)
+                            radii if cfg.variable else None, consts.set_ids)
     _, rec_pad = expand_records(carry.desc, recs_t, tiles_cap, n, st["slack"])
     flags = _flags(state, carry, tiles_cap)
-    used, win_max = torch.stack([flags["tiles_used"],
-                                 carry.win_max]).tolist()
-    width = max(1, min(wcap, win_max))
     k = cfg.nbr_cap
     n_slots = tiles_cap * TILE
     names = [f"{si}-{sj}" for (si, sj) in cfg.active_pairs]
@@ -810,15 +827,10 @@ def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
     nbrs = {p: torch.full((n_slots, k), -1, dtype=torch.int32, device=dev)
             for p in names}
     fields = rec_pad.view(torch.float32)
-    r = np.float32(search_radius)
-    r2 = torch.tensor(r * r, dtype=torch.float32, device=dev)
-    # set-local rebase by the candidate's set (the sentinel's -1 reads 0)
-    set_off = torch.tensor(cfg.set_offsets[:-1], dtype=torch.int32,
-                           device=dev)
     lane = torch.arange(width, dtype=torch.int32, device=dev)
     group = max(1, _TILE_SLOTS // (TILE * n_win * width))
-    for t0 in range(0, used, group):
-        t1 = min(t0 + group, used)
+    for t0 in range(0, n_tiles, group):
+        t1 = min(t0 + group, n_tiles)
         g = t1 - t0
         q = rec_pad[t0 * TILE:t1 * TILE].view(g, TILE, 1, N_FIELDS)
         qf = fields[t0 * TILE:t1 * TILE].view(g, TILE, 1, N_FIELDS)
@@ -837,13 +849,16 @@ def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
             if cfg.symmetric:
                 c_r = cf[..., F_R]
                 crit |= d2 <= c_r * c_r
+                del c_r
         else:
-            crit = d2 <= r2
+            crit = d2 <= consts.r2
         del d2
         hit = crit & in_win & (c[..., F_ORIG] != q[..., F_ORIG])
         del crit
+        # set-local rebase by the candidate's set (the sentinel's -1 reads
+        # set 0)
         c_set, q_set = c[..., F_SET], q[..., F_SET]
-        loc = c[..., F_ORIG] - set_off[c_set.clamp(min=0).long()] \
+        loc = c[..., F_ORIG] - consts.set_off[c_set.clamp(min=0).long()] \
             if multi else c[..., F_ORIG]
         for (si, sj), p in zip(cfg.active_pairs, names):
             pm = hit & (q_set == si)
@@ -853,6 +868,9 @@ def _tile_search(points: torch.Tensor, radii: torch.Tensor | None,
                 pm.sum(dim=-1, dtype=torch.int32).reshape(-1)
             nbrs[p][t0 * TILE:t1 * TILE] = \
                 compact_rows(pm, loc, k).reshape(-1, k)
+            del pm
+        # freed before the next group allocates, so a capture reuses them
+        del idx, in_win, c, cf, hit, c_set, q_set, loc
     pairs = {}
     offs = cfg.set_offsets
     for (si, sj), p in zip(cfg.active_pairs, names):

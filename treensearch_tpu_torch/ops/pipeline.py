@@ -22,6 +22,12 @@ with ``lax.map``; here a loop runs it over blocks of whole chunks sized so
 that a block holds about ``_BLOCK_SLOTS`` candidate slots.  A query's row
 depends on nothing else, so the blocking changes no result.  No CUDA
 kernel is involved: the JAX pipeline is XLA code, not a Pallas kernel.
+
+Every size is static in ``cfg`` (the block loop in n, ``cand_cap`` slots
+per query), the grid dims stay device tensors and the constants come
+from the search's ``fastpath.StepConsts``, so the pipeline reads nothing
+back to the host and a CUDA graph can capture it, as the JAX pipeline
+runs under ``jit``.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ import torch
 from ..config import SearchConfig
 from ..utils import keys as K
 from ..utils.compact import compact_rows
-from .cond import refuse_capture
-from .fastpath import set_ids_of
+from .cond import assign_
+from .fastpath import StepConsts
 from .grid import GridState, update_grid
 
 # candidate slots per block of the chunk loop: its temporaries stay at a
@@ -64,15 +70,16 @@ class SortedStructure(NamedTuple):
 
 
 def sorted_structure(points: torch.Tensor, radii: Optional[torch.Tensor],
-                     search_radius: float, state: GridState,
-                     cfg: SearchConfig, orig: Optional[torch.Tensor] = None,
+                     state: GridState, cfg: SearchConfig,
+                     consts: StepConsts, orig: Optional[torch.Tensor] = None,
                      set_ids: Optional[torch.Tensor] = None
                      ) -> SortedStructure:
     """Quantize, key and sort (``pipeline.py:78-118`` of the JAX
     package).  ``points`` (n, 3) float32 holds the concatenated sets; or,
     with ``orig`` and ``set_ids`` ((n,) int32: each row's concatenated
     index and set), any rows of them, as the sharded search's routed rows
-    (``parallel/sharded.py``)."""
+    (``parallel/sharded.py``).  The radius and the set offsets (and, for
+    the concatenated sets, their set ids) come from ``consts``."""
     dev = points.device
     n = points.shape[0]
     inv_cell = 1.0 / state.cell_size
@@ -84,31 +91,30 @@ def sorted_structure(points: torch.Tensor, radii: Optional[torch.Tensor],
     order = perm.long()
     idx_s = perm if orig is None else orig[order]
     if set_ids is None:
-        set_ids = set_ids_of(cfg, dev)
+        set_ids = consts.set_ids if consts.set_ids is not None else \
+            torch.zeros(n, dtype=torch.int32, device=dev)
     if n > 1:
         n_cells_stat = 1 + (key_s[1:] != key_s[:-1]).sum().to(torch.int32)
     else:
-        n_cells_stat = torch.tensor(n, dtype=torch.int32, device=dev)
-    r = torch.tensor(search_radius, dtype=torch.float32, device=dev)
+        n_cells_stat = torch.full((), n, dtype=torch.int32, device=dev)
     return SortedStructure(
         hi_s=hi_s, lo_s=lo_s, idx_s=idx_s,
         pts_s=points[order], set_id_s=set_ids[order],
         r_s=radii[order] if cfg.variable else None, ijk_s=ijk[order],
-        n_cells_xyz=state.n_cells, r2_fixed=r * r,
-        offsets_arr=torch.tensor(cfg.set_offsets, dtype=torch.int32,
-                                 device=dev),
-        n_cells_stat=n_cells_stat, key_s=key_s)
+        n_cells_xyz=state.n_cells, r2_fixed=consts.r2,
+        offsets_arr=consts.set_off, n_cells_stat=n_cells_stat, key_s=key_s)
 
 
 def make_chunk_body(s: SortedStructure, cfg: SearchConfig,
-                    queries: Optional[dict] = None
+                    consts: StepConsts, queries: Optional[dict] = None
                     ) -> Callable[[int, int], dict]:
     """The search of sorted query rows [r0, r1) (``pipeline.py:121-258``
     of the JAX package; the role of the reference's ``_brute_force_simd``,
     ``TreeNSearch.cpp:2400-2569``): ``body(r0, r1)`` returns
     ``{"cand_total": (r1 - r0,) int32 candidates before the cap, "<si>-
     <sj>": {"counts": (r1 - r0,) int32, "nbrs": (r1 - r0, nbr_cap)
-    int32}}`` in sorted order.
+    int32}}`` in sorted order.  The stencil offsets (di, dj) are
+    ``consts``'; the grid dims stay on the device.
 
     ``queries`` decouples the queries from the sorted candidates: a dict
     of ``orig`` (m,), ``ijk`` (m, 3), ``pts`` (m, 3), ``set_id`` (m,) and,
@@ -119,10 +125,12 @@ def make_chunk_body(s: SortedStructure, cfg: SearchConfig,
     dev = s.idx_s.device
     w = cfg.stencil_w
     cap = cfg.cand_cap
-    kx, ky, kz = s.n_cells_xyz.tolist()
-    offs = [(di, dj) for di in range(-w, w + 1) for dj in range(-w, w + 1)]
-    di = torch.tensor([o[0] for o in offs], dtype=torch.int32, device=dev)
-    dj = torch.tensor([o[1] for o in offs], dtype=torch.int32, device=dev)
+    # each axis's last cell as device scalars, made once per search, not
+    # per block
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    i_max, j_max, k_max = (s.n_cells_xyz - 1).unbind()
+    di, dj = consts.di, consts.dj
+    n_win = di.shape[0]
     slot = torch.arange(cap, dtype=torch.int64, device=dev)
     f64 = cfg.scalar_f64
     dtype = torch.float64 if f64 else torch.float32
@@ -139,19 +147,21 @@ def make_chunk_body(s: SortedStructure, cfg: SearchConfig,
         # (2W+1)^2 contiguous candidate ranges per query
         ii = my_ijk[:, 0, None] + di[None, :]
         jj = my_ijk[:, 1, None] + dj[None, :]
-        q_valid = (ii >= 0) & (ii < kx) & (jj >= 0) & (jj < ky)
-        q_hi = K.key_hi(ii.clamp(0, kx - 1), jj.clamp(0, ky - 1))
-        k = my_ijk[:, 2, None].expand(b, len(offs))
+        q_valid = (ii >= 0) & (ii <= i_max) & (jj >= 0) & (jj <= j_max)
+        q_hi = K.key_hi(torch.clamp(ii, zero, i_max),
+                        torch.clamp(jj, zero, j_max))
+        k = my_ijk[:, 2, None].expand(b, n_win)
         starts = torch.searchsorted(
             s.key_s, K.key64(q_hi, (k - w).clamp(min=0)), side="left")
         ends = torch.searchsorted(
-            s.key_s, K.key64(q_hi, (k + w).clamp(max=kz - 1)), side="right")
+            s.key_s, K.key64(q_hi, torch.minimum(k + w, k_max)),
+            side="right")
         lens = torch.where(q_valid, ends - starts, 0)
         cum = torch.cumsum(lens, dim=1)
         total = cum[:, -1]
         # slot t -> (range, offset inside it): the ranges laid end to end
         seg = torch.searchsorted(cum, slot.expand(b, cap).contiguous(),
-                                 right=True).clamp(max=len(offs) - 1)
+                                 right=True).clamp(max=n_win - 1)
         prev_end = torch.where(
             seg > 0, torch.gather(cum, 1, (seg - 1).clamp(min=0)), 0)
         cand = torch.gather(starts, 1, seg) + slot[None, :] - prev_end
@@ -224,7 +234,7 @@ def postprocess(mapped: dict, s: SortedStructure, state: GridState,
             "max_count": counts.max() if n_i > 0 else
             torch.zeros((), dtype=torch.int32, device=dev)}
     return {"pairs": pairs, "cand_max": mapped["cand_total"].max(),
-            "n_cells": s.n_cells_stat, "error": state.error}
+            "n_cells": s.n_cells_stat, "error": state.error.clone()}
 
 
 def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
@@ -239,29 +249,28 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
                                device=dev),
             "max_count": zero}
     return {"pairs": pairs, "cand_max": zero, "n_cells": zero,
-            "error": state.error}
+            "error": state.error.clone()}
 
 
 def build_and_search(points: torch.Tensor, radii: Optional[torch.Tensor],
-                     search_radius: float, cell_size: float,
-                     state: GridState,
-                     cfg: SearchConfig) -> tuple[dict, GridState]:
+                     state: GridState, cfg: SearchConfig, *,
+                     consts: StepConsts) -> tuple[dict, GridState]:
     """One full search by the pipeline (``build_and_search``,
     ``pipeline.py:298-327`` of the JAX package).  ``radii`` (n,) float32
-    in variable mode, else None.  Returns ``(solution, state)``: per
-    active pair ``counts`` (n_i,) (exact), ``nbrs`` (n_i, nbr_cap) (set-
-    local indices, -1 padded) and ``max_count``; ``cand_max``, the most
-    candidates any query had (the host regrows ``cand_cap`` past it);
-    ``n_cells`` and ``error``.  It reads the grid and each chunk's
-    candidate counts back to the host, so it raises ``ValueError`` under
-    CUDA graph capture."""
-    refuse_capture("the search-based pipeline (make_step_fn(fast=False), "
-                   "run_scalar)", "capture a step on the fused route")
-    state = update_grid(state, points, torch.tensor(
-        cell_size, dtype=torch.float32, device=points.device))
+    in variable mode, else None; ``consts`` are ``fastpath.
+    step_constants(cfg, knobs, cell_size, device, search_radius=...)``
+    and give the cell size, the radius and the stencil.  Returns
+    ``(solution, state)``: per active pair ``counts`` (n_i,) (exact),
+    ``nbrs`` (n_i, nbr_cap) (set-local indices, -1 padded) and
+    ``max_count``; ``cand_max``, the most candidates any query had (the
+    host regrows ``cand_cap`` past it); ``n_cells`` and ``error``.  The
+    new grid is written into ``state``'s tensors, which are returned, and
+    the solution shares no tensor with them.  It reads nothing back to
+    the host, so a CUDA graph can capture it."""
+    assign_(state, update_grid(state, points, consts.cell_size))
     n = cfg.n_points
     if n == 0:
         return _empty_solution(cfg, state), state
-    s = sorted_structure(points, radii, search_radius, state, cfg)
-    mapped = run_chunks(make_chunk_body(s, cfg), n, cfg)
+    s = sorted_structure(points, radii, state, cfg, consts)
+    mapped = run_chunks(make_chunk_body(s, cfg, consts), n, cfg)
     return postprocess(mapped, s, state, cfg), state

@@ -318,13 +318,14 @@ def search_fast_local(local: torch.Tensor, n_own: int, rank: int, size: int,
 
 
 def search_pipeline_local(local: torch.Tensor, n_own: int,
-                          search_radius: float, state: GridState,
-                          cfg: SearchConfig) -> dict:
+                          state: GridState, cfg: SearchConfig,
+                          consts: fp.StepConsts) -> dict:
     """The search-based pipeline over one rank's local rows: every row is
     a candidate, the owned rows ``local[:n_own]`` are the queries
-    (``sharded.py:228-275`` of the JAX package).  Returns the chunk body's
-    outputs for the owned rows in their order (``cand_total`` and per
-    active pair ``counts``, ``nbrs``).  Needs no collective."""
+    (``sharded.py:228-275`` of the JAX package), with the global sets'
+    ``consts``.  Returns the chunk body's outputs for the owned rows in
+    their order (``cand_total`` and per active pair ``counts``,
+    ``nbrs``).  Needs no collective."""
     dev = local.device
     if n_own == 0:
         out = {"cand_total": torch.zeros(0, dtype=torch.int32, device=dev)}
@@ -335,7 +336,7 @@ def search_pipeline_local(local: torch.Tensor, n_own: int,
                                     device=dev)}
         return out
     pts, rad = _fields(local, cfg)
-    s = pl.sorted_structure(pts, rad, search_radius, state, cfg,
+    s = pl.sorted_structure(pts, rad, state, cfg, consts,
                             orig=local[:, F_ORIG], set_ids=local[:, F_SET])
     own = pts[:n_own]
     queries = {"orig": local[:n_own, F_ORIG],
@@ -343,7 +344,8 @@ def search_pipeline_local(local: torch.Tensor, n_own: int,
                                  state.n_cells),
                "pts": own, "set_id": local[:n_own, F_SET],
                "r": rad[:n_own] if cfg.variable else None}
-    return pl.run_chunks(pl.make_chunk_body(s, cfg, queries), n_own, cfg)
+    return pl.run_chunks(pl.make_chunk_body(s, cfg, consts, queries),
+                         n_own, cfg)
 
 
 def _max_counts(cfg: SearchConfig, set_own: torch.Tensor,
@@ -414,7 +416,8 @@ def build_and_search_sharded_fast(points: torch.Tensor,
     runs instead, and ``solution["reduce"]`` holds every set's sums
     ``{"s<i>": (n_out, n_i)}`` on every rank."""
     ax = MeshAxis(mesh, axis)
-    consts = fp.step_constants(cfg, knobs, cell_size, points.device)
+    consts = fp.step_constants(cfg, knobs, cell_size, points.device,
+                               search_radius=search_radius)
     state = update_grid(state, points, consts.cell_size)
     n = cfg.n_points
     if n == 0 or (reduce is None and not cfg.active_pairs):
@@ -472,14 +475,15 @@ def build_and_search_sharded(points: torch.Tensor,
     ``cand_max`` (the most candidates of a query, over the ranks) for
     the host's candidate-cap regrow."""
     ax = MeshAxis(mesh, axis)
-    state = update_grid(state, points, torch.tensor(
-        cell_size, dtype=torch.float32, device=points.device))
+    # the pipeline reads no constant of the fused route
+    consts = fp.step_constants(cfg, fp.FastKnobs(fused=False), cell_size,
+                               points.device, search_radius=search_radius)
+    state = update_grid(state, points, consts.cell_size)
     if cfg.n_points == 0 or not cfg.active_pairs:
         return _empty(cfg, state, ax.size, False), state
     dev = points.device
     rt = _route(points, radii, None, state, cfg, ax)
-    mapped = search_pipeline_local(rt.local, rt.n_own, search_radius,
-                                   state, cfg)
+    mapped = search_pipeline_local(rt.local, rt.n_own, state, cfg, consts)
     names = [pl._pair_name(si, sj) for (si, sj) in cfg.active_pairs]
     cand_max = mapped["cand_total"].amax() if rt.n_own \
         else torch.zeros((), dtype=torch.int32, device=dev)
