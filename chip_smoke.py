@@ -118,8 +118,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    gloo ranks spawned on the one card, exchanging CUDA tensors, at configs
    1 (K2a) and 3 (K2b): every query equal to one device's on rank 0, each
    rank's owned, halo and local rows, peak memory, launches and its times
-   on the shared card (printed, not judged).  A line of the sharded
-   launches by kernel id precedes the kernels line.
+   on the shared card (printed, not judged), and each rank's eager
+   ``make_sharded_step`` through JAX's (D, S, 8) buckets equal to the
+   ranks' exact-size ``run()``, ``route_overflow`` 0.  Then the sharded
+   step at world size 1 over NCCL, through the buckets (S = 2.5 (n + 64)
+   at D = 1): config 1's fast step (K1, K2a), config 3's (K1, K2b),
+   config 4's (K1, K2c) and config 1's pipeline step, each eager step
+   equal to the one-device ``run()`` (every pair's counts and row sets;
+   32,759,462 pairs at config 1), captured as one CUDA graph after an
+   eager warm-up (the NCCL communicator exists before the capture),
+   replayed at static and 2 jittered positions against eager steps
+   (counts, ``max_count``, rows slot for slot, every flag,
+   ``route_overflow`` 0), timed and profiled: ms per replay beside the
+   eager ms/step and the eager mesh call's ms, device work, events and
+   idle share per replay, peak memory, S and the local rows; config 1's
+   eager step at ``route_slack`` 0.2 must flag ``route_overflow``.  A
+   line of the sharded launches by kernel id precedes the kernels
+   line.
 17. step graphs (``torch.cuda.graph`` of ``make_step_fn`` steps, each
    after an eager warm-up of a rebuilding and a reusing step; each graph
    launches every kernel of its path once, counted at capture): config
@@ -1593,10 +1608,11 @@ def _same_mask(got: dict, want: dict, label: str) -> int:
 
 
 def replay_profile(replay, label: str, card: str,
-                   replays: int = N_PROFILED_REPLAYS) -> dict:
+                   replays: int = N_PROFILED_REPLAYS, top: int = 0) -> dict:
     """``replays`` calls of ``replay`` under torch.profiler: device events
     per replay, device work per replay, idle share, and the launches of
-    K1, K1r and sort kernels in all."""
+    K1, K1r and sort kernels in all; with ``top``, the device ms per
+    replay of the ``top`` costliest kernel names."""
     import collections
 
     import torch
@@ -1627,6 +1643,13 @@ def replay_profile(replay, label: str, card: str,
           f"ms of device work per replay, idle share {out['idle']:.3f}, "
           f"K1 {out['k1']} launches, K1r {out['k1r']}, sort kernels "
           f"{out['sort']} ({card})", flush=True)
+    if top:
+        per = collections.Counter()
+        for e in events:
+            per[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+        out["top"] = [(k, v / replays) for k, v in per.most_common(top)]
+        print(f"{label}: device ms per replay by kernel: " + "; ".join(
+            f"{k[:70]} {v:.4f}" for k, v in out["top"]), flush=True)
     return out
 
 
@@ -2698,93 +2721,275 @@ def _jitter_state(radii=None):
 def run_sharded_path(pts_t, mass_t, card: str, data3: tuple,
                      data4: tuple) -> dict:
     """Phase 16: the sharded search (``parallel/sharded.py``).  World size
-    1 over NCCL (gloo on the CPU) in this process: config 1's ``run()``,
-    config 4's, ``run_reduce`` of the density at config 1 and config 1's
-    ``run_scalar()``, each a settling and jittered calls under the mesh
-    beside the same calls on one device, every query's counts and rows
-    equal at the last positions (the density within 5e-5), 32,759,462
-    pairs at seed 0.  Then four gloo ranks on the one card
-    (``run_gloo_ranks``) at configs 1 and 3."""
+    1 over NCCL (gloo on the CPU) in this process: the engine's exact-size
+    calls (``run_sharded_exact``), then on the card the bucketed step
+    captured over NCCL (``run_sharded_steps``).  Then four gloo ranks on
+    the one card (``run_gloo_ranks``) at configs 1 and 3."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dev = pts_t.device
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = one_dim_mesh(dev.type, 1)
+        out = run_sharded_exact(pts_t, mass_t, card, data4, mesh)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            out["steps"] = run_sharded_steps(pts_t, card, data3, data4, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["gloo"] = run_gloo_ranks(dev, pts_t.shape[0], data3[0].shape[0],
+                                 data3[1].shape[0], card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def run_sharded_exact(pts_t, mass_t, card: str, data4: tuple, mesh) -> dict:
+    """Phase 16's exact-size calls under the one-rank ``mesh``: config 1's
+    ``run()``, config 4's, ``run_reduce`` of the density at config 1 and
+    config 1's ``run_scalar()``, each a settling and jittered calls under
+    the mesh beside the same calls on one device, every query's counts
+    and rows equal at the last positions (the density within 5e-5),
+    32,759,462 pairs at seed 0.  Returns each call's drives."""
     import torch
     import torch.distributed as dist
     from treensearch_tpu_torch.ops import pairs
     from treensearch_tpu_torch.ops import reduce as red
+    n = pts_t.shape[0]
+    out = {}
+    k1, k2a = pairs.expand_query_tiles, pairs.pairs_nbrs_fixed
+    c1 = _sharded_pair(lambda: make_engine(pts_t, RADIUS), _jitter_state(),
+                       "sharded config 1", (k1, k2a), card, mesh)
+    total = _pairs_equal(c1["one_eng"], c1["mesh_eng"], "sharded config 1")
+    if n == N and c1["mesh"]["pairs0"] != TPU_PAIRS_SEED0:
+        raise AssertionError(f"sharded config 1: {c1['mesh']['pairs0']} "
+                             "pairs before the jitter")
+    out["config 1"] = c1
+    print(f"sharded config 1: {c1['mesh']['pairs0']} pairs before the "
+          f"jitter, every query's count and row set equal to one "
+          f"device's on the last positions ({total} pairs)", flush=True)
+
+    p4, r4 = data4
+    c4 = _sharded_pair(lambda: config4_engine(p4, r4), _jitter_state([r4]),
+                       "sharded config 4", (k1, pairs.pairs_nbrs_variable),
+                       card, mesh)
+    total = _pairs_equal(c4["one_eng"], c4["mesh_eng"], "sharded config 4")
+    out["config 4"] = c4
+    print(f"sharded config 4: every query's count and row set equal "
+          f"to one device's ({total} pairs)", flush=True)
+
+    def density(eng):
+        return lambda: eng.run_reduce(density_fn, 1, payload=[mass_t])
+
+    cr = _sharded_pair(lambda: make_engine(pts_t, RADIUS), _jitter_state(),
+                       "sharded run_reduce", (k1, red.pairs_reduce), card,
+                       mesh, call=density,
+                       pairs_of=lambda _: c1["mesh"]["pairs0"])
+    a = density(cr["one_eng"])()[0]
+    b = density(cr["mesh_eng"])()[0]
+    if not torch.allclose(a, b, rtol=DENSITY_RTOL, atol=0):
+        raise AssertionError("sharded run_reduce: density differs")
+    worst = float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
+    print(f"sharded run_reduce: the density of all {n} points within "
+          f"{DENSITY_RTOL} of one device's (worst relative difference "
+          f"{worst:.3e}; bit-equal: {bool(torch.equal(a, b))})", flush=True)
+    out["run_reduce"] = cr
+
+    cs = _sharded_pair(lambda: make_engine(pts_t, RADIUS), _jitter_state(),
+                       "sharded run_scalar", (), card, mesh,
+                       call=lambda e: e.run_scalar, runs=N_SLOW_RUNS)
+    total = _pairs_equal(cs["one_eng"], cs["mesh_eng"], "sharded run_scalar")
+    if cs["mesh_eng"]._last_stats["path"] != "reference":
+        raise AssertionError("sharded run_scalar: not the pipeline")
+    out["run_scalar"] = cs
+    print(f"sharded run_scalar: every query equal to one device's "
+          f"({total} pairs)", flush=True)
+    backend = dist.get_backend(mesh.get_group("d"))
+    for label, r in out.items():
+        print(f"sharded {label} (world size 1, {backend}): mesh "
+              f"{r['mesh']['ms']:.3f} ms/call beside one device "
+              f"{r['one']['ms']:.3f} ms/call; launches "
+              f"{ {k: v for k, v in r['mesh']['launches'].items() if v} }; "
+              f"peak device memory {r['peak_gb']:.3f} GB ({card})",
+              flush=True)
+        del r["one_eng"], r["mesh_eng"]
+    return out
+
+
+SMALL_SLACK = 0.2      # phase 16: a route slack whose buckets overflow
+
+
+def sharded_step_of(eng, mesh, fast: bool = True, route_slack=None):
+    """``make_sharded_step`` on a settled engine's sets, stencil, radius,
+    cell size and caps, at JAX's default route slack unless
+    ``route_slack`` is given, and the step's first solution, eager on the
+    engine's points.  The buckets' sentinel rows take tile slots that the
+    engine's exact-size ``tiles_cap`` does not hold, so the step is made
+    again with more tiles (the engine's regrow, ``int(1.5 t) + 64``, from
+    the default for the local rows) until a step reports no
+    ``tile_overflow``: a step does not regrow.  Collective.  Returns
+    ``make()``, a maker of that step, the solution and the settled
+    ``tiles_cap`` (0: the default for the local rows)."""
+    from treensearch_tpu_torch.ops import fastpath as fp
+    from treensearch_tpu_torch.ops.grid import fresh_state
+    from treensearch_tpu_torch.parallel import sharded as sh
+    _, _, sr, cell, w = eng._setup()
+    cfg, knobs = eng._make_cfg(w), eng._knobs()._replace(tiles_cap=0)
+    slack = sh.ROUTE_SLACK if route_slack is None else route_slack
+    while True:
+        def make(knobs=knobs):
+            return sh.make_sharded_step(cfg, mesh, cell, sr, knobs=knobs,
+                                        fast=fast, route_slack=slack)
+        sol, _ = make()(fresh_state(eng.device), *_step_inputs(eng))
+        if not (fast and int(sol["tile_overflow"])):
+            return make, sol, knobs.tiles_cap
+        tiles = knobs.tiles_cap or fp.default_tiles_cap(sum(sol["slab_rows"]))
+        knobs = knobs._replace(tiles_cap=int(tiles * 1.5) + 64)
+
+
+def _step_inputs(eng) -> tuple:
+    """An engine's concatenated points, and radii in variable mode."""
+    points, radii = eng._assemble()
+    return (points,) if radii is None else (points, radii)
+
+
+def _step_vs_engine(sol, eng, label: str, gather=None) -> int:
+    """A sharded step's every active pair against ``eng``'s lists (the
+    pair's rows gathered by ``gather(x, rows)`` across ranks, else this
+    rank's = every row): counts equal, rows equal as sets, and no
+    ``route_overflow``.  Returns the pair total (collective with
+    ``gather``)."""
+    if int(sol["route_overflow"]):
+        raise AssertionError(f"{label}: route_overflow")
+    total = 0
+    for i, j in zip(*np.nonzero(eng._active)):
+        pair = sol["pairs"][f"{i}-{j}"]
+        got = (pair["counts"], pair["nbrs"]) if gather is None else (
+            gather(pair["counts"], pair["rows"]),
+            gather(pair["nbrs"], pair["rows"]))
+        total += equal_as_sets(got, eng.get_neighbors(int(i), int(j)),
+                               f"{label} pair {i}->{j}")
+    return total
+
+
+def _same_sharded(got: dict, want: dict, label: str) -> None:
+    """Two sharded step solutions: every pair's counts, ``max_count`` and
+    rows slot for slot, every flag, and no ``route_overflow``."""
+    import torch
+    _same_pairs(got["pairs"], want["pairs"], label)
+    for name, w in want["pairs"].items():
+        if not torch.equal(got["pairs"][name]["max_count"], w["max_count"]):
+            raise AssertionError(f"{label}: pair {name}'s max_count differs")
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor) and not torch.equal(got[k], v):
+            raise AssertionError(f"{label}: flag {k} differs")
+    if int(got["route_overflow"]):
+        raise AssertionError(f"{label}: route_overflow")
+
+
+def run_sharded_steps(pts_t, card: str, data3: tuple, data4: tuple,
+                      mesh) -> dict:
+    """Phase 16's step: ``make_sharded_step`` at world size 1 over NCCL,
+    through JAX's buckets, at configs 1, 3 and 4 (fast) and config 1
+    (pipeline).  Each: the one-device engine settled, the mesh engine's
+    eager call timed, the eager step against the one-device lists, then
+    the step captured and replayed against eager steps at static and 2
+    jittered positions (``graph_vs_eager``), replays timed and profiled.
+    Then config 1's eager step at ``SMALL_SLACK`` must flag
+    ``route_overflow``.  Returns each case's numbers."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops.grid import fresh_state
+    from treensearch_tpu_torch.parallel import sharded as sh
     t0 = time.perf_counter()
     dev = pts_t.device
-    n = pts_t.shape[0]
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    dist.init_process_group(backend,
-                            init_method=f"tcp://localhost:{free_port()}",
-                            rank=0, world_size=1)
+    k1 = pairs.expand_query_tiles
+    (fluid, boundary), (p4, r4) = data3, data4
+    cases = (("config 1", lambda: make_engine(pts_t, RADIUS), True,
+              (k1, pairs.pairs_nbrs_fixed)),
+             ("config 3", lambda: config3_engine(fluid, boundary), True,
+              (k1, pairs.pairs_nbrs_sets)),
+             ("config 4", lambda: config4_engine(p4, r4), True,
+              (k1, pairs.pairs_nbrs_variable)),
+             ("config 1 pipeline", lambda: make_engine(pts_t, RADIUS), False,
+              ()))
     out = {}
-    try:
-        mesh = one_dim_mesh(dev.type, 1)
-        k1, k2a = pairs.expand_query_tiles, pairs.pairs_nbrs_fixed
-        c1 = _sharded_pair(lambda: make_engine(pts_t, RADIUS),
-                           _jitter_state(), "sharded config 1",
-                           (k1, k2a), card, mesh)
-        total = _pairs_equal(c1["one_eng"], c1["mesh_eng"],
-                             "sharded config 1")
-        if n == N and c1["mesh"]["pairs0"] != TPU_PAIRS_SEED0:
-            raise AssertionError(f"sharded config 1: {c1['mesh']['pairs0']} "
-                                 "pairs before the jitter")
-        out["config 1"] = c1
-        print(f"sharded config 1: {c1['mesh']['pairs0']} pairs before the "
-              f"jitter, every query's count and row set equal to one "
-              f"device's on the last positions ({total} pairs)", flush=True)
-
-        p4, r4 = data4
-        c4 = _sharded_pair(lambda: config4_engine(p4, r4),
-                           _jitter_state([r4]), "sharded config 4",
-                           (k1, pairs.pairs_nbrs_variable), card, mesh)
-        total = _pairs_equal(c4["one_eng"], c4["mesh_eng"],
-                             "sharded config 4")
-        out["config 4"] = c4
-        print(f"sharded config 4: every query's count and row set equal "
-              f"to one device's ({total} pairs)", flush=True)
-
-        def density(eng):
-            return lambda: eng.run_reduce(density_fn, 1, payload=[mass_t])
-
-        cr = _sharded_pair(lambda: make_engine(pts_t, RADIUS),
-                           _jitter_state(), "sharded run_reduce",
-                           (k1, red.pairs_reduce), card, mesh, call=density,
-                           pairs_of=lambda _: c1["mesh"]["pairs0"])
-        a = density(cr["one_eng"])()[0]
-        b = density(cr["mesh_eng"])()[0]
-        if not torch.allclose(a, b, rtol=DENSITY_RTOL, atol=0):
-            raise AssertionError("sharded run_reduce: density differs")
-        worst = float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
-        print(f"sharded run_reduce: the density of all {n} points within "
-              f"{DENSITY_RTOL} of one device's (worst relative difference "
-              f"{worst:.3e}; bit-equal: {bool(torch.equal(a, b))})",
-              flush=True)
-        out["run_reduce"] = cr
-
-        cs = _sharded_pair(lambda: make_engine(pts_t, RADIUS),
-                           _jitter_state(), "sharded run_scalar", (),
-                           card, mesh, call=lambda e: e.run_scalar,
-                           runs=N_SLOW_RUNS)
-        total = _pairs_equal(cs["one_eng"], cs["mesh_eng"],
-                             "sharded run_scalar")
-        if cs["mesh_eng"]._last_stats["path"] != "reference":
-            raise AssertionError("sharded run_scalar: not the pipeline")
-        out["run_scalar"] = cs
-        print(f"sharded run_scalar: every query equal to one device's "
-              f"({total} pairs)", flush=True)
-        for label, r in out.items():
-            print(f"sharded {label} (world size 1, {backend}): mesh "
-                  f"{r['mesh']['ms']:.3f} ms/call beside one device "
-                  f"{r['one']['ms']:.3f} ms/call; launches "
-                  f"{ {k: v for k, v in r['mesh']['launches'].items() if v} }; "
-                  f"peak device memory {r['peak_gb']:.3f} GB ({card})",
-                  flush=True)
-            del r["one_eng"], r["mesh_eng"]
-    finally:
-        dist.destroy_process_group()
-    out["gloo"] = run_gloo_ranks(dev, n, data3[0].shape[0],
-                                 data3[1].shape[0], card)
-    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, make, fast, path in cases:
+        name = f"sharded {label} step graph"
+        eng = make()
+        call = eng.run if fast else eng.run_scalar
+        call()
+        call()
+        many = make()
+        many.distribute(mesh)
+        mesh_ms = []
+        for _ in range(1 + N_SLOW_RUNS):
+            sync(dev)
+            t = time.perf_counter()
+            many.run() if fast else many.run_scalar()
+            sync(dev)
+            mesh_ms.append((time.perf_counter() - t) * 1e3)
+        del many
+        inputs = _step_inputs(eng)
+        make_step, sol, tiles = sharded_step_of(eng, mesh, fast)
+        total = _step_vs_engine(sol, eng, f"{name}, eager")
+        if label == "config 1" and pts_t.shape[0] == N \
+                and total != TPU_PAIRS_SEED0:
+            raise AssertionError(f"{name}: {total} pairs")
+        rows = sol["slab_rows"]
+        del sol
+        gen = torch.Generator(device=dev).manual_seed(8)
+        moved = [(inputs[0] + (torch.rand(inputs[0].shape, generator=gen,
+                                          device=dev) * 2 - 1) * JITTER,
+                  *inputs[1:]) for _ in range(2)]
+        replays = N_SLOW_REPLAYS if not fast else 10
+        g = graph_vs_eager(
+            name, lambda: (make_step(), fresh_state(dev)),
+            tuple(t.clone() for t in inputs), {}, path, moved, _same_sharded,
+            always_rebuilds=True, replays=replays)
+        prof = replay_profile(g["graph"].replay, name, card,
+                              N_SLOW_REPLAYS if not fast
+                              else N_PROFILED_REPLAYS, top=8)
+        if prof["k1"] != (N_SLOW_REPLAYS if not fast
+                          else N_PROFILED_REPLAYS) * (k1 in path):
+            raise AssertionError(f"{name}: K1 not once per replay")
+        rec = {"ms": g["ms"], "eager_ms": g["eager_ms"],
+               "mesh_ms": statistics.median(mesh_ms[1:]),
+               "device_ms": prof["device_ms"], "events": prof["events"],
+               "idle": prof["idle"], "peak_gb": g["memory"]["peak"] / 1e9,
+               "work_gb": g["memory"]["work"] / 1e9,
+               "slots": sh.route_slots(eng.get_total_n_points(), 1,
+                                       sh.ROUTE_SLACK),
+               "local_rows": sum(rows), "pairs": total,
+               "tiles_cap": tiles, "launches": g["launches"]}
+        print(f"{name} (world size 1, nccl): {rec['ms']:.4f} ms per replay "
+              f"beside {rec['eager_ms']:.3f} ms/eager step and "
+              f"{rec['mesh_ms']:.3f} ms/eager mesh "
+              f"{'run()' if fast else 'run_scalar()'}; "
+              f"{rec['device_ms']:.4f} ms of device work in "
+              f"{rec['events']:.1f} events per replay, idle share "
+              f"{rec['idle']:.3f}; peak device memory {rec['peak_gb']:.3f} "
+              f"GB, {rec['work_gb']:.3f} GB of it the step's; S "
+              f"{rec['slots']}, tiles_cap {tiles or 'default'}, "
+              f"{rec['local_rows']} local rows for "
+              f"{eng.get_total_n_points()} points; {total} pairs equal to "
+              f"one device's ({card})", flush=True)
+        out[label] = rec
+        del g, eng
+        torch.cuda.empty_cache()
+    eng = make_engine(pts_t, RADIUS)
+    eng.run()
+    _, sol, _ = sharded_step_of(eng, mesh, True, SMALL_SLACK)
+    if int(sol["route_overflow"]) != 1:
+        raise AssertionError(f"sharded step at route_slack {SMALL_SLACK}: "
+                             "no route_overflow")
+    slots = sh.route_slots(pts_t.shape[0], 1, SMALL_SLACK)
+    print(f"sharded config 1 step at route_slack {SMALL_SLACK}: "
+          f"route_overflow 1 (S {slots} for {pts_t.shape[0]} points); "
+          "phase 16's steps: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2796,12 +3001,15 @@ def _rank_main(rank: int, rdv: str, dev_type: str, sizes: tuple,
                queue) -> None:
     """One of the four gloo ranks of phase 16: configs 1 and 3 through
     the mesh engine (K1 with K2a, then with K2b), rank 0 also on one
-    device to compare; puts its figures on ``queue``."""
+    device to compare, then the bucketed step once, eagerly, against the
+    mesh engine's lists; puts its figures on ``queue``."""
     import datetime
 
     import torch
     import torch.distributed as dist
     from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.ops.grid import fresh_state
+    from treensearch_tpu_torch.parallel.sharded import MeshAxis
     torch.set_num_threads(2)
     if dev_type == "cuda":
         torch.cuda.set_device(0)
@@ -2856,8 +3064,19 @@ def _rank_main(rank: int, rdv: str, dev_type: str, sizes: tuple,
             else:
                 for i, j in zip(*np.nonzero(eng._active)):
                     eng.get_neighbors(int(i), int(j))
+            make_step, _, rec["step_tiles"] = sharded_step_of(eng, mesh)
+            step = make_step()
+            sync(dev)
+            t = time.perf_counter()
+            sol, _ = step(fresh_state(dev), *_step_inputs(eng))
+            sync(dev)
+            rec["step_ms"] = (time.perf_counter() - t) * 1e3
+            rec["step_rows"] = sol["slab_rows"]
+            rec["step_pairs"] = _step_vs_engine(
+                sol, eng, f"gloo {label} rank {rank} bucketed step",
+                MeshAxis(mesh).gather_rows)
             out[label] = rec
-            del eng
+            del eng, sol
     finally:
         dist.destroy_process_group()
     queue.put(out)
@@ -2922,6 +3141,13 @@ def run_gloo_ranks(dev, n1: int, n_fluid: int, n_boundary: int,
                   "ms/call on the shared card (not judged): "
                   + " ".join(f"{t:.1f}" for t in rec["ms"]) + f" ({card})",
                   flush=True)
+            print(f"  rank {r['rank']} bucketed step: {rec['step_pairs']} "
+                  "pairs, every query's count and row set equal to the "
+                  "exact-size run()'s, route_overflow 0; local rows "
+                  f"{sum(rec['step_rows'])} {rec['step_rows']}, tiles_cap "
+                  f"{rec['step_tiles'] or 'default'}; "
+                  f"{rec['step_ms']:.1f} ms eager on the shared card (not "
+                  f"judged) ({card})", flush=True)
     return results
 
 
@@ -2932,7 +3158,8 @@ def sharded_launches(sharded: dict) -> dict:
            "pairs_nbrs_sets": "K2b", "pairs_nbrs_variable": "K2c",
            "pairs_reduce": "K3"}
     out = {k: 0 for k in ids.values()}
-    runs = [r["mesh"]["launches"] for k, r in sharded.items() if k != "gloo"]
+    runs = [r["mesh"]["launches"] for k, r in sharded.items()
+            if k not in ("gloo", "steps")]
     runs += [r[c]["launches"] for r in sharded["gloo"]
              for c in ("config 1", "config 3")]
     for launches in runs:

@@ -24,7 +24,9 @@ exact, the rows below the cap word for word.  The captured step: every
 replay's ``rebuilt``, counts and rows equal to an eager step's, and a
 conditional node's body runs only on a true predicate; the tile-path and
 pipeline steps captured too, every replay's counts, ``max_count``, rows
-and flags equal to an eager step's.
+and flags equal to an eager step's; the sharded step's buckets captured
+over NCCL at world size 1 the same way, the eager step's counts equal to
+the one-device ``run()``'s and its rows as sets.
 """
 
 import ctypes
@@ -1351,3 +1353,80 @@ def test_fallback_step_graph_equals_eager(dev, kind):
                 assert torch.equal(g[f], w[f]), (k, name, f)
         assert int(want["cand_max"]) == 0 or not fast
     assert int(sum(p["counts"].sum() for p in want["pairs"].values())) > 0
+
+
+def test_sharded_step_graph_over_nccl_equals_eager(dev, tmp_path):
+    # the bucketed fast step at world size 1 over NCCL captured once (NCCL
+    # makes its communicator at the first collective, so the eager
+    # warm-up comes first); replays at static and jittered positions
+    # equal an eager step on the same positions: counts, max_count and
+    # rows slot for slot, every flag, route_overflow 0; the eager step
+    # equals the one-device run()
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from treensearch_tpu_torch.parallel import sharded as sh
+    rng = np.random.default_rng(41)
+    eng = _sets_engine(dev, [(rng.uniform(0, 1, (20_000, 3))
+                              .astype(np.float32), None)], r=0.03)
+    eng.run()
+    points, _ = eng._assemble()
+    _, _, sr, cell, w = eng._setup()
+    cfg = eng._make_cfg(w)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("d",))
+        knobs = eng._knobs()._replace(tiles_cap=0)
+
+        def make():
+            return sh.make_sharded_step(cfg, mesh, cell, sr, knobs=knobs,
+                                        fast=True)
+
+        # a step does not regrow: the sentinel rows take tile slots, so
+        # grow tiles_cap as the engine would until no step overflows
+        while int((sol := make()(fresh_state(dev), points)[0])
+                  ["tile_overflow"]):
+            knobs = knobs._replace(tiles_cap=int(1.5 * (
+                knobs.tiles_cap or fp.default_tiles_cap(
+                    sum(sol["slab_rows"])))) + 64)
+        step, estep = make(), make()
+        state, estate = fresh_state(dev), fresh_state(dev)
+        static = points.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                sol, state = step(state, static)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        launches = pairs.expand_query_tiles.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            sol, state = step(state, static)
+        assert pairs.expand_query_tiles.launches == launches + 1
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for k in range(3):
+            if k:
+                static.add_((torch.rand(static.shape, generator=gen,
+                                        device=dev) * 2 - 1) * 2e-3)
+            graph.replay()
+            want, estate = estep(estate, static.clone())
+            assert int(want["route_overflow"]) == 0
+            for key, v in want.items():
+                if isinstance(v, torch.Tensor):
+                    assert torch.equal(sol[key], v), (k, key)
+            g, w_ = sol["pairs"]["0-0"], want["pairs"]["0-0"]
+            for f in ("counts", "max_count", "nbrs"):
+                assert torch.equal(g[f], w_[f]), (k, f)
+            if k == 0:
+                c1, nb1 = eng.get_neighbors(0, 0)
+                assert torch.equal(w_["counts"], c1) and int(c1.sum()) > 0
+                for i in range(0, c1.shape[0], 97):
+                    assert torch.equal(
+                        torch.sort(w_["nbrs"][i, :c1[i]]).values,
+                        torch.sort(nb1[i, :c1[i]]).values), i
+    finally:
+        # the graph holds NCCL work: free it before the communicator
+        graph = sol = None
+        torch.cuda.synchronize()
+        dist.destroy_process_group()

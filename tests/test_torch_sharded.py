@@ -14,6 +14,7 @@ inside the tests that compare with it, so the ranks never load it.
 """
 
 import datetime
+import functools
 import multiprocessing as mp
 import os
 
@@ -30,6 +31,7 @@ from treensearch_tpu_torch.ops.pairs import FAT_COL
 from treensearch_tpu_torch.ops.pipeline import build_and_search
 from treensearch_tpu_torch.parallel import sharded as sh
 from treensearch_tpu_torch.utils.keys import quantize
+from torch_step_guard import no_host_reads
 
 SPAWN_TIMEOUT = 120   # seconds for one spawn's ranks to finish
 
@@ -41,6 +43,7 @@ ROUTE = dict(sizes=(701, 300), seed=5, r=(0.09, 0.15), cell=0.15)
 PAIRS = ((0, 0), (0, 1), (1, 0))
 N_DECOMP, R_DECOMP, CELL_DECOMP = 4096, 0.07, 0.105
 N_FALLBACK = 640
+N_ORIGIN = 2000
 
 
 def _cloud(shape, variable):
@@ -51,6 +54,16 @@ def _cloud(shape, variable):
     rad = rng.uniform(*shape["r"], n).astype(np.float32) if variable \
         else None
     return pts, rad
+
+
+def _origin_cloud():
+    """One set with points near the origin, where a bucket's sentinel rows
+    (orig n, set -1, at (0, 0, 0)) would count as neighbors through K2a,
+    which reads no set id, if the step did not park them."""
+    rng = np.random.default_rng(9)
+    pts = rng.uniform(0, 1, (N_ORIGIN, 3)).astype(np.float32)
+    pts[:16] = rng.uniform(0, 0.05, (16, 3))
+    return pts
 
 
 def _cfg(shape, variable, **kw):
@@ -109,13 +122,29 @@ def _gathered(sol, mesh) -> dict:
 def _flags(sol) -> dict:
     return {k: int(sol[k]) for k in ("error", "dense_overflow",
                                      "rows_overflow", "tile_overflow",
-                                     "cand_max") if k in sol}
+                                     "route_overflow", "cand_max")
+            if k in sol}
+
+
+def _guarded_step(step, mesh, pts, rad, cell: float) -> tuple:
+    """One step under ``no_host_reads`` (every host read and host-to-device
+    copy outside the kernel wrappers raises); its lists gathered, its
+    flags, its local rows and whether it wrote the grid into the state
+    it was given."""
+    state, pts, rad = fresh_state(), _t(pts), _t(rad)
+    with pytest.MonkeyPatch.context() as patch:
+        no_host_reads(patch)
+        sol, new = step(state, pts, rad)
+    grid = update_grid(fresh_state(), pts, torch.tensor(cell))
+    same = new is state and torch.equal(state.grid_min, grid.grid_min) \
+        and torch.equal(state.n_cells, grid.n_cells)
+    return _gathered(sol, mesh), _flags(sol), sol["slab_rows"], same
 
 
 def _cases_functions(mesh) -> dict:
     """The module functions on four ranks: the pipeline and the fast path
-    on their shapes, the decomposition, the routing, the tiny and empty
-    clouds."""
+    on their shapes, exact and through the step's buckets, the
+    decomposition, the routing, the tiny and empty clouds."""
     out = {}
     for variable in (False, True):
         pts, rad = _cloud(PIPE, variable)
@@ -129,13 +158,29 @@ def _cases_functions(mesh) -> dict:
             _t(pts), _t(rad), 0.1, FAST["cell"], fresh_state(),
             _cfg(FAST, variable), knobs, mesh)
         out[f"fast_{variable}"] = (_gathered(sol, mesh), _flags(sol))
+        # the buckets' sentinel rows fit the exact run's 96 tiles here
         step = sh.make_sharded_step(_cfg(FAST, variable), mesh, FAST["cell"],
                                     0.1, knobs=knobs, fast=True)
-        out[f"fast_step_{variable}"] = _gathered(
-            step(fresh_state(), _t(pts), _t(rad))[0], mesh)
+        out[f"fast_step_{variable}"] = _guarded_step(step, mesh, pts, rad,
+                                                     FAST["cell"])
     pts, rad = _cloud(PIPE, False)
     step = sh.make_sharded_step(_cfg(PIPE, False), mesh, PIPE["cell"], 0.1)
-    out["pipe_step"] = _gathered(step(fresh_state(), _t(pts))[0], mesh)
+    out["pipe_step"] = _guarded_step(step, mesh, pts, None, PIPE["cell"])
+    pts, rad = _cloud(ROUTE, True)
+    step = sh.make_sharded_step(_cfg(ROUTE, True), mesh, ROUTE["cell"],
+                                knobs=fp.FastKnobs(dense_cap=1 << 13,
+                                                   tiles_cap=64),
+                                fast=True, route_slack=0.2)
+    out["small_slack"] = _guarded_step(step, mesh, pts, rad, ROUTE["cell"])
+    pts = _origin_cloud()
+    cfg = SearchConfig(set_sizes=(N_ORIGIN,), active_pairs=((0, 0),),
+                       stencil_w=1, nbr_cap=64)
+    knobs = fp.FastKnobs(dense_cap=1 << 13, tiles_cap=128)
+    sol, _ = sh.build_and_search_sharded_fast(
+        _t(pts), None, 0.1, 0.15, fresh_state(), cfg, knobs, mesh)
+    step = sh.make_sharded_step(cfg, mesh, 0.15, 0.1, knobs=knobs, fast=True)
+    out["origin"] = (_gathered(sol, mesh),
+                     _guarded_step(step, mesh, pts, None, 0.15))
 
     pts = np.random.default_rng(3).uniform(0, 1, (N_DECOMP, 3)) \
         .astype(np.float32)
@@ -144,7 +189,9 @@ def _cases_functions(mesh) -> dict:
     sol, state = sh.build_and_search_sharded(
         _t(pts), None, R_DECOMP, CELL_DECOMP, fresh_state(), cfg, mesh)
     ax = sh.MeshAxis(mesh)
-    rt = sh._route(_t(pts), None, None, state, cfg, ax)
+    rt = sh._route(_t(pts), None, None, state, cfg, ax,
+                   fp.step_constants(cfg, fp.FastKnobs(), CELL_DECOMP, "cpu",
+                                     search_radius=R_DECOMP))
     out["decomp"] = {"rows": sol["pairs"]["0-0"]["counts"].shape[0],
                      "sum": int(sol["pairs"]["0-0"]["counts"].sum()),
                      "slab_rows": sol["slab_rows"], "local": rt.local,
@@ -154,7 +201,13 @@ def _cases_functions(mesh) -> dict:
     cfg = _cfg(ROUTE, True)
     state = update_grid(fresh_state(), _t(pts),
                         torch.tensor(ROUTE["cell"], dtype=torch.float32))
-    out["route"] = sh._route(_t(pts), _t(rad), None, state, cfg, ax).local
+    consts = fp.step_constants(cfg, fp.FastKnobs(), ROUTE["cell"], "cpu",
+                               search_radius=0.0)
+    out["route"] = sh._route(_t(pts), _t(rad), None, state, cfg, ax,
+                             consts).local
+    rt = sh._route(_t(pts), _t(rad), None, state, cfg, ax, consts,
+                   sh.route_slots(cfg.n_points, ax.size, sh.ROUTE_SLACK))
+    out["route_buckets"] = (rt.local, rt.slab_rows, int(rt.route_overflow))
 
     tiny = np.random.default_rng(1).uniform(0, 1, (3, 3)).astype(np.float32)
     cfg = SearchConfig(set_sizes=(3,), active_pairs=((0, 0),), stencil_w=1,
@@ -168,6 +221,12 @@ def _cases_functions(mesh) -> dict:
             sol, _ = sh.build_and_search_sharded(
                 _t(tiny), None, 0.5, 0.75, fresh_state(), cfg, mesh)
         out[f"tiny_{fast}"] = (_gathered(sol, mesh), sol["slab_rows"])
+        # the step: ranks with no input row still fill and send buckets
+        step = sh.make_sharded_step(
+            cfg, mesh, 0.75, 0.5, fast=fast,
+            knobs=fp.FastKnobs(dense_cap=1 << 12, tiles_cap=32))
+        out[f"tiny_step_{fast}"] = _guarded_step(step, mesh, tiny, None,
+                                                 0.75)
     empty = SearchConfig(set_sizes=(0,), active_pairs=((0, 0),),
                          stencil_w=1, nbr_cap=16)
     sol, _ = sh.build_and_search_sharded_fast(
@@ -338,7 +397,7 @@ def test_sharded_pipeline_matches_one_device(functions, variable):
                  "JAX build_and_search_jit")
     _assert_same(got, _oracle(pts, rad, PIPE["sizes"], 0.1), "oracle")
     if not variable:
-        _assert_same(functions[0]["pipe_step"], _as_np(got),
+        _assert_same(functions[0]["pipe_step"][0], _as_np(got),
                      "make_sharded_step")
 
 
@@ -369,10 +428,12 @@ def test_sharded_memory_is_domain_decomposed(functions):
         assert torch.equal(orig, torch.sort(orig).values)
 
 
-def test_sharded_routing_matches_jax_route_and_halo(functions):
-    """The valid local rows of the port's exact-size routing equal JAX's
-    fixed-cap ``_route_and_halo`` under ``shard_map`` on four of the eight
-    virtual CPU devices, row for row."""
+@functools.lru_cache(maxsize=None)
+def _jax_route_and_halo(d: int, slack: tuple) -> list:
+    """JAX's ``_route_and_halo`` under ``shard_map`` on ``d`` of the eight
+    virtual CPU devices, on the ROUTE cloud, at the bucket rows of each
+    ``slack``, in one program: per slack the local rows (d, 3 d S, 8) and
+    each device's ``route_overflow``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
@@ -380,7 +441,6 @@ def test_sharded_routing_matches_jax_route_and_halo(functions):
     from treensearch_tpu.ops import grid as jgrid
     from treensearch_tpu.parallel import sharded as jsh
 
-    d = len(functions)
     mesh = Mesh(np.array(jax.devices()[:d]), ("d",))
     pts, rad = _cloud(ROUTE, True)
     n = pts.shape[0]
@@ -391,7 +451,6 @@ def test_sharded_routing_matches_jax_route_and_halo(functions):
                     cand_cap=512, nbr_cap=96)
     st = jgrid.update_grid(jgrid.fresh_state(), jnp.asarray(pts),
                            jnp.float32(ROUTE["cell"]))
-    s_cap = -(-n // 8) * 8          # no bucket can overflow
     pts_in = jnp.asarray(np.concatenate([pts, np.repeat(pts[:1], pad, 0)]))
     rad_in = jnp.asarray(np.concatenate([rad, np.repeat(rad[:1], pad)]))
     orig_in = jnp.arange(l0 * d, dtype=jnp.int32)
@@ -400,26 +459,152 @@ def test_sharded_routing_matches_jax_route_and_halo(functions):
         np.full(pad, -1, np.int32)]))
 
     def program(p, r, o, s, state):
-        local, *_, flag, _x0, _sw = jsh._route_and_halo(
-            p, r, o, s, state, cfg, "d", d, s_cap, n)
-        return local, flag[None]
+        out = []
+        for x in slack:
+            local, *_, flag, _x0, _sw = jsh._route_and_halo(
+                p, r, o, s, state, cfg, "d", d, sh.route_slots(n, d, x), n)
+            out += [local, flag[None]]
+        return tuple(out)
 
-    local, flag = jax.jit(jax.shard_map(
+    res = jax.jit(jax.shard_map(
         program, mesh=mesh, in_specs=(P("d"),) * 4 + (P(),),
-        out_specs=(P("d"), P("d")), check_vma=False))(
+        out_specs=(P("d"),) * (2 * len(slack)), check_vma=False))(
         pts_in, rad_in, orig_in, set_in, st)
-    assert not np.asarray(flag).any()
-    blocks = np.asarray(local).reshape(d, -1, 8)
+    return [(np.asarray(res[2 * k]).reshape(d, -1, 8),
+             np.asarray(res[2 * k + 1])) for k in range(len(slack))]
+
+
+def test_sharded_routing_matches_jax_route_and_halo(functions):
+    """The port's routing against JAX's ``_route_and_halo`` at the step's
+    bucket rows S (slack 2.5, where no bucket overflows): the exact-size
+    local rows equal JAX's valid rows row for row; the bucketed local
+    rows equal JAX's bit for bit, sentinel rows included, block for
+    block where JAX has a real block (an edge rank gets no halo from
+    beyond the edge, where JAX has a block of sentinels)."""
+    d = len(functions)
+    (blocks, flag), _ = _jax_route_and_halo(d, (sh.ROUTE_SLACK, 0.2))
+    n = sum(ROUTE["sizes"])
+    big = d * sh.route_slots(n, d, sh.ROUTE_SLACK)
+    assert not flag.any()
     for k in range(d):
         want = blocks[k][blocks[k][:, 4] < n]
         assert np.array_equal(functions[k]["route"].numpy(), want), k
+        local, slab, overflow = functions[k]["route_buckets"]
+        assert overflow == 0
+        assert slab == (big, big if k > 0 else 0, big if k < d - 1 else 0)
+        want = np.concatenate(
+            [blocks[k][:big]] + ([blocks[k][big:2 * big]] if k > 0 else [])
+            + ([blocks[k][2 * big:]] if k < d - 1 else []))
+        assert np.array_equal(local.numpy(), want), k
+
+
+def test_sharded_step_route_overflow_at_small_slack(functions):
+    """At ``route_slack=0.2`` the step's buckets are too small for the
+    ROUTE cloud on four ranks: ``route_overflow`` is 1 on every rank, as
+    the per-device flag of JAX's ``_route_and_halo`` (the JAX sharded
+    search's ``route_overflow`` is its maximum over the devices) is on
+    the same cloud at the same S; the other flags stay 0."""
+    _, (_, flag) = _jax_route_and_halo(len(functions), (sh.ROUTE_SLACK, 0.2))
+    assert flag.max() == 1
+    for rank in functions:
+        flags = rank["small_slack"][1]
+        assert flags["route_overflow"] == 1
+        assert flags["error"] == flags["dense_overflow"] == 0
+        assert flags["rows_overflow"] == flags["tile_overflow"] == 0
+
+
+def _jax_step(shape, variable: bool, fast: bool) -> dict:
+    """JAX's ``make_sharded_step`` (route slack 2.5) on four of the eight
+    virtual CPU devices; the fast step runs its Pallas kernels in
+    interpret mode.  Returns each pair's (counts, rows)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from treensearch_tpu.config import SearchConfig as JaxConfig
+    from treensearch_tpu.ops import fastpath as jfp
+    from treensearch_tpu.ops.grid import fresh_state as jfresh
+    from treensearch_tpu.parallel.sharded import make_sharded_step
+
+    mesh = Mesh(np.array(jax.devices()[:4]), ("d",))
+    cfg = _cfg(shape, variable)
+    jcfg = JaxConfig(set_sizes=cfg.set_sizes, active_pairs=cfg.active_pairs,
+                     variable=cfg.variable, symmetric=cfg.symmetric,
+                     stencil_w=cfg.stencil_w, chunk=cfg.chunk,
+                     cand_cap=cfg.cand_cap, nbr_cap=cfg.nbr_cap)
+    # the window and fat caps of tests/test_sharded.py's fast cases
+    knobs = jfp.FastKnobs(wcap=64, dense_cap=1 << 13, use_pallas=True,
+                          pre_cap=48, pre_edge=48, interpret=True, fat_cap=8,
+                          tiles_cap=96) if fast else None
+    step = make_sharded_step(jcfg, mesh, shape["cell"], 0.1, knobs=knobs,
+                             fast=fast)
+    pts, rad = _cloud(shape, variable)
+    sol, _ = step(jfresh(), jnp.asarray(pts),
+                  None if rad is None else jnp.asarray(rad))
+    assert int(sol["route_overflow"]) == 0
+    return {k: (np.asarray(v["counts"]), np.asarray(v["nbrs"]))
+            for k, v in sol["pairs"].items()}
+
+
+@pytest.mark.parametrize("case", ["fast_step_False", "fast_step_True",
+                                  "pipe_step"])
+def test_sharded_step_matches_jax_step(functions, case):
+    """The port's bucketed step (fixed and variable fast, the fixed
+    pipeline) on four gloo ranks: counts bit-equal to, rows equal as sets
+    with, JAX's ``make_sharded_step`` on the virtual CPU mesh and the
+    oracle, with no flag raised (its match with the exact-size run:
+    ``test_sharded_fast_matches_one_device``,
+    ``test_sharded_pipeline_matches_one_device``)."""
+    fast = case != "pipe_step"
+    variable = case == "fast_step_True"
+    shape = FAST if fast else PIPE
+    got, flags, _, _ = functions[0][case]
+    assert flags["route_overflow"] == flags["error"] == 0
+    assert flags.get("tile_overflow", 0) == flags.get("dense_overflow", 0) \
+        == flags.get("rows_overflow", 0) == 0
+    for rank in functions[1:]:
+        _assert_same(rank[case][0], _as_np(got), "rank view")
+    _assert_same(got, _jax_step(shape, variable, fast),
+                 "JAX make_sharded_step")
+    pts, rad = _cloud(shape, variable)
+    _assert_same(got, _oracle(pts, rad, shape["sizes"], 0.1), "oracle")
+
+
+def test_sharded_step_parks_its_sentinel_rows(functions):
+    """One set at a fixed radius (K2a, which reads no set id) with points
+    near the origin, where the buckets' sentinel rows lie: the step's
+    counts and rows equal the exact-size run's and the oracle's, so no
+    sentinel row was a candidate."""
+    exact, (got, flags, _, _) = functions[0]["origin"]
+    assert flags["route_overflow"] == flags["tile_overflow"] == 0
+    _assert_same(got, _as_np(exact), "exact-size run")
+    _assert_same(got, _oracle(_origin_cloud(), None, (N_ORIGIN,), 0.1,
+                              ((0, 0),)), "oracle")
+
+
+def test_sharded_step_makes_no_host_read(functions):
+    """Every rank ran the fixed, variable, pipeline and small-slack steps
+    with every host read and host-to-device copy outside the kernel
+    wrappers made to raise (``torch_step_guard.no_host_reads``, applied
+    inside each rank): each wrote the new grid into the state it was
+    given, and its local rows are the static D S (1 + neighbors)."""
+    d = len(functions)
+    for case, shape, slack in (("fast_step_False", FAST, sh.ROUTE_SLACK),
+                               ("fast_step_True", FAST, sh.ROUTE_SLACK),
+                               ("pipe_step", PIPE, sh.ROUTE_SLACK),
+                               ("small_slack", ROUTE, 0.2)):
+        big = d * sh.route_slots(sum(shape["sizes"]), d, slack)
+        for k, rank in enumerate(functions):
+            _, _, slab, in_place = rank[case]
+            assert in_place, (case, k)
+            assert slab == (big, big if k > 0 else 0,
+                            big if k < d - 1 else 0), (case, k)
 
 
 @pytest.mark.parametrize("variable", [False, True])
 def test_sharded_fast_matches_one_device(functions, variable):
     got, flags = functions[0][f"fast_{variable}"]
     assert flags == {"error": 0, "dense_overflow": 0, "rows_overflow": 0,
-                     "tile_overflow": 0, "cand_max": 0}
+                     "tile_overflow": 0, "route_overflow": 0, "cand_max": 0}
     pts, rad = _cloud(FAST, variable)
     cfg = _cfg(FAST, variable)
     knobs = fp.FastKnobs(dense_cap=1 << 14, tiles_cap=128)
@@ -432,19 +617,23 @@ def test_sharded_fast_matches_one_device(functions, variable):
     _assert_same(got, _jax_pipeline(pts, rad, cfg, 0.1, FAST["cell"]),
                  "JAX build_and_search_jit")
     _assert_same(got, _oracle(pts, rad, FAST["sizes"], 0.1), "oracle")
-    _assert_same(functions[0][f"fast_step_{variable}"], _as_np(got),
+    _assert_same(functions[0][f"fast_step_{variable}"][0], _as_np(got),
                  "make_sharded_step(fast=True)")
 
 
 def test_sharded_empty_and_tiny(functions):
     """Three points on four ranks (ranks that own nothing still enter
-    every collective) and no point at all."""
+    every collective), exact and through the step's buckets, and no
+    point at all."""
     tiny = np.random.default_rng(1).uniform(0, 1, (3, 3)).astype(np.float32)
     want = _oracle(tiny, None, (3,), 0.5, ((0, 0),))
     for fast in (False, True):
         got, _ = functions[0][f"tiny_{fast}"]
         assert got["0-0"][0].shape == (3,)
         _assert_same(got, want, f"tiny, fast={fast}")
+        got, flags, _, _ = functions[0][f"tiny_step_{fast}"]
+        assert flags["route_overflow"] == flags.get("tile_overflow", 0) == 0
+        _assert_same(got, want, f"tiny step, fast={fast}")
         assert sum(r[f"tiny_{fast}"][1][0] for r in functions) == 3
         assert min(r[f"tiny_{fast}"][1][0] for r in functions) == 0
     assert functions[0]["empty"]["0-0"][0].shape == (0,)

@@ -21,9 +21,11 @@ graph capture of it needs, checked without a card.
   counts exact, the live rows those of the uncapped call; the mask step
   with a cap below its rows flags ``mask_overflow`` with exact counts.
 - **Capture refusals.**  With the capturing check patched to say yes, the
-  sharded step raises ``ValueError``, and ``rebuild_if`` raises for a host
-  predicate and where PyTorch has no memory pool for a conditional node's
-  body.  (The tile-path and pipeline steps capture:
+  sharded step over a gloo group raises ``ValueError`` naming NCCL (gloo
+  cannot be captured; the step over NCCL captures:
+  ``test_torch_sharded.py``, ``test_torch_cuda.py``), and ``rebuild_if``
+  raises for a host predicate and where PyTorch has no memory pool for a
+  conditional node's body.  (The tile-path and pipeline steps capture:
   ``test_torch_step_graph_fallbacks.py``.)
 
 Tolerance: none, everything is compared bit for bit, except the JAX
@@ -46,6 +48,7 @@ from treensearch_tpu_torch.config import SearchConfig
 from treensearch_tpu_torch.ops import cond as tcond
 from treensearch_tpu_torch.ops import fastpath as tfp
 from treensearch_tpu_torch.ops import pairs as tpp
+from treensearch_tpu_torch.ops.grid import fresh_state
 from treensearch_tpu_torch.parallel.sharded import make_sharded_step
 from treensearch_tpu_torch.utils.keys import quantize
 
@@ -370,11 +373,23 @@ def capturing(monkeypatch):
     monkeypatch.setattr(tcond, "capturing", lambda: True)
 
 
-def test_sharded_step_refuses_capture(capturing):
-    cfg = SearchConfig((N,), ((0, 0),), 1, 64)
-    step = make_sharded_step(cfg, None, 0.16, R)
-    with pytest.raises(ValueError, match="sharded step"):
-        step(None, torch.from_numpy(_cloud()))
+def test_sharded_step_over_gloo_refuses_capture(capturing, tmp_path):
+    # a gloo group cannot be captured: the step raises before it runs
+    # anything, naming NCCL, and never falls back to an eager step
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cpu", [0], mesh_dim_names=("d",))
+        step = make_sharded_step(SearchConfig((N,), ((0, 0),), 1, 64), mesh,
+                                 0.16, R)
+        state = fresh_state()
+        with pytest.raises(ValueError, match="over NCCL"):
+            step(state, torch.from_numpy(_cloud()))
+        assert_same(state, fresh_state())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_rebuild_if_refuses_what_a_conditional_node_cannot_take(

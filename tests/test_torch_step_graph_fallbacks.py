@@ -10,8 +10,8 @@ them needs, without a card.
   step (one set after ``set_use_pallas(False)``, ten candidate sets,
   variable symmetric), the pipeline step (fixed, variable symmetric, two
   sets) and the z-sort step over 3 sets run, and equal the unguarded
-  eager step bit for bit.  Only the sharded step still refuses capture
-  (``test_torch_step_graph.py``).
+  eager step bit for bit.  The sharded step captures over NCCL
+  (``test_torch_sharded.py``, ``test_torch_cuda.py``).
 - **Static sizes.**  The tile path sized from its caps (every tile, each
   window ``wcap`` wide: the step's) equals the tile path sized by the
   live tiles and the widest window (``run()``'s), the whole solution bit

@@ -583,11 +583,13 @@ class TreeNSearch:
             if self._axis is not None and fused:
                 sol, state = build_and_search_sharded_fast(
                     points, radii, sr, cell, self._grid_state, cfg, knobs,
-                    self._axis.mesh, self._axis.axis, **mode)
+                    self._axis.mesh, self._axis.axis,
+                    consts=self._step_consts(cfg, knobs, cell, sr), **mode)
             elif self._axis is not None:
                 sol, state = build_and_search_sharded(
                     points, radii, sr, cell, self._grid_state, cfg,
-                    self._axis.mesh, self._axis.axis)
+                    self._axis.mesh, self._axis.axis,
+                    consts=self._step_consts(cfg, knobs, cell, sr))
             elif fused and self._use_carry and n > 0:
                 sol, state, self._fast_carry = build_and_search_fast_carry(
                     points, sr, self._grid_state,
@@ -914,9 +916,8 @@ class TreeNSearch:
         The carried steps' conditional bodies take their temporaries from
         one memory pool per device (``ops/cond.py``), so graphs that hold
         them must not replay concurrently: replay them one after another
-        on one stream.  Only the sharded step
-        (``parallel/sharded.py::make_sharded_step``) reads the host and
-        raises ``ValueError`` under capture.
+        on one stream.  The step over a mesh, ``parallel/sharded.py::
+        make_sharded_step``, captures too, over NCCL.
         """
         _, _, sr, cell, w = self._setup()
         cfg = self._make_cfg(w, chunk or self._chunk)

@@ -72,19 +72,25 @@ class SortedStructure(NamedTuple):
 def sorted_structure(points: torch.Tensor, radii: Optional[torch.Tensor],
                      state: GridState, cfg: SearchConfig,
                      consts: StepConsts, orig: Optional[torch.Tensor] = None,
-                     set_ids: Optional[torch.Tensor] = None
+                     set_ids: Optional[torch.Tensor] = None,
+                     valid: Optional[torch.Tensor] = None
                      ) -> SortedStructure:
     """Quantize, key and sort (``pipeline.py:78-118`` of the JAX
     package).  ``points`` (n, 3) float32 holds the concatenated sets; or,
     with ``orig`` and ``set_ids`` ((n,) int32: each row's concatenated
     index and set), any rows of them, as the sharded search's routed rows
-    (``parallel/sharded.py``).  The radius and the set offsets (and, for
-    the concatenated sets, their set ids) come from ``consts``."""
+    (``parallel/sharded.py``).  ``valid`` ((n,) bool) parks the rows
+    flagged False past every key, where no stencil range reaches them
+    (the sharded step's sentinel rows; ``sharded.py:232`` of the JAX
+    package).  The radius and the set offsets (and, for the concatenated
+    sets, their set ids) come from ``consts``."""
     dev = points.device
     n = points.shape[0]
     inv_cell = 1.0 / state.cell_size
     ijk = K.quantize(points, state.grid_min, inv_cell, state.n_cells)
     hi, lo = K.cell_keys(ijk)
+    if valid is not None:
+        hi = torch.where(valid, hi, torch.iinfo(torch.int32).max)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     hi_s, lo_s, perm = K.sort_by_2word_key(hi, lo, iota)
     key_s = K.key64(hi_s, lo_s)
