@@ -18,10 +18,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    r = 0.02, cell = 1.15 r): K1 and K2a against their plain PyTorch
    versions on a settled engine's structures (query tiles bit-equal,
    counts equal, rows equal slot for slot, median times from CUDA events); a
-   small cloud against numpy brute force; ``TreeNSearch(device="cuda")
+   small cloud against the port's brute-force oracle
+   (``BruteforceNSearch.compare``); ``TreeNSearch(device="cuda")
    .run()`` once to settle the caps and then 5 times with the points
    jittered by at most 1e-4, as an SPH step moves them; 20k sampled
-   points against scipy's cKDTree under the same float32 rule;
+   points against scipy's cKDTree under the same float32 rule, and every
+   point's count and neighbor set against the port's native oracle
+   (``benchmarks/validate_1m.py``'s check, compared on the card);
 4. BASELINE config 3 (``benchmarks/bench_configs.py:109-141``): 400,000
    fluid and 100,000 boundary points, r = 0.0254, fluid searches fluid
    and boundary: K2b against its plain version on every candidate-set
@@ -32,7 +35,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    their times and bounds, K2c over the same grid with every tile dead,
    6 runs, a cKDTree sample;
 6. two small sets with variable radii, symmetric search off, against
-   numpy brute force (K2c with two candidate-set blocks);
+   the port's brute-force oracle (K2c with two candidate-set blocks);
 7. ``run_reduce`` at config 1 (``benchmarks/bench_reduce_1m.py``'s
    workload without its z-sort): masses uniform in [0.5, 1.5) from the
    points' generator; K3 against its plain version on a settled engine's
@@ -163,18 +166,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and at config 4; and ``make_zsort_step`` on phase 15's inputs, its
    orders and gathers equal to the eager step's bit for bit, ms per
    replay beside phase 15's eager ms.
+18. BASELINE config 5 (``benchmarks/bench_10m_cfg5.py:36-82``): 8,000,000
+   fluid, 1,500,000 boundary and 500,000 emitter points from
+   ``default_rng(0)``, r = 0.009, cell 1.1 r, all 9 searches, caps 64 /
+   16 / 8 by candidate set, coherence off (K1, and K2b with three
+   blocks): a settling ``run()`` and 3 jittered ones (K1 and K2b once in
+   each), one profiled; all 9 pairs against the native oracle, every
+   point's count and neighbor set (sorted int64 keys on the card); K2b
+   against its plain version on the settled structures (the plain
+   version run once); ``bench_10m_cfg5.py:131-175``'s loop of 6 steps of
+   ``make_step_fn()`` with ``make_zsort_step(n_sets=3)`` of the
+   positions and 3 user arrays per set before every third step, eagerly
+   and as two CUDA graphs replayed at that cadence from the host (the
+   checksum of pair 0-0's ``counts[::1025]``, the positions and every
+   pair's counts and rows equal; the last step equal to a fresh
+   ``run()``), timed and profiled; and the fluid's cap set to 32, a
+   ``run()`` that regrows to the settled pair 0-0 total.
 
 Each path resets every kernel's launch count just before it and reads the
 counts just after: each of its kernels must launch in every call (K1 and
 K3 or K4 exactly once in each jittered ``run_reduce``/``run_mask``), and
 no other pairs kernel may.  The last lines are the card, a JSON object
-with each kernel's launches, error, times and bound, then ``{"ok": true,
+with each kernel's launches, error, times and bound (K2b's with its
+config 5 record under ``"config 5"``), then ``{"ok": true,
 "device": {...}}``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -227,6 +248,16 @@ N_CLUSTER = 50_000      # phase 14: points per cluster of the sparse cloud
 BOX_CELLS = 1000        # ... at opposite corners of a box this many cells
 N_ZSORT_EXTRA = 50_000  # phase 15: the third set beside config 3's two
 ZSORT_STEP_TIMING = "make_zsort_step (3 sets, 2 arrays each)"
+# BASELINE config 5 (benchmarks/bench_10m_cfg5.py:36-82): fluid, boundary
+# and emitter, all nine searches, a neighbor cap per candidate set
+N5 = (8_000_000, 1_500_000, 500_000)
+R5, CELL_F5 = 0.009, 1.1
+CAPS5 = (64, 16, 8)
+N5_RUNS = 3             # phase 18: jittered calls after the settling one
+N5_ITERS = 6            # phase 18: iterations of the steady-state loop,
+ZSORT_EVERY = 3         # ... a z-sort before every third step
+CHECKSUM_STRIDE = 1025  # ... summing counts[::1025] of pair 0-0
+REGROW_CAP = 32         # phase 18: the fluid's cap that forces a regrow
 
 
 # ------------------------------------------------ the reduce callbacks
@@ -415,26 +446,79 @@ def settled_inputs(eng, payload=None, padded: bool = False):
 
 def active_inputs(eng, payload=None):
     """K3's and K4's arguments on a settled engine's structures: the
-    kernel inputs, the allow table and the query tiles (built by K1)."""
+    carry (for ``stencil_tests``), the kernel inputs, the allow table and
+    the query tiles (built by K1)."""
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs
-    _, a = settled_inputs(eng, payload)
+    carry, a = settled_inputs(eng, payload)
     allow = fp.allow_table(eng._make_cfg(1), a.cand_sets, a.desc.device)
     q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap,
                                  eng.get_total_n_points())
-    return a, allow, q
+    return carry, a, allow, q
 
 
 # ------------------------------------------------------- kernel bounds
 def window_tests(a) -> int:
-    """Distance tests of the pairs kernel on these inputs: 128 lanes times
-    each live tile's windowed candidates (windows clipped to the
-    records)."""
+    """Distance tests the pairs kernels make on these inputs: 128 lanes
+    times each live tile's windowed candidates (windows clipped to the
+    records), dead lanes and tile-mates' candidates included."""
     import torch
     from treensearch_tpu_torch.ops.pairs import clipped_windows
     _, lens = clipped_windows(a.desc, a.recs_t.shape[1], a.n_win,
                               a.tiles_cap)
     return 128 * int(lens.sum(dtype=torch.int64))
+
+
+def stencil_tests(eng, carry, a) -> int:
+    """Distance tests the search needs on these inputs, the bounds' count:
+    each query of a set that searches against the candidates, of the sets
+    it searches, in its own stencil of the engine's grid, itself left out.
+    The stencil is the prep's windows cut to one query: (2W+1)^2 runs of
+    2W+1 cells along k around its cell, in variable mode each run only as
+    wide as the query's reach covers (r_i; with ``symmetric`` the larger
+    of r_i and the run's grid row's largest r_j), by the prep's float32
+    test.  ``window_tests`` adds to it the tiles' dead lanes and the
+    candidates of the other queries' stencils in a tile."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    dev = a.desc.device
+    state, cap = eng._grid_state, eng._knobs().dense_cap
+    w = (math.isqrt(a.n_win) - 1) // 2
+    dy, dz = (c + 2 * w for c in state.n_cells[1:].tolist())
+    lin = carry.lin_s.long()
+    sets = a.recs_t[fp.F_SET].long()
+    allow = fp.allow_table(eng._make_cfg(1), a.cand_sets, dev)[sets]
+    n_rows = cap // dz + 1
+    if a.variable:
+        row_rmax = torch.zeros(n_rows, dtype=torch.float32, device=dev)
+        row_rmax.scatter_reduce_(0, torch.clamp(lin // dz, max=n_rows - 1),
+                                 carry.r_chk, reduce="amax")
+    tests = 0
+    for b, cs in enumerate(a.cand_sets):
+        hist = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        hist.index_add_(0, lin + 1, (sets == cs).long())
+        table = torch.cumsum(hist, 0)
+        searches = (allow >> b) & 1 == 1
+        for di in range(-w, w + 1):
+            for dj in range(-w, w + 1):
+                wk, ok = w, searches
+                if a.variable:
+                    reach = carry.r_chk
+                    if a.symmetric:
+                        rp = torch.clamp(lin // dz + di * dy + dj, 0,
+                                         n_rows - 1)
+                        reach = torch.maximum(reach, row_rmax[rp])
+                    w0 = torch.floor(reach * (1.0 / state.cell_size)).long()
+                    wk = torch.clamp(torch.where(
+                        w0.to(torch.float32) * state.cell_size >= reach,
+                        w0, w0 + 1), 1, w)
+                    ok = ok & (max(abs(di), abs(dj)) <= wk)
+                base = lin + (di * dy + dj) * dz
+                e = table[torch.clamp(base + wk + 1, 0, cap)]
+                s = table[torch.clamp(base - wk, 0, cap)]
+                tests += int(((e - s) * ok).sum())
+        tests -= int((searches & (sets == cs)).sum())
+    return tests
 
 
 def _bound(rec: dict, ops: int, moved: int) -> dict:
@@ -447,31 +531,33 @@ def _bound(rec: dict, ops: int, moved: int) -> dict:
     return rec
 
 
-def k3_bound(a, n_out: int, traced_ops: int, hits: int) -> dict:
-    """K3's bound on these inputs: 9 operations per distance test, and per
+def k3_bound(a, n_out: int, traced_ops: int, hits: int, tests: int) -> dict:
+    """K3's bound on these inputs: 9 operations per distance test the
+    search needs (``tests``, from ``stencil_tests``), and per
     hit the traced callback's operations and n_out adds; the bytes are the
     candidate fields it stages (x y z orig set p0 p1) read once, the query
     tiles (8 fields), the windows' descriptor words and n_out floats per
     slot written."""
     slots = 128 * a.tiles_cap
-    tests = window_tests(a)
     moved = (4 * 7 * a.recs_t.shape[1] + 4 * 8 * slots
              + 4 * (2 * a.n_win + 1) * a.tiles_cap + 4 * n_out * slots)
-    return _bound({"tests": tests, "hits": hits},
+    return _bound({"tests": tests, "tile_tests": window_tests(a),
+                   "hits": hits},
                   tests * OPS_PER_TEST + hits * (traced_ops + n_out), moved)
 
 
-def k4_bound(a, n_rows: int) -> dict:
-    """K4's bound on these inputs: 9 operations per distance test; the
+def k4_bound(a, n_rows: int, tests: int) -> dict:
+    """K4's bound on these inputs: 9 operations per distance test the
+    search needs (``tests``, from ``stencil_tests``); the
     bytes are the candidate fields it stages (x y z orig set) read once,
     the query fields (x y z orig set), the descriptor words and row bases,
     the counts and 16 B per candidate row of bits written."""
     slots = 128 * a.tiles_cap
-    tests = window_tests(a)
     moved = (4 * 5 * a.recs_t.shape[1] + 4 * 5 * slots
              + 4 * (2 * a.n_win + 1) * a.tiles_cap + 8 * (a.tiles_cap + 1)
              + 4 * slots + 16 * n_rows)
-    return _bound({"tests": tests, "rows": n_rows},
+    return _bound({"tests": tests, "tile_tests": window_tests(a),
+                   "rows": n_rows},
                   tests * (OPS_PER_TEST + int(a.symmetric)), moved)
 
 
@@ -497,19 +583,19 @@ def k1_bound(a) -> tuple:
     return moved, moved / HBM_BYTES_PER_S * 1e3
 
 
-def k2_bound(a) -> dict:
+def k2_bound(a, tests: int) -> dict:
     """Bound of the pairs kernel on these inputs: the larger of the
-    distance tests' float32 operations over the card's float32 rate and
-    the bytes over HBM (records and query fields it reads once, the
-    descriptor's windows, the counts and every block's rows written)."""
+    float32 operations of the distance tests the search needs (``tests``,
+    from ``stencil_tests``) over the card's float32 rate and the bytes
+    over HBM (records and query fields it reads once, the descriptor's
+    windows, the counts and every block's rows written)."""
     fields = 4 + int(a.multi_set) + int(a.variable)   # x y z orig set r
     n_rec = a.recs_t.shape[1]
     slots = 128 * a.tiles_cap
     moved = (4 * fields * (n_rec + slots)
              + 4 * (2 * a.n_win + 1) * a.tiles_cap
              + 4 * slots * len(a.k8s) + 4 * slots * sum(a.k8s))
-    tests = window_tests(a)
-    return _bound({"tests": tests},
+    return _bound({"tests": tests, "tile_tests": window_tests(a)},
                   tests * (OPS_PER_TEST + int(a.symmetric)), moved)
 
 
@@ -554,16 +640,24 @@ def check_k1(a, n, dev, timed: bool) -> dict:
     return rec
 
 
-def check_pairs(carry, a, dev, n) -> dict:
+def check_pairs(eng, carry, a, time_plain: bool = True) -> dict:
     """The pairs kernel of these inputs against its plain version: counts
     equal and rows equal slot for slot over live slots, for every block;
-    its time in turns with the plain version, and its bound."""
+    its time in turns with the plain version (without ``time_plain``: the
+    kernel's median alone, and the one plain call's time beside it), and
+    its bound."""
     import torch
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import pairs
+    dev, n = a.desc.device, eng.get_total_n_points()
     kernel = fp.pairs_kernel(a)
     q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
-    (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q), fp.run_pairs(a, q, True)
+    c_k, nb_k = fp.run_pairs(a, q)
+    sync(dev)
+    t0 = time.perf_counter()
+    c_p, nb_p = fp.run_pairs(a, q, True)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
     live = live_slots(a.desc, a.tiles_cap)
     err = int((c_k[:, live].long() - c_p[:, live].long()).abs().max())
     if err:
@@ -573,16 +667,26 @@ def check_pairs(carry, a, dev, n) -> dict:
             raise AssertionError(f"{kernel.__name__}: block {b} rows differ "
                                  "from plain")
     rec = {"name": kernel.__name__, "max_abs_err": err}
-    rec.update(k2_bound(a))
+    rec.update(k2_bound(a, stencil_tests(eng, carry, a)))
     print(f"{kernel.__name__}: counts equal and rows equal slot for slot over "
           f"{int(live.sum())} live slots in {len(a.k8s)} block(s) "
           f"(candidate sets {a.cand_sets}, k8 {a.k8s}, max counts "
           f"{c_k[:, live].amax(dim=1).tolist()}, widest window "
           f"{int(carry.win_max)}, {a.n_win} windows); {rec['tests']} "
-          f"distance tests, bound {rec['bound_ms']:.4f} ms by "
+          f"distance tests in the queries' own stencils ({rec['tile_tests']}"
+          f" in the tiles' windows), bound {rec['bound_ms']:.4f} ms by "
           f"{rec['bound_by']}", flush=True)
-    timed_turns(rec, lambda: fp.run_pairs(a, q),
-                lambda: fp.run_pairs(a, q, True), dev)
+    if time_plain:
+        timed_turns(rec, lambda: fp.run_pairs(a, q),
+                    lambda: fp.run_pairs(a, q, True), dev)
+    else:
+        del c_p, nb_p
+        rec["plain_ms"] = plain_ms
+        rec["ms"] = median_ms(lambda: fp.run_pairs(a, q), dev,
+                              per=KERNEL_BATCH)
+        print(f"{kernel.__name__}: kernel {rec['ms']:.4f} ms (median of "
+              f"{REPS} runs of {KERNEL_BATCH} calls), plain {plain_ms:.1f} "
+              "ms (one call, untimed otherwise)", flush=True)
     rec["library_ms"] = None   # no single PyTorch call computes it
     return rec
 
@@ -590,32 +694,34 @@ def check_pairs(carry, a, dev, n) -> dict:
 def check_kernels(pts_t, radius) -> list:
     """Config 1: K1 and K2a against their plain versions on a settled
     engine's structures."""
-    carry, a = settled_inputs(make_engine(pts_t, radius))
-    n = pts_t.shape[0]
-    k1 = check_k1(a, n, pts_t.device, timed=True)
-    print(f"kernels: q_t bit-equal over {a.tiles_cap} tiles", flush=True)
-    return [k1, check_pairs(carry, a, pts_t.device, n)]
-
-
-def check_path_kernel(eng) -> dict:
-    """Config 3 or 4: K1 (bit-equal, untimed) and the path's pairs kernel
-    against their plain versions on the settled engine's structures."""
+    eng = make_engine(pts_t, radius)
     carry, a = settled_inputs(eng)
-    n = eng.get_total_n_points()
-    check_k1(a, n, a.desc.device, timed=False)
-    return check_pairs(carry, a, a.desc.device, n)
+    k1 = check_k1(a, pts_t.shape[0], pts_t.device, timed=True)
+    print(f"kernels: q_t bit-equal over {a.tiles_cap} tiles", flush=True)
+    return [k1, check_pairs(eng, carry, a)]
+
+
+def check_path_kernel(eng, time_plain: bool = True) -> dict:
+    """Config 3, 4 or 5: K1 (bit-equal, untimed) and the path's pairs
+    kernel against their plain versions on the settled engine's
+    structures (``check_pairs``)."""
+    carry, a = settled_inputs(eng)
+    check_k1(a, eng.get_total_n_points(), a.desc.device, timed=False)
+    return check_pairs(eng, carry, a, time_plain)
 
 
 def _outputs(outs) -> tuple:
     return outs if isinstance(outs, tuple) else (outs,)
 
 
-def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
+def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0,
+             tests: int = 0):
     """K3 against its plain version on these inputs: the outputs in
     ``exact`` equal, the others within REDUCE_RTOL of the sum of the
     terms' magnitudes (the plain version of ``|fn|``).  With ``hits`` (the
-    neighbor pairs of these inputs), its time in turns with the plain
-    version and its bound.  Returns (record, the kernel's sums)."""
+    neighbor pairs of these inputs) and ``tests`` (``stencil_tests``), its
+    time in turns with the plain version and its bound.  Returns (record,
+    the kernel's sums)."""
     import torch
     from treensearch_tpu_torch.ops import fastpath as fp
     from treensearch_tpu_torch.ops import reduce as red
@@ -653,8 +759,10 @@ def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
           f"magnitude sum {rel:.3e})", flush=True)
     if hits:
         ops = red.kernel_source(spec, a.variable)[1]
-        rec.update(k3_bound(a, n_out, ops, hits))
-        print(f"pairs_reduce ({fn.__name__}): {rec['tests']} distance tests, "
+        rec.update(k3_bound(a, n_out, ops, hits, tests))
+        print(f"pairs_reduce ({fn.__name__}): {rec['tests']} distance tests "
+              f"in the queries' own stencils ({rec['tile_tests']} in the "
+              "tiles' windows), "
               f"{hits} hits x ({ops} traced + {n_out} adds) operations, "
               f"{rec['bytes']} B; bound {rec['bound_ms']:.4f} ms by "
               f"{rec['bound_by']}", flush=True)
@@ -663,7 +771,7 @@ def check_k3(a, allow, q, fn, n_out: int, exact=(), hits: int = 0):
     return rec, k
 
 
-def check_k4(a, allow, q, name: str = "pairs_mask") -> dict:
+def check_k4(a, allow, q, tests: int, name: str = "pairs_mask") -> dict:
     """K4 against its plain version on these inputs: row bases, bits word
     for word and counts equal, uncapped and with a static row cap below
     and above the row count (the live rows below the cap); its time in
@@ -704,12 +812,13 @@ def check_k4(a, allow, q, name: str = "pairs_mask") -> dict:
               "rows equal to plain and to the uncapped bits", flush=True)
     del b_kc, b_pc
     rec = {"name": name, "max_abs_err": err}
-    rec.update(k4_bound(a, b_k.shape[0]))
+    rec.update(k4_bound(a, b_k.shape[0], tests))
     print(f"{name}: bits equal word for word over {b_k.shape[0]} "
           f"candidate rows ({b_k.numel() * 4} B), counts equal "
           f"({int(c_k.sum(dtype=torch.int64))} pairs); {rec['tests']} "
-          f"distance tests, bound {rec['bound_ms']:.4f} ms by "
-          f"{rec['bound_by']}", flush=True)
+          f"distance tests in the queries' own stencils "
+          f"({rec['tile_tests']} in the tiles' windows), bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}", flush=True)
     timed_turns(rec, kernel, plain, a.desc.device)
     rec["library_ms"] = None   # no single PyTorch call computes it
     return rec
@@ -784,15 +893,11 @@ def _d2(q, c):
     return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
-def brute_force_sets(pts: np.ndarray, radius: float) -> list:
-    m = _d2(pts, pts) <= np.float32(radius) * np.float32(radius)
-    np.fill_diagonal(m, False)
-    return [np.nonzero(row)[0] for row in m]
-
-
 def check_small(device) -> None:
-    """The engine on a small cloud against numpy brute force."""
+    """The engine on a small cloud against the port's brute-force oracle
+    (``BruteforceNSearch.compare``: every point's neighbor set)."""
     from treensearch_tpu_torch import TreeNSearch
+    from treensearch_tpu_torch.oracle import BruteforceNSearch
     pts = np.random.default_rng(1).uniform(0, 1, (N_SMALL, 3)) \
         .astype(np.float32)
     r = 0.07
@@ -801,51 +906,44 @@ def check_small(device) -> None:
     eng.set_search_radius(r)
     eng.set_all_searches(True)
     eng.run()
-    counts, nbrs = (t.cpu().numpy() for t in eng.get_neighbors(0, 0))
-    for i, want in enumerate(brute_force_sets(pts, r)):
-        got = np.sort(nbrs[i, :counts[i]])
-        if counts[i] != want.size or not np.array_equal(got, want):
-            raise AssertionError(f"small cloud: point {i} differs")
+    orc = BruteforceNSearch(search_radius=r)
+    orc.add_point_set(pts)
+    orc.set_all_searches(True)
+    orc.run()
+    orc.compare(eng)
     print(f"small cloud: {N_SMALL} points match brute force "
-          f"({int(counts.sum())} pairs)", flush=True)
+          f"({int(eng.get_counts(0, 0).sum())} pairs)", flush=True)
 
 
 def check_small_variable(device) -> None:
     """Two sets with per-point radii, symmetric search off, all searches
-    but set 1 in itself, against numpy brute force under the oracle's
-    rules (``treensearch_tpu/oracle.py``): d^2 <= r_i^2 in float32, self
-    excluded within a set.  Runs K2c with two candidate-set blocks."""
+    but set 1 in itself, against the port's brute-force oracle
+    (``BruteforceNSearch.compare``: d^2 <= r_i^2 in float32, self
+    excluded within a set).  Runs K2c with two candidate-set blocks."""
     from treensearch_tpu_torch import TreeNSearch
     from treensearch_tpu_torch.ops import pairs
+    from treensearch_tpu_torch.oracle import BruteforceNSearch
     rng = np.random.default_rng(4)
     sets = [(rng.uniform(0, 1, (N_SMALL_SET, 3)).astype(np.float32),
              rng.uniform(0.05, 0.09, N_SMALL_SET).astype(np.float32))
             for _ in range(2)]
     active = [(0, 0), (0, 1), (1, 0)]
     eng = TreeNSearch(device=device)
+    orc = BruteforceNSearch(symmetric=False)
     for p, r in sets:
         eng.add_point_set(p, r)
+        orc.add_point_set(p, r)
     eng.set_symmetric_search(False)
     for i, j in active:
         eng.set_active_search(i, j, True)
+        orc.set_active_search(i, j, True)
     before = pairs.pairs_nbrs_variable.launches
     eng.run()
     if device.type == "cuda" and pairs.pairs_nbrs_variable.launches == before:
         raise AssertionError("small variable sets: K2c did not launch")
-    total = 0
-    for i, j in active:
-        (pi, ri), (pj, _) = sets[i], sets[j]
-        m = _d2(pi, pj) <= (ri * ri)[:, None]
-        if i == j:
-            np.fill_diagonal(m, False)
-        counts, nbrs = (t.cpu().numpy() for t in eng.get_neighbors(i, j))
-        for k, row in enumerate(m):
-            want = np.nonzero(row)[0]
-            got = np.sort(nbrs[k, :counts[k]])
-            if counts[k] != want.size or not np.array_equal(got, want):
-                raise AssertionError(f"small variable sets: pair ({i}, {j}) "
-                                     f"point {k} differs")
-        total += int(counts.sum())
+    orc.run()
+    orc.compare(eng)
+    total = sum(int(eng.get_counts(i, j).sum()) for i, j in active)
     print(f"small variable sets: 2 x {N_SMALL_SET} points, symmetric off, "
           f"pairs {active} match brute force ({total} pairs)", flush=True)
 
@@ -970,6 +1068,60 @@ def check_sample(q_pts: np.ndarray, c_pts: np.ndarray, counts, nbrs,
           flush=True)
 
 
+def pair_keys(counts, rows):
+    """int64 keys ``i << 32 | j`` of one pair's neighbor lists (query i,
+    neighbor j) on the card: from ``rows`` (n_i, cap), padded rows masked
+    by ``counts``, or from the oracle's CSR columns (1-D, the rows in the
+    order of ``counts``)."""
+    import torch
+    dev = counts.device
+    n_i = counts.shape[0]
+    counts = counts.long()
+    if rows.dim() == 2:
+        live = torch.arange(rows.shape[1], device=dev)[None, :] \
+            < counts[:, None]
+        cols = rows[live]
+        del live
+    else:
+        cols = rows
+    q = torch.repeat_interleave(torch.arange(n_i, device=dev), counts,
+                                output_size=cols.shape[0])
+    return (q << 32) | cols.long()
+
+
+def exact_vs_native(counts, rows, q_pts: np.ndarray, c_pts: np.ndarray,
+                    radius: float, same_set: bool, label: str) -> tuple:
+    """Every query's count and neighbor set against the port's native
+    oracle (``native_oracle.grid_search_pair``, threaded C++ on the host)
+    at a fixed radius, compared on the card: the counts equal, and the
+    sorted keys of (query, neighbor) of the engine's rows and of the
+    oracle's CSR equal (``benchmarks/validate_1m.py``'s check, on every
+    point).  Returns (pairs, the oracle's seconds)."""
+    import torch
+    from treensearch_tpu_torch import native_oracle as no
+    t0 = time.perf_counter()
+    c_ref, _, nb_ref = no.grid_search_pair(q_pts, c_pts, radius=radius,
+                                           same_set=same_set)
+    seconds = time.perf_counter() - t0
+    dev = counts.device
+    c_ref = torch.from_numpy(c_ref).to(dev)
+    if not torch.equal(counts.to(torch.int32), c_ref):
+        raise AssertionError(f"{label}: counts differ from the native "
+                             f"oracle at {int((counts != c_ref).sum())} "
+                             "points")
+    want = torch.sort(pair_keys(c_ref, torch.from_numpy(nb_ref).to(dev)))[0]
+    del nb_ref
+    got = torch.sort(pair_keys(counts, rows))[0]
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: neighbor sets differ from the "
+                             "native oracle")
+    pairs = int(want.shape[0])
+    print(f"native oracle {label}: counts and neighbor sets equal for "
+          f"every one of {counts.shape[0]} points ({pairs} pairs; oracle "
+          f"{seconds:.2f} s on the host)", flush=True)
+    return pairs, seconds
+
+
 def fixed_rule(radius):
     r2 = np.float32(radius) * np.float32(radius)
     return lambda i, c, d2: d2 <= r2
@@ -1074,8 +1226,10 @@ def run_main_path(pts_t, radius: float, card: str) -> dict:
     if tuple(counts.shape) != (n,) or nbrs.shape[0] != n \
             or int(nbrs.min()) < -1 or int(nbrs.max()) >= n:
         raise AssertionError("solution has the wrong shape or range")
-    check_sample(state["pts"].cpu().numpy(), state["pts"].cpu().numpy(),
-                 counts, nbrs, radius, fixed_rule(radius), True, "config 1")
+    p = state["pts"].cpu().numpy()
+    check_sample(p, p, counts, nbrs, radius, fixed_rule(radius), True,
+                 "config 1")
+    exact_vs_native(counts, nbrs, p, p, radius, True, "config 1")
     return out
 
 
@@ -1111,8 +1265,9 @@ def check_config4_kernels(eng, card: str) -> dict:
     tiles can cost).  Returns K2c's record."""
     from treensearch_tpu_torch.ops import fastpath as fp
     rec = check_path_kernel(eng)
-    a, allow, q = active_inputs(eng)
-    k4 = check_k4(a, allow, q, "pairs_mask<true, true> (config 4)")
+    carry, a, allow, q = active_inputs(eng)
+    k4 = check_k4(a, allow, q, stencil_tests(eng, carry, a),
+                  "pairs_mask<true, true> (config 4)")
     dead = a.desc.clone()
     dead[:, 127] = 2
     a_dead = a._replace(desc=dead)
@@ -1195,12 +1350,13 @@ def run_reduce_path(pts_t, mass_t, card: str) -> tuple:
     n = pts_t.shape[0]
     payload = torch.stack([mass_t, torch.zeros_like(mass_t)], dim=1)
     eng = make_engine(pts_t, RADIUS)
-    a, allow, q = active_inputs(eng, payload)
+    carry, a, allow, q = active_inputs(eng, payload)
+    tests = stencil_tests(eng, carry, a)
     _, ones = check_k3(a, allow, q, count_fn, 1, exact=(0,))
     hits = int(ones.sum(dtype=torch.float64))
-    rec, _ = check_k3(a, allow, q, density_fn, 1, hits=hits)
-    rec4, _ = check_k3(a, allow, q, density4_fn, 4, hits=hits)
-    del a, allow, q, ones
+    rec, _ = check_k3(a, allow, q, density_fn, 1, hits=hits, tests=tests)
+    rec4, _ = check_k3(a, allow, q, density4_fn, 4, hits=hits, tests=tests)
+    del carry, a, allow, q, ones
 
     rho = eng.run_reduce(density_fn, 1, payload=[mass_t])[0][:, 0]
     count = eng.run_reduce(count_fn)[0][:, 0]
@@ -1243,7 +1399,9 @@ def run_mask_path(pts_t, card: str) -> tuple:
     from treensearch_tpu_torch.ops import pairs
     n = pts_t.shape[0]
     eng = make_engine(pts_t, RADIUS)
-    rec = check_k4(*active_inputs(eng))
+    carry, a, allow, q = active_inputs(eng)
+    rec = check_k4(a, allow, q, stencil_tests(eng, carry, a))
+    del carry, a, allow, q
 
     mask, meta = eng.run_mask()
     eng.run()
@@ -1329,10 +1487,10 @@ def run_split_path(pts_t, card: str, data3: tuple, data4: tuple) -> tuple:
     tensors) with split staging against their fused ``run()``."""
     from treensearch_tpu_torch.ops import pairs
     n = pts_t.shape[0]
-    rec = check_k5(*active_inputs(make_engine(pts_t, RADIUS)))
+    rec = check_k5(*active_inputs(make_engine(pts_t, RADIUS))[1:])
     for label, eng in (("config 3", config3_engine(*data3)),
                        ("config 4", config4_engine(*data4))):
-        check_k5(*active_inputs(eng), f"pairs_nbrs_from_bits ({label})")
+        check_k5(*active_inputs(eng)[1:], f"pairs_nbrs_from_bits ({label})")
     eng = make_engine(pts_t, RADIUS)
     eng.set_split_stage(True)
     out = drive(eng, "config 1 split staging",
@@ -1541,8 +1699,10 @@ def capture_step(step, state, args: tuple, kw: dict, extra=None):
     (graph, the static solution, state, launches, memory): ``memory``
     holds the peak device bytes allocated during the capture, the part of
     it above what was allocated before the capture (the step's working
-    memory, taken from the graph's pool and reused by every replay) and
-    the bytes its outputs and state still hold after it."""
+    memory, taken from the graph's pool and reused by every replay), the
+    bytes its outputs and state still hold after it, and the peak before
+    the capture (``warm``: since the caller's last reset of the peak, the
+    warm-up steps included)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1556,6 +1716,7 @@ def capture_step(step, state, args: tuple, kw: dict, extra=None):
     for k in kernels:
         k.launches = 0
     held = torch.cuda.memory_allocated()
+    warm = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1565,7 +1726,7 @@ def capture_step(step, state, args: tuple, kw: dict, extra=None):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     memory = {"peak": peak, "work": peak - held,
-              "held": torch.cuda.memory_allocated() - held}
+              "held": torch.cuda.memory_allocated() - held, "warm": warm}
     return graph, sol, state, {k.__name__: k.launches for k in kernels}, \
         memory
 
@@ -3151,6 +3312,249 @@ def run_gloo_ranks(dev, n1: int, n_fluid: int, n_boundary: int,
     return results
 
 
+# ------------------------------------------------ phase 18: config 5
+def config5_data(dev) -> list:
+    """Fluid, boundary and emitter points, uniform in the unit cube,
+    float32, from one ``default_rng(0)`` (drawn in that order)."""
+    import torch
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+            .to(dev) for n in N5]
+
+
+def config5_engine(sets):
+    """BASELINE config 5 as ``bench_10m_cfg5.py`` sets it up: all nine
+    searches, cell 1.1 r, neighbor cap 64 (16 against the boundary, 8
+    against the emitter), no carry.  The script's ``_tiles_cap`` and
+    ``_fat_cap`` are TPU memory settings and are not carried over."""
+    from treensearch_tpu_torch import TreeNSearch
+    eng = TreeNSearch(device=sets[0].device)
+    for p in sets:
+        eng.add_point_set(p)
+    eng.set_search_radius(R5)
+    eng.set_all_searches(True)
+    eng.set_cell_size(CELL_F5 * R5)
+    eng.set_neighbor_cap(CAPS5[0])
+    for j in (1, 2):
+        eng.set_neighbor_cap(CAPS5[j], set_j=j)
+    eng.set_coherence(False)
+    return eng
+
+
+def _step_ok(sol, eng, label: str) -> None:
+    """A step's overflow flags clear and every pair within its cap (a
+    step does not regrow)."""
+    bad = [k for k in ("error", "dense_overflow", "rows_overflow",
+                       "tile_overflow") if int(sol[k])]
+    bad += [k for k, p in sol["pairs"].items()
+            if int(p["max_count"]) > eng._cap_of(int(k.split("-")[1]))]
+    if bad:
+        raise AssertionError(f"{label}: the step overflowed: {bad}")
+
+
+def run_config5_loop(eng, sets, card: str, path: tuple) -> dict:
+    """``bench_10m_cfg5.py:131-175``'s loop: ``N5_ITERS`` steps of
+    ``make_step_fn()`` with ``make_zsort_step(n_sets=3)`` of the
+    positions and three user arrays per set ((n, 3), (n,), (n,) float32
+    zeros) before every ``ZSORT_EVERY``-th step, and the checksum of pair
+    0-0's ``counts[::1025]``.  Run eagerly, then as two CUDA graphs (the
+    z-sort, written back into the positions it read, and the step, each
+    from its own pool), replayed at the same cadence from the host: JAX's
+    ``lax.cond`` on the iteration needs no host read either way.  The
+    replayed loop must equal the eager one (checksum, positions, every
+    pair's counts and rows of the last step), and its last step a fresh
+    engine's ``run()`` on the final positions."""
+    import torch
+    from treensearch_tpu_torch.ops.zsort import make_zsort_step
+    dev = sets[0].device
+    sizes = [int(p.shape[0]) for p in sets]
+    offs = np.cumsum([0] + sizes)
+    zstep = make_zsort_step(n_sets=len(sets))
+
+    def loop_state():
+        points = torch.cat(sets)   # the sets are views into it
+        views = [points[offs[i]:offs[i + 1]] for i in range(len(sets))]
+        user = [[torch.zeros((n, 3), device=dev), torch.zeros(n, device=dev),
+                 torch.zeros(n, device=dev)] for n in sizes]
+        return points, views, user
+
+    def zsort_in_place(views, user):
+        _, pts2, user2 = zstep(views, user)
+        for v, p in zip(views, pts2):
+            v.copy_(p)
+        for arrs, arrs2 in zip(user, user2):
+            for a, b in zip(arrs, arrs2):
+                a.copy_(b)
+
+    def checksum(sol, acc):
+        acc += sol["pairs"]["0-0"]["counts"][::CHECKSUM_STRIDE].sum(
+            dtype=torch.int32)
+
+    def zsort_due(it: int) -> bool:
+        return it % ZSORT_EVERY == ZSORT_EVERY - 1
+
+    step, state = eng.make_step_fn()
+    points_e, views_e, user_e = loop_state()
+    acc_e = torch.zeros((), dtype=torch.int32, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for it in range(N5_ITERS):
+        if zsort_due(it):
+            zsort_in_place(views_e, user_e)
+        sol_e, state = step(state, points_e)
+        checksum(sol_e, acc_e)
+    sync(dev)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / N5_ITERS
+    _step_ok(sol_e, eng, "config 5 eager loop")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_g, state_g = eng.make_step_fn()
+    points_g, views_g, user_g = loop_state()
+    acc_g = torch.zeros((), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the z-sort's warm-up, on copies
+        zsort_in_place(*loop_state()[1:])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g_zsort = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g_zsort):
+        zsort_in_place(views_g, user_g)
+    g_step, sol_g, state_g, launches, memory = capture_step(
+        step_g, state_g, (points_g,), {},
+        extra=lambda sol: checksum(sol, acc_g))
+    _check_graph_launches(launches, "config 5 step graph", path)
+
+    def replay_loop():
+        for it in range(N5_ITERS):
+            if zsort_due(it):
+                g_zsort.replay()
+            g_step.replay()
+
+    first_ms = _timed_replays(replay_loop, 1) / N5_ITERS
+    # from the graphs' warm-ups on: capture_step resets the peak after the
+    # step's warm-up, so its reading before that reset is taken too
+    peak = max(memory["warm"], torch.cuda.max_memory_allocated(dev)) / 1e9
+    if int(acc_g) != int(acc_e) or not torch.equal(points_g, points_e) \
+            or not all(torch.equal(a, b) for us_g, us_e in zip(user_g, user_e)
+                       for a, b in zip(us_g, us_e)):
+        raise AssertionError(f"config 5 loop: the replayed loop's checksum "
+                             f"{int(acc_g)} or positions differ from the "
+                             f"eager loop's ({int(acc_e)})")
+    _step_ok(sol_g, eng, "config 5 replayed loop")
+    _same_pairs(sol_g["pairs"], sol_e["pairs"], "config 5 replayed loop")
+    last = {k: p["counts"].clone() for k, p in sol_g["pairs"].items()}
+    step_pairs = sum(int(c.sum(dtype=torch.int64)) for c in last.values())
+    del sol_e, points_e, views_e, user_e
+
+    fresh = config5_engine([v.clone() for v in views_g])
+    fresh.run()
+    for k, c in last.items():
+        i, j = (int(x) for x in k.split("-"))
+        if not np.array_equal(fresh.get_counts(i, j), c.cpu().numpy()):
+            raise AssertionError(f"config 5 loop: pair {k}'s counts of the "
+                                 "last replay differ from a fresh run()")
+    del fresh
+    print(f"config 5 loop: {N5_ITERS} replays of the step graph (K1 and "
+          f"K2b once each), the z-sort graph before steps "
+          f"{[it + 1 for it in range(N5_ITERS) if zsort_due(it)]}, equal to "
+          f"the eager loop (checksum {int(acc_g)}, "
+          f"positions, every pair's counts and rows); the last step's "
+          f"{step_pairs} pairs over 9 pairs equal a fresh run() on the "
+          "final positions", flush=True)
+
+    loops = [_timed_replays(replay_loop, 1) / N5_ITERS for _ in range(3)]
+    ms = statistics.median(loops)
+    zsort_ms = median_ms(g_zsort.replay, dev, reps=5)
+    prof = replay_profile(g_step.replay, "config 5 step graph", card,
+                          replays=3, top=6)
+    print(f"config 5 loop: {ms:.3f} ms/step replayed (loops of "
+          f"{N5_ITERS}: {', '.join(f'{t:.3f}' for t in loops)}; the first "
+          f"{first_ms:.3f}), eager {eager_ms:.3f} ms/step, "
+          f"{step_pairs / (ms / 1e3):.4g} pairs/s over 9 pairs; z-sort "
+          f"replay (3 sets, positions and 3 arrays each) {zsort_ms:.3f} ms; "
+          f"peak {peak:.3f} GB from the warm-ups on (before the step's "
+          f"capture {memory['warm'] / 1e9:.3f} GB, during it "
+          f"{memory['peak'] / 1e9:.3f} GB, its pool "
+          f"{memory['work'] / 1e9:.3f} GB) ({card})",
+          flush=True)
+    return {"ms": ms, "eager_ms": eager_ms, "zsort_ms": zsort_ms,
+            "pairs": step_pairs, "peak_gb": peak, "profile": prof,
+            "launches": launches}
+
+
+def run_config5(sets, card: str) -> dict:
+    """Phase 18, BASELINE config 5 at full size: (a) a settling ``run()``
+    and ``N5_RUNS`` jittered ones (K1 and K2b once in each), profiled;
+    (b) all nine pairs against the native oracle, every point's count and
+    neighbor set; (c) K2b against its plain version on the settled
+    structures (the plain version run once); (d) the steady-state loop
+    (``run_config5_loop``); (e) the fluid's cap set to 32, a ``run()``
+    that regrows to pair 0-0's total."""
+    import torch
+    from treensearch_tpu_torch.ops import pairs
+    t_phase = time.perf_counter()
+    dev = sets[0].device
+    path = (pairs.expand_query_tiles, pairs.pairs_nbrs_sets)
+    eng = config5_engine(sets)
+    state = list(sets)
+
+    def jitter(noise):
+        for i, p in enumerate(state):
+            state[i] = p + noise(tuple(p.shape))
+            eng.resize_point_set(i, state[i])
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = drive(eng, "config 5", path, jitter, card, once=True,
+                runs=N5_RUNS)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["profile"] = replay_profile(eng.run, "config 5 run()", card,
+                                    replays=1, top=6)
+    print(f"config 5 run(): {out['ms']:.3f} ms/call, peak {out['peak_gb']:.3f}"
+          f" GB; settled caps {[eng._cap_of(j) for j in range(3)]}, tiles "
+          f"{eng._tiles_cap}, dense {eng._dense_cap} ({card})", flush=True)
+
+    pts = [p.cpu().numpy() for p in state]
+    totals, oracle_s = {}, {}
+    for i in range(3):
+        for j in range(3):
+            counts, rows = eng.get_neighbors(i, j)
+            totals[f"{i}-{j}"], oracle_s[f"{i}-{j}"] = exact_vs_native(
+                counts, rows, pts[i], pts[j], R5, i == j,
+                f"config 5 pair {i}-{j}")
+            del counts, rows
+    print(f"config 5: {sum(totals.values())} pairs over 9 pairs, equal to "
+          f"the native oracle for every point ({totals}); oracle "
+          f"{sum(oracle_s.values()):.1f} s on the host "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in oracle_s.items())})",
+          flush=True)
+    eng._solution = None
+
+    k2b = check_path_kernel(eng, time_plain=False)
+    eng._solution = None
+    out["k2b"] = k2b
+    out["loop"] = run_config5_loop(eng, state, card, path)
+
+    eng.set_neighbor_cap(REGROW_CAP, set_j=0)
+    before = pairs.pairs_nbrs_sets.launches
+    sync(dev)
+    t0 = time.perf_counter()
+    eng.run()
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    attempts = pairs.pairs_nbrs_sets.launches - before
+    got = int(eng.get_counts(0, 0).sum(dtype=np.int64))
+    if got != totals["0-0"] or eng._cap_of(0) <= REGROW_CAP or attempts < 2:
+        raise AssertionError(f"config 5 regrow: {attempts} attempts, cap "
+                             f"{eng._cap_of(0)}, pair 0-0 {got} pairs "
+                             f"against {totals['0-0']}")
+    print(f"config 5 regrow: the fluid's cap at {REGROW_CAP} grew to "
+          f"{eng._cap_of(0)} in {attempts} attempts, {seconds:.2f} s; pair "
+          f"0-0 {got} pairs, as settled", flush=True)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def sharded_launches(sharded: dict) -> dict:
     """Phase 16's launches by kernel id: the world-size-1 paths' and every
     gloo rank's."""
@@ -3288,6 +3692,7 @@ def main() -> int:
     graphs = run_step_graphs(pts_t, torch.from_numpy(mass).to(dev),  # 17
                              card, config3_data(dev), config4_data(dev),
                              steps, zsort["ms"][ZSORT_STEP_TIMING])
+    main18 = run_config5(config5_data(dev), card)           # phase 18
     kernels += [k2b, k2c, k3, k4, k5, k1r]
     launches = {"expand_query_tiles": main1, "pairs_nbrs_fixed": main1,
                 "pairs_nbrs_sets": main3, "pairs_nbrs_variable": main4,
@@ -3326,6 +3731,17 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    k2b5 = main18["k2b"]   # K2b again at config 5, three blocks
+    next(r for r in out if r["name"] == "pairs_nbrs_sets")["config 5"] = {
+        "launches": main18["launches"]["pairs_nbrs_sets"],
+        **{k: k2b5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "tests", "tile_tests")}}
+    print(f"config 5: run() {main18['ms']:.3f} ms/call; replayed loop "
+          f"{main18['loop']['ms']:.3f} ms/step (eager "
+          f"{main18['loop']['eager_ms']:.3f}), z-sort replay "
+          f"{main18['loop']['zsort_ms']:.3f} ms; pairs_nbrs_sets "
+          f"{k2b5['ms']:.4f} ms, bound {k2b5['bound_ms']:.4f} ms ({card})",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

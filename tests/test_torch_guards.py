@@ -21,6 +21,8 @@ PKG = ROOT / "treensearch_tpu_torch"
 
 def test_import_leaves_jax_out():
     code = ("import sys, treensearch_tpu_torch, treensearch_tpu_torch.interop,"
+            " treensearch_tpu_torch.oracle,"
+            " treensearch_tpu_torch.native_oracle,"
             " treensearch_tpu_torch.ops.fastpath,"
             " treensearch_tpu_torch.ops.pipeline,"
             " treensearch_tpu_torch.ops.reduce,"
