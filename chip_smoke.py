@@ -668,14 +668,20 @@ def check_pairs(eng, carry, a, time_plain: bool = True) -> dict:
                                  "from plain")
     rec = {"name": kernel.__name__, "max_abs_err": err}
     rec.update(k2_bound(a, stencil_tests(eng, carry, a)))
+    # the warps' cull: the lane tests left of the tiles' window tests
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    fp.run_pairs(a, q, tested=tested)
+    rec["culled_tests"] = 32 * int(tested)
+    rec["skip_share"] = 1 - rec["culled_tests"] / rec["tile_tests"]
     print(f"{kernel.__name__}: counts equal and rows equal slot for slot over "
           f"{int(live.sum())} live slots in {len(a.k8s)} block(s) "
           f"(candidate sets {a.cand_sets}, k8 {a.k8s}, max counts "
           f"{c_k[:, live].amax(dim=1).tolist()}, widest window "
           f"{int(carry.win_max)}, {a.n_win} windows); {rec['tests']} "
           f"distance tests in the queries' own stencils ({rec['tile_tests']}"
-          f" in the tiles' windows), bound {rec['bound_ms']:.4f} ms by "
-          f"{rec['bound_by']}", flush=True)
+          f" in the tiles' windows, {rec['culled_tests']} left by the warps' "
+          f"cull: skip share {rec['skip_share']:.4f}), bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}", flush=True)
     if time_plain:
         timed_turns(rec, lambda: fp.run_pairs(a, q),
                     lambda: fp.run_pairs(a, q, True), dev)
@@ -687,6 +693,9 @@ def check_pairs(eng, carry, a, time_plain: bool = True) -> dict:
         print(f"{kernel.__name__}: kernel {rec['ms']:.4f} ms (median of "
               f"{REPS} runs of {KERNEL_BATCH} calls), plain {plain_ms:.1f} "
               "ms (one call, untimed otherwise)", flush=True)
+    print(f"{kernel.__name__}: {rec['ms']:.4f} ms against a bound of "
+          f"{rec['bound_ms']:.4f} ms, skip share {rec['skip_share']:.4f}",
+          flush=True)
     rec["library_ms"] = None   # no single PyTorch call computes it
     return rec
 

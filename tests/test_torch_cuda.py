@@ -9,7 +9,8 @@ the repository's conftest:
 Tolerance: query tiles bit-equal; counts equal; rows equal slot for slot
 (both versions keep the first k8 survivors in window order, so rows agree
 exactly, truncated ones included), per candidate-set block for K2b and
-K2c; dead tiles count 0.  K4: bits equal word for word.  K5: counts equal
+K2c; dead tiles count 0; the candidates K2's warps test after their cull
+equal to the plain model's count (``pairs.warp_cull``).  K4: bits equal word for word.  K5: counts equal
 on every slot, rows slot for slot on live tiles, and per active pair the
 fused kernel's.  K3: integer-valued
 legs equal, the others within 3e-5 of the sum of the terms' magnitudes
@@ -100,11 +101,14 @@ def test_kernels_match_plain_on_card(dev, case):
     q = pairs.expand_query_tiles(carry.desc, recs, tiles_cap, n)
     assert torch.equal(q, pairs.expand_query_tiles_plain(carry.desc, recs,
                                                          tiles_cap, n))
+    t_k, t_p = (torch.zeros(1, dtype=torch.int64, device=dev)
+                for _ in range(2))
     c_k, nb_k = pairs.pairs_nbrs_fixed(carry.desc, q, recs, r2, n_win, k8,
-                                       tiles_cap)
+                                       tiles_cap, t_k)
     c_p, nb_p = pairs.pairs_nbrs_fixed_plain(carry.desc, q, recs, r2, n_win,
-                                             k8, tiles_cap)
+                                             k8, tiles_cap, t_p)
     torch.cuda.synchronize()
+    assert int(t_k) == int(t_p) > 0
     assert (pairs.expand_query_tiles.launches,
             pairs.pairs_nbrs_fixed.launches) == (before[0] + 1, before[1] + 1)
     live = carry.desc[:tiles_cap, pairs.FAT_COL] != 2
@@ -206,12 +210,23 @@ def _sets_engine(dev, sets, r=None, symmetric=True, active=None):
     return eng
 
 
-def _kernel_vs_plain(a, n, wrapper):
+def _kernel_vs_plain(a, n, wrapper, q=None):
+    """The pairs kernel against its plain version on these inputs (K1's
+    query tiles unless ``q`` is given): counts and rows equal on live
+    slots, dead tiles 0, and the candidates its warps tested after the
+    cull equal to the plain model's count (``pairs.warp_cull``).  Returns
+    the kernel's counts and the share of the tiles' window tests the cull
+    skipped."""
     before = wrapper.launches
-    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
-    (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q), fp.run_pairs(a, q, True)
+    if q is None:
+        q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
+    t_k, t_p = (torch.zeros(1, dtype=torch.int64, device=q.device)
+                for _ in range(2))
+    (c_k, nb_k), (c_p, nb_p) = fp.run_pairs(a, q, tested=t_k), \
+        fp.run_pairs(a, q, True, tested=t_p)
     torch.cuda.synchronize()
     assert fp.pairs_kernel(a) is wrapper and wrapper.launches == before + 1
+    assert int(t_k) == int(t_p)
     live = a.desc[:a.tiles_cap, pairs.FAT_COL] != 2
     dead = ~live
     assert dead.any()   # the layout's slack tiles
@@ -221,7 +236,9 @@ def _kernel_vs_plain(a, n, wrapper):
         assert torch.equal(c_k[b].view(a.tiles_cap, 128)[live],
                            c_p[b].view(a.tiles_cap, 128)[live]), b
         assert torch.equal(nb_k[b][live], nb_p[b][live]), b
-    return c_k
+    _, lens = pairs.clipped_windows(a.desc, a.recs_t.shape[1], a.n_win,
+                                    a.tiles_cap)
+    return c_k, 1 - 32 * int(t_k) / (128 * int(lens.sum()))
 
 
 def test_k2b_eight_candidate_blocks(dev):
@@ -231,7 +248,8 @@ def test_k2b_eight_candidate_blocks(dev):
     eng = _sets_engine(dev, sets, r=0.12)
     _, a = _settled(eng)
     assert a.cand_sets == tuple(range(8)) and a.multi_set
-    c = _kernel_vs_plain(a, eng.get_total_n_points(), pairs.pairs_nbrs_sets)
+    c, _ = _kernel_vs_plain(a, eng.get_total_n_points(),
+                            pairs.pairs_nbrs_sets)
     assert (c.amax(dim=1) > 0).all()
 
 
@@ -244,7 +262,7 @@ def test_k2b_block_cap_8_truncates(dev):
                        active=[(0, 0), (0, 1)])
     _, a = _settled(eng, caps=(80, 8))
     assert a.k8s == (80, 8)
-    c = _kernel_vs_plain(a, 5000, pairs.pairs_nbrs_sets)
+    c, _ = _kernel_vs_plain(a, 5000, pairs.pairs_nbrs_sets)
     assert int(c[1].max()) > 8
 
 
@@ -284,8 +302,130 @@ def test_k2c_one_set_truncated_rows(dev):
     rad = rng.uniform(0.01, 0.03, 3000).astype(np.float32)
     eng = _sets_engine(dev, [(pts, rad)])
     _, a = _settled(eng, caps=(8,))
-    c = _kernel_vs_plain(a, 3000, pairs.pairs_nbrs_variable)
+    c, _ = _kernel_vs_plain(a, 3000, pairs.pairs_nbrs_variable)
     assert int(c.max()) > 8
+
+
+# --------------------------------------------- the K2 kernels' warp cull
+def _cull_engine(dev, kernel, pts, r, rng):
+    """One set (K2a, K2c) or two (K2b: the points split in turn) of
+    ``pts``; K2c with radii ``r`` and ``r`` times sqrt(2) in turn
+    (float32), symmetric for ``k2c_symmetric``."""
+    if kernel == "k2b":
+        sets = [(pts[0::2], None), (pts[1::2], None)]
+    elif kernel.startswith("k2c"):
+        rad = np.where(np.arange(len(pts)) % 2, np.float32(r),
+                       np.float32(r) * np.float32(np.sqrt(2)))
+        sets = [(pts, rad.astype(np.float32))]
+    else:
+        sets = [(pts, None)]
+    return _sets_engine(dev, sets, r=None if kernel.startswith("k2c") else r,
+                        symmetric=kernel == "k2c_symmetric")
+
+
+K2_WRAPPERS = {"k2a": pairs.pairs_nbrs_fixed, "k2b": pairs.pairs_nbrs_sets,
+               "k2c": pairs.pairs_nbrs_variable,
+               "k2c_symmetric": pairs.pairs_nbrs_variable}
+
+
+@pytest.mark.parametrize("shift", ["exact", "ulp"])
+@pytest.mark.parametrize("kernel", list(K2_WRAPPERS))
+def test_k2_cull_exact_on_a_lattice_at_the_radius(dev, kernel, shift):
+    # a lattice of spacing r = 1/32 (exact in float32): neighbours along
+    # the axes at d^2 == r^2 exactly (K2c: at r_i = sqrt(2) r the face
+    # diagonals sit on the radius too), every box face on a lattice plane;
+    # then every coordinate moved by -1, 0 or +1 ulp
+    rng = np.random.default_rng(31)
+    s = np.float32(1 / 32)
+    pts = (np.stack(np.meshgrid(*[np.arange(24)] * 3), -1).reshape(-1, 3)
+           * s).astype(np.float32)
+    if shift == "ulp":
+        step = rng.integers(-1, 2, pts.shape)
+        pts = np.where(step > 0, np.nextafter(pts, np.float32(2)),
+                       np.where(step < 0, np.nextafter(pts, np.float32(-1)),
+                                pts)).astype(np.float32)
+    eng = _cull_engine(dev, kernel, pts, float(s), rng)
+    _, a = _settled(eng)
+    c, skip = _kernel_vs_plain(a, len(pts), K2_WRAPPERS[kernel])
+    assert int(c.sum()) > 0 and skip > 0
+
+
+@pytest.mark.parametrize("kernel", list(K2_WRAPPERS))
+def test_k2_cull_skips_nothing_when_every_box_reaches_every_window(dev,
+                                                                  kernel):
+    # 512 points in the unit cube at a radius of 2 (four full tiles): every
+    # warp's box grown by the radius holds every candidate, so the warps
+    # test every window candidate, as the uncut kernel did
+    rng = np.random.default_rng(32)
+    pts = rng.uniform(0, 1, (512, 3)).astype(np.float32)
+    eng = _cull_engine(dev, kernel, pts, 2.0, rng)
+    _, a = _settled(eng)
+    c, skip = _kernel_vs_plain(a, 512, K2_WRAPPERS[kernel])
+    assert skip == 0 and int(c.sum()) > 0
+
+
+@pytest.mark.parametrize("kernel", list(K2_WRAPPERS))
+def test_k2_cull_one_live_lane_and_three_sentinel_warps(dev, kernel):
+    # a live tile of K1's query tiles with every lane but 5 turned into the
+    # sentinel record: warps 1-3 of that tile test nothing, warp 0 only
+    # what its one query's box keeps
+    rng = np.random.default_rng(33)
+    pts = rng.uniform(0, 1, (4000, 3)).astype(np.float32)
+    eng = _cull_engine(dev, kernel, pts, 0.05, rng)
+    _, a = _settled(eng)
+    n = eng.get_total_n_points()
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
+    cnt = torch.where(a.desc[:a.tiles_cap, pairs.FAT_COL] != 2,
+                      a.desc[:a.tiles_cap, pairs.CNT_COL], 0)
+    t = int(cnt.argmax())
+    assert int(cnt[t]) > 32   # lane 5 and a live lane in warp 1 at least
+    tile = q.view(pairs.N_FIELDS, a.tiles_cap, 128)[:, t]
+    others = torch.arange(128, device=dev) != 5
+    tile[:, others] = pairs._sentinel(n, dev)[:, None]
+    _kernel_vs_plain(a, n, K2_WRAPPERS[kernel], q)
+    r2 = None if a.variable else a.r2
+    for ch in pairs._plain_chunks(a.desc, q, a.recs_t, a.n_win, t + 1,
+                                  r2, a.symmetric):
+        if ch.t0 <= t < ch.t1:
+            keep = pairs.warp_cull(ch, q, a.recs_t, r2, a.symmetric)[
+                t - ch.t0] & ch.ok[t - ch.t0]
+            assert int(keep[1:].sum()) == 0 and int(keep[0].sum()) > 0
+
+
+def test_k2c_symmetric_cull_keeps_what_only_r_j_reaches(dev):
+    # queries of radius 0.02 beside candidates of radius 0.05 (one point in
+    # 50): the symmetric criterion's hits include pairs beyond every
+    # radius of the query's warp, which the cull keeps by r_j
+    rng = np.random.default_rng(34)
+    pts = rng.uniform(0, 1, (6000, 3)).astype(np.float32)
+    rad = np.where(rng.uniform(size=6000) < 0.02, 0.05, 0.02) \
+        .astype(np.float32)
+    eng = _sets_engine(dev, [(pts, rad)])
+    _, a = _settled(eng)
+    assert a.symmetric
+    c, _ = _kernel_vs_plain(a, 6000, pairs.pairs_nbrs_variable)
+    q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 6000)
+    by_r_j = 0
+    for ch in pairs._plain_chunks(a.desc, q, a.recs_t, a.n_win, a.tiles_cap,
+                                  None, True):
+        hit = ch.hit.view(ch.t1 - ch.t0, 4, 32, -1).any(2)
+        own = pairs.warp_cull(ch, q, a.recs_t, None, False)
+        by_r_j += int((hit & ~own).sum())
+    assert by_r_j > 0
+
+
+def test_k2a_cull_skips_most_tests_at_config_1_density(dev):
+    # 100,000 uniform points in a cube of 0.1 (config 1's 1M per unit
+    # volume), r 0.02, cell 1.15 r: the warps skip over half of the
+    # tiles' window tests
+    rng = np.random.default_rng(35)
+    side = 0.1 ** (1 / 3)
+    pts = rng.uniform(0, side, (100_000, 3)).astype(np.float32)
+    eng = _sets_engine(dev, [(pts, None)], r=0.02)
+    eng.set_cell_size(0.023)
+    _, a = _settled(eng)
+    _, skip = _kernel_vs_plain(a, 100_000, pairs.pairs_nbrs_fixed)
+    assert skip > 0.5
 
 
 # ------------------------------------------------------------ K3 / K4
@@ -601,7 +741,7 @@ def test_k2_k4_streams_across_window_and_chunk_edges(dev, mode):
     a = a._replace(desc=_window_desc(a, rng))
     wrapper = pairs.pairs_nbrs_sets if mode == "fixed" \
         else pairs.pairs_nbrs_variable
-    c2 = _kernel_vs_plain(a, 4000, wrapper)
+    c2, _ = _kernel_vs_plain(a, 4000, wrapper)
     q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
     c4 = _k4_vs_plain(a, allow, q)
     # K4's counts are K2's over the blocks each query's set searches
@@ -652,7 +792,7 @@ def test_k2b_k4_k5_eight_blocks_one_at_cap_8_under_an_active_matrix(dev):
     carry, a = _settled(eng, caps=(80,) * 7 + (8,))
     assert a.cand_sets == tuple(range(8)) and a.k8s[7] == 8
     n = sum(sizes)
-    c2 = _kernel_vs_plain(a, n, pairs.pairs_nbrs_sets)
+    c2, _ = _kernel_vs_plain(a, n, pairs.pairs_nbrs_sets)
     assert int(c2[7].max()) > 8 and (c2.amax(dim=1) > 0).all()
     allow = fp.allow_table(eng._make_cfg(1), a.cand_sets, dev)
     q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, n)
@@ -818,7 +958,7 @@ def test_k2a_k3_streams_across_window_and_chunk_edges(dev, mode):
     a = a._replace(desc=_window_desc(a, rng))
     q = pairs.expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, 4000)
     if mode == "fixed":
-        c2 = _kernel_vs_plain(a, 4000, pairs.pairs_nbrs_fixed)
+        c2, _ = _kernel_vs_plain(a, 4000, pairs.pairs_nbrs_fixed)
     k = _k3_vs_plain(a, allow, q, fn_count_density, 2, exact=(0,))
     if mode == "fixed":
         assert torch.equal(k[0], c2[0].float())
@@ -918,11 +1058,26 @@ def test_k2a_k3_launchers_refuse_window_counts_outside_1_to_49(dev):
     p = torch.zeros(8, dtype=torch.int32, device=dev).data_ptr()
     for n_win in (0, 50):
         assert lib.tns_pairs_nbrs_fixed(p, p, p, 1, 1, n_win, 8, 0.01, p, p,
-                                        None) == 1
+                                        None, None) == 1
         assert k3.tns_pairs_reduce(p, p, p, 1, 1, n_win, 0.01, 0, 1,
                                    pairs.set_ids_arg((0,)), p, 1, p,
                                    None) == 1
         assert _k5_launch(lib, p, n_win, p) == 1
+
+
+def test_k2_launchers_refuse_a_k8_below_1(dev):
+    # K2 splits its staged row entries over the blocks by their k8: a k8
+    # below 1 is refused (cudaErrorInvalidValue) before any launch
+    lib = pairs.load_library().lib
+    p = torch.zeros(8, dtype=torch.int32, device=dev).data_ptr()
+    assert lib.tns_pairs_nbrs_fixed(p, p, p, 1, 1, 9, 0, 0.01, p, p, None,
+                                    None) == 1
+    assert lib.tns_pairs_nbrs(p, p, p, 1, 1, 9, 0.01, 0, 0, 2,
+                              pairs.set_ids_arg((0, 1)),
+                              pairs.set_ids_arg((0, 0)),
+                              pairs.set_ids_arg((8, 0)),
+                              (ctypes.c_void_p * 2)(p, p), p, None,
+                              None) == 1
 
 
 def test_k5_refuses_bits_off_a_16_byte_boundary(dev):

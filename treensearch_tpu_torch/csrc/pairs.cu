@@ -114,13 +114,15 @@ __global__ void expand_records_kernel(const int* __restrict__ desc,
 // The output blocks of K2 (K2a has one), passed by value: block b collects
 // the survivors whose set id is set_of[b], as set-local indices orig -
 // offset[b], in rows of k8[b] (tiles_cap, k8[b], 128); its counts are row b
-// of counts (n_blocks, tiles_cap * 128).
+// of counts (n_blocks, tiles_cap * 128).  K2 stages the first stage[b]
+// entries of each thread's row of block b in shared memory.
 constexpr int MAX_BLOCKS = 8;
 struct Blocks {
   int n_blocks;
   int set_of[MAX_BLOCKS];
   int offset[MAX_BLOCKS];
   int k8[MAX_BLOCKS];
+  int stage[MAX_BLOCKS];
   int* nbrs[MAX_BLOCKS];
   int* counts;
 };
@@ -224,9 +226,35 @@ __device__ __forceinline__ void fill_tail(int* row, int count, int k8) {
     if (k >= count) row[(size_t)k * TILE] = -1;
 }
 
-constexpr int UNROLL = 4;   // K2b/K2c tests per hit check
-constexpr int WORD = 32;    // K2a tests per hit word, K5 rows per group
-constexpr int STAGED = 32;  // K5 row entries a thread stages in shared memory
+// A thread's row out at the end of its tile: its first e entries, staged
+// in shared memory (stride TILE), line by line across the warp with -1
+// past its count n, then -1 past them with fill_tail.  The whole warp
+// calls it, with one e.
+__device__ __forceinline__ void flush_row(int* row, const int* staged, int n,
+                                          int k8, int e) {
+  for (int k = 0; k < e; ++k)
+    row[(size_t)k * TILE] = k < n ? staged[k * TILE] : -1;
+  fill_tail(row, max(n, e), k8);
+}
+
+constexpr int WORD = 32;       // K2 candidates per test word, K5 rows per group
+constexpr int STAGED = 32;     // K5 row entries a thread stages in shared memory
+constexpr int K2_STAGED = 16;  // K2 row entries a thread stages in shared memory
+
+// The cull's lower bound of d^2 between a candidate c and every query of a
+// warp inside its box [lo, hi]: per axis the gap max(lo - c, c - hi, 0),
+// then d2_rn's operations in d2_rn's order.  A NaN candidate gives NaN.
+__device__ __forceinline__ float box_gap(float c, float lo, float hi) {
+  const float g = fmaxf(__fsub_rn(lo, c), __fsub_rn(c, hi));
+  return g < 0.0f ? 0.0f : g;   // a NaN gap stays NaN
+}
+__device__ __forceinline__ float box_d2_rn(float4 c, float3 lo, float3 hi) {
+  const float gx = box_gap(c.x, lo.x, hi.x);
+  const float gy = box_gap(c.y, lo.y, hi.y);
+  const float gz = box_gap(c.z, lo.z, hi.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
 
 // K2a, K2b and K2c -- replace make_pairs_call in neighbor-list mode
 // (treensearch_tpu/ops/pallas_pairs.py:445): K2a at a fixed radius with one
@@ -243,53 +271,86 @@ constexpr int STAGED = 32;  // K5 row entries a thread stages in shared memory
 //   ONE_SET:   K2a: one block that keeps every survivor as its orig.
 // The sentinel query (NaN coordinates, r = 0) fails every compare.
 //
-// Bound: the distance tests (9 float32 operations each, 10 symmetric); the
-// _rn pins forbid FMA, so each operation is one FP32 issue, and a test
-// issues about 11-12 instructions (the broadcast load, 8 float32
-// operations, the compare and the hit bookkeeping).  Each hit adds a row
-// store; K2a's rows (k8 x 128 ints per tile, 384 MB at config 1) are written
-// whole.  The TPU kernel's compaction networks and MXU prefix sums existed
-// because a TPU core cannot append per lane; here each thread appends to its
-// own row directly.  The designs this replaces (K2a 1.0012 ms at config 1,
-// K2b/K2c 1.1371 ms and 1.8657 ms at configs 3 and 4, on the H100) staged
-// each window on its own: at least n_win passes
-// of mostly one partial 256-candidate chunk (about 125-160 candidates per
-// window), two barriers each with the load latency in front of the tests,
-// four to six shared loads per test, and a divergent hit branch inside the
-// test loop.  This design:
+// Bound: the distance tests the search needs (9 float32 operations each, 10
+// symmetric; the _rn pins forbid FMA) and the rows (k8 x 128 ints per tile
+// and block, 384 MB at config 1, 4.48 GB at config 5, written whole).  The
+// TPU kernel's compaction networks and MXU prefix sums existed because a
+// TPU core cannot append per lane; here each thread appends to its own row.
+// A tile is a z-run of about 11 cells (config 1) inside one grid row, and
+// its windows hold every candidate any of its 128 queries could reach:
+// 4.5x (config 1) to 5.4x (config 5) the tests the search needs, no lane
+// hitting in 84% of (warp, candidate) steps.  This design:
 //   * concatenates the clipped windows into one stream (tile_stream) cut
 //     into full CHUNK-candidate chunks that cross window boundaries:
 //     ceil(sum len / CHUNK) passes, about 5 instead of 9 at config 1 and
-//     15 instead of 25 at config 4;
+//     15 instead of 25 at config 4 (a design staging each window on its
+//     own took K2a 1.0012 ms at config 1, K2b/K2c 1.1371 and 1.8657 ms at
+//     configs 3 and 4 on the H100);
 //   * double-buffers the chunks: chunk c + 1 is copied with cp.async while
 //     chunk c is tested, one barrier per chunk; each thread then squares
 //     its own staged r_j and turns its staged set into a block index;
-//   * packs the geometry as one float4 (x, y, z, r_j^2) per candidate, one
-//     broadcast 16-byte load per test, and keeps the orig (K2a) or (orig,
-//     block) in an int2 (K2b/K2c) aside, read only on a hit (about 2% of
-//     tests), where self-exclusion and the block dispatch happen;
-//   * pads the last chunk with NaN candidates, which fail every test;
-//   * K2b/K2c check the hits of UNROLL tests with one branch and keep the
-//     per-block counts in shared memory (dynamic, n_blocks x 128 ints) and
-//     the block table there too, so a hit indexes both directly;
-//   * K2a sets bit u of a word for each of WORD unrolled tests, then walks
-//     the word's set bits in increasing order (the hits only), so a warp
-//     pays for the hit body as often as its busiest lane hits in the word
-//     (3.4 times per word at config 1), not in every step where some lane
-//     hits (16% of them); its count stays in a register;
-//   * K2a fills its rows' tails (-1 past each count) entry by entry across
-//     the warp, one 128-byte line per store: a fill loop per lane, as the
-//     first K2a had, strides 512 bytes between its stores and half writes
-//     a line with each (K2a 0.95 ms against 0.81 at config 1 on the H100);
-//   * asks __launch_bounds__ for 12 resident blocks per SM for K2b/K2c (at
-//     most 40 registers, no spills) and 10 for K2a (48 registers: at 40 its
-//     word drain spills 12 bytes, and 10 blocks ran as fast as 12).
+//   * packs the geometry as one float4 (x, y, z, r_j^2) per candidate and
+//     keeps the orig (K2a) or (orig, block) (K2b/K2c) aside, read only on a
+//     hit, where self-exclusion and the block dispatch happen; pads the
+//     last chunk with NaN candidates;
+//   * culls per warp: once per tile each warp reduces its lanes' query
+//     coordinates to a box [lo, hi] (fminf/fmaxf from +-inf, so NaN lanes
+//     drop out and an all-sentinel warp's box is empty) and its threshold
+//     thr (r2, or VARIABLE the warp's largest r_i^2).  For each 32-candidate
+//     word of a chunk, lane u takes candidate j0 + u and keeps it iff its
+//     box_d2_rn gd2 <= thr (SYMMETRIC: or gd2 <= r_j^2); __ballot_sync gives
+//     the word's survivors.  No margin is needed: round-to-nearest
+//     subtraction, multiplication of non-negatives and addition of
+//     non-negatives are each monotone, and RN is symmetric, so for a query
+//     q inside the box with q_x >= lo_x > c_x, |fl(c_x - q_x)| = fl(q_x -
+//     c_x) >= fl(lo_x - c_x), and so on up the sum: the query's computed
+//     d^2 is at least gd2, and gd2 > thr (and > r_j^2) fails the exact
+//     test in every lane.  A NaN candidate gives a NaN gd2 and is culled;
+//     an empty box culls everything.  The culled tests are all misses, so
+//     the rows, counts and truncation equal the plain version's bit for bit
+//     (tests/test_torch_cull.py holds the bound in float32 on the CPU).  On
+//     the H100 the warps skip 0.7519 of the window tests at config 1,
+//     0.7844 at config 3, 0.8863 at config 4 and 0.7508 at config 5;
+//   * compacts the survivors: each warp appends a word's survivors (their
+//     float4 and id) in order to a list of 2 x WORD in shared memory and
+//     tests the list WORD at a time, unrolled, with the bit of each test a
+//     compile-time constant, then walks that word's hits lowest bit first
+//     (window order kept; the warp pays for the hit body as often as its
+//     busiest lane hits); the list's last survivors are tested padded with
+//     NaN.  Walking each word's survivor bits instead (one test per
+//     iteration, its bit and address computed) cost K2a 0.68 ms at config
+//     1 against 0.59;
+//   * stages each thread's first K2_STAGED row entries (K2b/K2c: split over
+//     the blocks in proportion to their k8) in shared memory and writes
+//     them at the end line by line across the warp, then the -1 tails
+//     with fill_tail (flush_row, as K5 does); a hit past them goes
+//     straight to its row.  A hit stored straight to its lane's row lands
+//     512 bytes from its neighbour's and writes one 4-byte word of a
+//     sector, as does a -1 tail filled by a loop per lane: with every hit
+//     stored so and K2b's tails filled per lane, K2a took 0.80 ms at
+//     config 1 (0.48 with no hit stored) and K2b 10.48 ms at config 5 (5.67
+//     with no hit stored, 6.62 with no tail written).  16 entries beat 0, 8,
+//     24, 32 and 48 at configs 1, 3 and 4 (24 was 1% faster at config 5):
+//     more shared memory per block means fewer resident blocks;
+//   * asks __launch_bounds__ for 8 resident blocks per SM (53 registers
+//     for K2a, 56 for K2b and K2c, 62 symmetric, no spills; at 10 blocks
+//     K2a and K2c spill).
+// Measured on the H100 (NVIDIA H100 80GB HBM3, 700 W; CUDA events, median of
+// 7 runs of 10 calls): K2a 0.539 ms at config 1 (bound 0.1269 ms, by bytes),
+// K2b 0.446-0.456 ms at config 3 (bound 0.1156) and 6.80 ms at config 5
+// (bound 1.636), K2c 0.353-0.359 ms at config 4 (bound 0.0567, by
+// operations); before the cull, the compaction and the staged entries
+// 0.824-0.828, 0.785-0.786, 10.81 and 0.840-0.852 ms.
+// With tested non-null, lane 0 of each warp adds the number of candidates
+// its warp tested after the cull (one atomicAdd per warp and tile); every
+// engine path passes null.
 // Dead tiles return at once (their rows are undefined).
 template <bool VARIABLE, bool SYMMETRIC, bool ONE_SET>
-__global__ void __launch_bounds__(TILE, ONE_SET ? 10 : 12)
+__global__ void __launch_bounds__(TILE, 8)
 pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
                   const int* __restrict__ recs_t, int n_rec, int tiles_cap,
-                  int n_win, float r2, Blocks blk) {
+                  int n_win, float r2, Blocks blk,
+                  unsigned long long* __restrict__ tested) {
   static_assert(!ONE_SET || !VARIABLE, "K2a is the fixed-radius kernel");
   // per candidate: the orig (K2a), or (orig, block) (K2b/K2c)
   using Id = typename std::conditional<ONE_SET, int, int2>::type;
@@ -300,10 +361,17 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
   __shared__ int* s_nbrs[MAX_BLOCKS];
   __shared__ int s_k8[MAX_BLOCKS];
   __shared__ int s_off[MAX_BLOCKS];
-  extern __shared__ int s_cnt[];   // [n_blocks][TILE], K2b/K2c
+  __shared__ int s_e[MAX_BLOCKS];      // staged entries per thread
+  __shared__ int s_e0[MAX_BLOCKS];     // their first row in s_rows
+  __shared__ float4 s_cg[TILE / WORD][2 * WORD];   // each warp's survivors
+  __shared__ Id s_ci[TILE / WORD][2 * WORD];       // and their ids
+  // K2b/K2c: the counts [n_blocks][TILE]; then the staged entries
+  // [sum of stage][TILE]
+  extern __shared__ int s_dyn[];
 
   const int t = blockIdx.x;
   const int l = threadIdx.x;
+  const int lane = l & 31;
   const int* d = desc + (size_t)t * DESC_W;
   const size_t n_slots = (size_t)tiles_cap * TILE;
   const size_t slot = (size_t)t * TILE + l;
@@ -312,6 +380,8 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     for (int b = 0; b < n_blocks; ++b) blk.counts[b * n_slots + slot] = 0;
     return;
   }
+  int* const s_cnt = s_dyn;
+  int* const s_rows = s_dyn + (ONE_SET ? 0 : n_blocks * TILE);
   tile_stream(d, n_rec, n_win, s_start, s_pre);
   if constexpr (!ONE_SET) {
 #pragma unroll
@@ -320,6 +390,10 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
         s_nbrs[b] = blk.nbrs[b];
         s_k8[b] = blk.k8[b];
         s_off[b] = blk.offset[b];
+        s_e[b] = blk.stage[b];
+        int e0 = 0;
+        for (int p = 0; p < b; ++p) e0 += blk.stage[p];
+        s_e0[b] = e0;
       }
     }
     for (int b = 0; b < n_blocks; ++b) s_cnt[b * TILE + l] = 0;
@@ -333,10 +407,27 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     const float qr = __int_as_float(q_t[F_R * n_slots + slot]);
     qr2 = __fmul_rn(qr, qr);
   }
-  // K2a: the thread's row and count
+  // the warp's box of live queries and its threshold
+  const float inf = __int_as_float(0x7f800000);
+  float3 lo = make_float3(fminf(inf, qx), fminf(inf, qy), fminf(inf, qz));
+  float3 hi = make_float3(fmaxf(-inf, qx), fmaxf(-inf, qy), fmaxf(-inf, qz));
+  float thr = qr2;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo.x = fminf(lo.x, __shfl_xor_sync(FULL, lo.x, off));
+    lo.y = fminf(lo.y, __shfl_xor_sync(FULL, lo.y, off));
+    lo.z = fminf(lo.z, __shfl_xor_sync(FULL, lo.z, off));
+    hi.x = fmaxf(hi.x, __shfl_xor_sync(FULL, hi.x, off));
+    hi.y = fmaxf(hi.y, __shfl_xor_sync(FULL, hi.y, off));
+    hi.z = fmaxf(hi.z, __shfl_xor_sync(FULL, hi.z, off));
+    if (VARIABLE) thr = fmaxf(thr, __shfl_xor_sync(FULL, thr, off));
+  }
+  // K2a: the thread's row, staged entries and count
   const int k8_1 = ONE_SET ? blk.k8[0] : 0;
+  const int e_1 = ONE_SET ? blk.stage[0] : 0;
   int* const row = blk.nbrs[0] + (size_t)t * k8_1 * TILE + l;
   int count = 0;
+  unsigned n_tested = 0;   // candidates this warp tested
   __syncthreads();
   const int total = s_pre[n_win];
   const int n_chunks = (total + CHUNK - 1) / CHUNK;
@@ -393,14 +484,53 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
       }
     }
   };
-  // K2a's hit work for candidate j of buffer buf
-  auto append = [&](int buf, int j) {
+  // the hit work of this thread's query on the candidate of id: its
+  // entry staged, or past the staged ones straight to the row
+  auto append = [&](Id id) {
     if constexpr (ONE_SET) {
-      const int o = s_id[buf][j];
+      const int o = id;
       if (o == qo) return;
-      if (count < k8_1) row[(size_t)count * TILE] = o;
+      if (count < e_1)
+        s_rows[count * TILE + l] = o;
+      else if (count < k8_1)
+        row[(size_t)count * TILE] = o;
       ++count;
+    } else {
+      if (id.x == qo || id.y < 0) return;
+      int* cnt = &s_cnt[id.y * TILE + l];
+      const int n = *cnt;
+      const int k8 = s_k8[id.y];
+      const int v = id.x - s_off[id.y];
+      if (n < s_e[id.y])
+        s_rows[(s_e0[id.y] + n) * TILE + l] = v;
+      else if (n < k8)
+        s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] = v;
+      *cnt = n + 1;
     }
+  };
+  float4* const cg_w = s_cg[l >> 5];
+  Id* const ci_w = s_ci[l >> 5];
+  int n_pend = 0;   // survivors waiting in the warp's list
+  // test the list's first WORD survivors, then move the rest down
+  auto test_list = [&]() {
+    __syncwarp();
+    unsigned hits = 0u;
+#pragma unroll
+    for (int u = 0; u < WORD; ++u) {
+      const float4 cg = cg_w[u];
+      const float d2 = d2_rn(cg.x, cg.y, cg.z, qx, qy, qz);
+      bool hit = d2 <= qr2;
+      if (SYMMETRIC) hit = hit || d2 <= cg.w;
+      hits |= hit ? (1u << u) : 0u;
+    }
+    for (; hits; hits &= hits - 1) append(ci_w[__ffs(hits) - 1]);
+    __syncwarp();
+    if (lane < n_pend - WORD) {
+      cg_w[lane] = cg_w[WORD + lane];
+      ci_w[lane] = ci_w[WORD + lane];
+    }
+    n_pend -= WORD;
+    __syncwarp();
   };
 
   if (n_chunks > 0) {
@@ -413,60 +543,44 @@ pairs_nbrs_kernel(const int* __restrict__ desc, const int* __restrict__ q_t,
     if (c + 1 < n_chunks) stage(c + 1, buf ^ 1);
     const int m = min(CHUNK, total - c * CHUNK);
     const float4* g = s_geo[buf];
-    if constexpr (ONE_SET) {
-      const int mw = (m + WORD - 1) / WORD * WORD;
-      for (int j0 = 0; j0 < mw; j0 += WORD) {
-        unsigned hits = 0u;
-#pragma unroll
-        for (int u = 0; u < WORD; ++u) {
-          const float4 cg = g[j0 + u];
-          if (d2_rn(cg.x, cg.y, cg.z, qx, qy, qz) <= qr2) hits |= 1u << u;
-        }
-        for (; hits; hits &= hits - 1) append(buf, j0 + __ffs(hits) - 1);
+    for (int j0 = 0; j0 < m; j0 += WORD) {   // warp-uniform words
+      const float4 cu = g[j0 + lane];
+      const float gd2 = box_d2_rn(cu, lo, hi);
+      bool keep = gd2 <= thr;
+      if (SYMMETRIC) keep = keep || gd2 <= cu.w;
+      const unsigned live = __ballot_sync(FULL, keep);
+      if (keep) {
+        const int p = n_pend + __popc(live & ((1u << lane) - 1u));
+        cg_w[p] = cu;
+        ci_w[p] = s_id[buf][j0 + lane];
       }
-    } else {
-      const int mp = (m + UNROLL - 1) / UNROLL * UNROLL;
-      for (int j0 = 0; j0 < mp; j0 += UNROLL) {
-        bool hit[UNROLL];
-        bool any = false;
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const float4 cg = g[j0 + u];
-          const float d2 = d2_rn(cg.x, cg.y, cg.z, qx, qy, qz);
-          hit[u] = d2 <= qr2;
-          if (SYMMETRIC) hit[u] = hit[u] || d2 <= cg.w;
-          any = any || hit[u];
-        }
-        if (any) {
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            if (!hit[u]) continue;
-            const int2 id = s_id[buf][j0 + u];   // (orig, block)
-            if (id.x == qo || id.y < 0) continue;
-            int* cnt = &s_cnt[id.y * TILE + l];
-            const int n = *cnt;
-            const int k8 = s_k8[id.y];
-            if (n < k8)
-              s_nbrs[id.y][((size_t)t * k8 + n) * TILE + l] =
-                  id.x - s_off[id.y];
-            *cnt = n + 1;
-          }
-        }
-      }
+      n_pend += __popc(live);
+      n_tested += __popc(live);
+      if (n_pend >= WORD) test_list();
     }
     if (c + 1 < n_chunks) finish(c + 1, buf ^ 1);
     __syncthreads();
   }
+  if (n_pend > 0) {   // the last survivors, the list padded with NaN
+    __syncwarp();
+    if (lane >= n_pend)
+      cg_w[lane] = make_float4(__int_as_float(SENTINEL_BITS),
+                               __int_as_float(SENTINEL_BITS),
+                               __int_as_float(SENTINEL_BITS), 0.0f);
+    n_pend = WORD;
+    test_list();
+  }
+  if (tested != nullptr && lane == 0)
+    atomicAdd(tested, (unsigned long long)n_tested);
   if constexpr (ONE_SET) {
     blk.counts[slot] = count;
-    fill_tail(row, count, k8_1);
+    flush_row(row, s_rows + l, count, k8_1, e_1);
   } else {
     for (int b = 0; b < n_blocks; ++b) {
       const int n = s_cnt[b * TILE + l];
-      const int k8 = s_k8[b];
       blk.counts[b * n_slots + slot] = n;
-      int* out = s_nbrs[b] + (size_t)t * k8 * TILE + l;
-      for (int k = n; k < k8; ++k) out[(size_t)k * TILE] = -1;
+      flush_row(s_nbrs[b] + (size_t)t * s_k8[b] * TILE + l,
+                s_rows + s_e0[b] * TILE + l, n, s_k8[b], s_e[b]);
     }
   }
 }
@@ -843,14 +957,6 @@ pairs_nbrs_from_bits_kernel(const int* __restrict__ desc,
       *cnt = n + 1;
     }
   };
-  // A block's row out: the staged entries (-1 past the count) line by line
-  // across the warp, then -1 past the count beyond them.
-  auto flush = [&](int* out, const int* staged, int n, int k8) {
-    const int e = min(k8, stage_e);
-    for (int k = 0; k < e; ++k)
-      out[(size_t)k * TILE] = k < n ? staged[k * TILE + l] : -1;
-    fill_tail(out, max(n, e), k8);
-  };
 
   if (n_chunks > 0) {
     stage(0, 0);
@@ -874,13 +980,14 @@ pairs_nbrs_from_bits_kernel(const int* __restrict__ desc,
   }
   if constexpr (ONE_SET) {
     blk.counts[slot] = count;
-    flush(row, s_rows, count, k8_1);
+    flush_row(row, s_rows + l, count, k8_1, e_1);
   } else {
     for (int b = 0; b < n_blocks; ++b) {
       const int n = s_cnt[b * TILE + l];
       blk.counts[b * n_slots + slot] = n;
-      flush(s_nbrs[b] + (size_t)t * s_k8[b] * TILE + l,
-            s_rows + b * stage_e * TILE, n, s_k8[b]);
+      flush_row(s_nbrs[b] + (size_t)t * s_k8[b] * TILE + l,
+                s_rows + b * stage_e * TILE + l, n, s_k8[b],
+                min(s_k8[b], stage_e));
     }
   }
 }
@@ -922,17 +1029,21 @@ extern "C" int tns_pairs_nbrs_fixed(const int* desc, const int* q_t,
                                     const int* recs_t, int n_rec,
                                     int tiles_cap, int n_win, int k8,
                                     float r2, int* counts, int* nbrs,
+                                    unsigned long long* tested,
                                     void* stream) {
-  if (n_win < 1 || n_win > MAX_WIN) return (int)cudaErrorInvalidValue;
+  if (n_win < 1 || n_win > MAX_WIN || k8 < 1)
+    return (int)cudaErrorInvalidValue;
   Blocks blk{};
   blk.n_blocks = 1;
   blk.k8[0] = k8;
+  blk.stage[0] = k8 < K2_STAGED ? k8 : K2_STAGED;
   blk.nbrs[0] = nbrs;
   blk.counts = counts;
   if (tiles_cap > 0) {
+    const size_t smem = (size_t)blk.stage[0] * TILE * sizeof(int);
     pairs_nbrs_kernel<false, false, true>
-        <<<tiles_cap, TILE, 0, (cudaStream_t)stream>>>(
-            desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+        <<<tiles_cap, TILE, smem, (cudaStream_t)stream>>>(
+            desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk, tested);
   }
   return (int)cudaGetLastError();
 }
@@ -942,31 +1053,43 @@ extern "C" int tns_pairs_nbrs(const int* desc, const int* q_t,
                               int n_win, float r2, int variable,
                               int symmetric, int n_blocks, const int* set_of,
                               const int* offset, const int* k8,
-                              int* const* nbrs, int* counts, void* stream) {
+                              int* const* nbrs, int* counts,
+                              unsigned long long* tested, void* stream) {
   if (n_blocks < 1 || n_blocks > MAX_BLOCKS || (symmetric && !variable) ||
       n_win < 1 || n_win > MAX_WIN)
     return (int)cudaErrorInvalidValue;
   Blocks blk{};
   blk.n_blocks = n_blocks;
+  long long k8_sum = 0;
   for (int b = 0; b < n_blocks; ++b) {
     blk.set_of[b] = set_of[b];
     blk.offset[b] = offset[b];
     blk.k8[b] = k8[b];
     blk.nbrs[b] = nbrs[b];
+    if (k8[b] < 1) return (int)cudaErrorInvalidValue;
+    k8_sum += k8[b];
+  }
+  // the staged entries split over the blocks in proportion to their k8
+  int staged = 0;
+  for (int b = 0; b < n_blocks; ++b) {
+    const int e = (int)(K2_STAGED * (long long)k8[b] / k8_sum);
+    blk.stage[b] = e < k8[b] ? e : k8[b];
+    staged += blk.stage[b];
   }
   blk.counts = counts;
   if (tiles_cap > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-    const size_t smem = (size_t)n_blocks * TILE * sizeof(int);   // s_cnt
+    // the counts, then the staged entries
+    const size_t smem = (size_t)(n_blocks + staged) * TILE * sizeof(int);
     if (!variable)
       pairs_nbrs_kernel<false, false, false><<<tiles_cap, TILE, smem, st>>>(
-          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk, tested);
     else if (!symmetric)
       pairs_nbrs_kernel<true, false, false><<<tiles_cap, TILE, smem, st>>>(
-          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk, tested);
     else
       pairs_nbrs_kernel<true, true, false><<<tiles_cap, TILE, smem, st>>>(
-          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk);
+          desc, q_t, recs_t, n_rec, tiles_cap, n_win, r2, blk, tested);
   }
   return (int)cudaGetLastError();
 }

@@ -544,10 +544,11 @@ def split_pairs(a: KernelInputs, q_t: torch.Tensor, allow: torch.Tensor,
 
 
 def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False,
-              allow: torch.Tensor | None = None):
+              allow: torch.Tensor | None = None, tested=None):
     """The pairs kernel (or, with ``plain``, its plain version) on these
     inputs: counts (n_blocks, tiles_cap * 128) and one tile-layout row
-    array per candidate set.
+    array per candidate set; ``tested`` is the K2 wrappers' counter of
+    the tests left after their cull (``ops/pairs.py``).
 
     With ``allow`` (the active matrix, ``allow_table``), split staging in
     its place (``split_pairs``, K4 uncapped).  Only the slots of active
@@ -559,18 +560,18 @@ def run_pairs(a: KernelInputs, q_t: torch.Tensor, plain: bool = False,
     if kernel is pairs_nbrs_fixed:
         fn = pairs_nbrs_fixed_plain if plain else pairs_nbrs_fixed
         counts, nbrs = fn(a.desc, q_t, a.recs_t, a.r2, a.n_win, a.k8s[0],
-                          a.tiles_cap)
+                          a.tiles_cap, tested)
         return counts[None], [nbrs]
     blocks = (a.cand_sets, a.cand_offsets, a.k8s)
     if plain:
         return pairs_nbrs_plain(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap,
                                 *blocks, r2=None if a.variable else a.r2,
-                                symmetric=a.symmetric)
+                                symmetric=a.symmetric, tested=tested)
     if a.variable:
         return kernel(a.desc, q_t, a.recs_t, a.n_win, a.tiles_cap, *blocks,
-                      a.symmetric)
+                      a.symmetric, tested)
     return kernel(a.desc, q_t, a.recs_t, a.r2, a.n_win, a.tiles_cap,
-                  *blocks)
+                  *blocks, tested)
 
 
 _FLAGS = ("n_cells", "error", "dense_overflow", "tile_overflow",

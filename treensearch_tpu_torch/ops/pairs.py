@@ -13,7 +13,8 @@ PyTorch counterpart of ``treensearch_tpu/ops/pallas_pairs.py``:
   mode, fixed radius, one candidate set (``pallas_pairs.py:445``), both its
   narrow and its fat tier: it streams every stencil window through shared
   memory in fixed chunks, so no window is too wide and there is no tier
-  split.
+  split; each warp tests only the candidates its queries' box can reach
+  (``warp_cull`` is the plain model of that cull, ``tested`` its count).
 - ``pairs_nbrs_sets`` (K2b) replaces ``make_pairs_call(multi_set=True)``
   at a fixed radius: one output block per distinct candidate set, with
   set-local indices and a row cap per block.
@@ -42,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -190,11 +192,11 @@ def load_library(build_dir: Path | None = None) -> _Library:
     lib.tns_expand_records.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
     lib.tns_expand_records.restype = ci
     lib.tns_pairs_nbrs_fixed.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf,
-                                         vp, vp, vp]
+                                         vp, vp, vp, vp]
     lib.tns_pairs_nbrs_fixed.restype = ci
     pi, pv = ctypes.POINTER(ci), ctypes.POINTER(vp)
     lib.tns_pairs_nbrs.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, ci,
-                                   pi, pi, pi, pv, vp, vp]
+                                   pi, pi, pi, pv, vp, vp, vp]
     lib.tns_pairs_nbrs.restype = ci
     lib.tns_pairs_mask.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, ci,
                                    pi, vp, ci, vp, ctypes.c_longlong, vp,
@@ -473,22 +475,74 @@ def allow_bits(ch: _Chunk, q_t: torch.Tensor, recs_t: torch.Tensor,
 
 
 # ---------------------------------------------------------------- K2
+def box_gap_d2(lo: torch.Tensor, hi: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """The pairs kernels' cull bound (``box_d2_rn`` in ``csrc/pairs.cu``)
+    in float32, over the last dimension (x, y, z): per axis the gap
+    ``max(lo - c, c - hi, 0)`` (a NaN ``c`` gives NaN), then squared and
+    summed in d^2's order.  Every query inside ``[lo, hi]`` lies at a
+    computed d^2 of at least this from ``c``."""
+    g = torch.fmax(lo - c, c - hi)
+    gx, gy, gz = torch.where(g < 0, 0.0, g).unbind(-1)
+    return (gx * gx + gy * gy) + gz * gz
+
+
+def warp_cull(ch: _Chunk, q_t: torch.Tensor, recs_t: torch.Tensor,
+              r2: float | None, symmetric: bool) -> torch.Tensor:
+    """The K2 kernels' per-warp cull on a chunk's candidates: (nt, 4,
+    width) bool, True where warp w of the tile (lanes 32 w to 32 w + 31)
+    tests the candidate.  The warp's box spans its queries' coordinates,
+    NaN lanes left out, and a candidate survives when its ``box_gap_d2``
+    is at most the warp's threshold (``r2``, or with ``r2=None`` its
+    largest r_i^2) or, with ``symmetric``, its own r_j^2.  Slots past a
+    window are not masked: take ``& ch.ok``."""
+    nt, warps = ch.t1 - ch.t0, TILE // 32
+    rows = slice(ch.t0 * TILE, ch.t1 * TILE)
+    q = torch.stack([f32_field(q_t, f)[rows] for f in (F_X, F_Y, F_Z)],
+                    -1).view(nt, warps, 32, 3)
+    nan = q.isnan()
+    lo = torch.where(nan, math.inf, q).amin(2)[:, :, None]
+    hi = torch.where(nan, -math.inf, q).amax(2)[:, :, None]
+    c = torch.stack([f32_field(recs_t, f)[ch.idx] for f in (F_X, F_Y, F_Z)],
+                    -1)[:, None]
+    gd2 = box_gap_d2(lo, hi, c)
+    if r2 is None:
+        qr = f32_field(q_t, F_R)[rows].view(nt, warps, 32)
+        qr2 = qr * qr
+        thr = torch.where(qr2.isnan(), -math.inf, qr2).amax(2, keepdim=True)
+    else:
+        thr = torch.tensor(r2, dtype=torch.float32, device=q_t.device)
+    keep = gd2 <= thr
+    if symmetric:
+        cr = ch.cand(f32_field(recs_t, F_R))
+        keep = keep | (gd2 <= cr * cr)
+    return keep
+
+
 def pairs_nbrs_plain(desc: torch.Tensor, q_t: torch.Tensor,
                      recs_t: torch.Tensor, n_win: int, tiles_cap: int,
                      cand_sets, cand_offsets, k8s, r2: float | None = None,
-                     symmetric: bool = False):
+                     symmetric: bool = False, tested=None):
     """Plain version of the pairs kernels (K2b with ``r2`` given, K2c with
     ``r2=None``, K2a through ``pairs_nbrs_fixed_plain``) over the
     candidates of ``_plain_chunks``.
 
     The hits go to ``_front_pack_blocks``.  Returns counts (n_blocks,
-    tiles_cap * 128) and one (tiles_cap, k8, 128) array per block.
+    tiles_cap * 128) and one (tiles_cap, k8, 128) array per block.  With
+    ``tested`` (``_check_tested``), adds to it the candidates the kernel's
+    warps test after its cull (``warp_cull``).
     """
     co, cs = recs_t[F_ORIG], recs_t[F_SET]
-    chunks = ((ch.t0, ch.t1, ch.hit, ch.cand(co), ch.cand(cs))
-              for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap,
-                                      r2, symmetric))
-    return _front_pack_blocks(chunks, tiles_cap, cand_sets, cand_offsets,
+
+    def chunks():
+        for ch in _plain_chunks(desc, q_t, recs_t, n_win, tiles_cap, r2,
+                                symmetric):
+            if tested is not None:
+                keep = warp_cull(ch, q_t, recs_t, r2, symmetric)
+                tested.add_((keep & ch.ok[:, None, :]).sum())
+            yield ch.t0, ch.t1, ch.hit, ch.cand(co), ch.cand(cs)
+
+    return _front_pack_blocks(chunks(), tiles_cap, cand_sets, cand_offsets,
                               k8s, desc.device)
 
 
@@ -525,31 +579,44 @@ def _front_pack_blocks(chunks, tiles_cap: int, cand_sets, cand_offsets, k8s,
 
 def pairs_nbrs_fixed_plain(desc: torch.Tensor, q_t: torch.Tensor,
                            recs_t: torch.Tensor, r2: float, n_win: int,
-                           k8: int, tiles_cap: int):
+                           k8: int, tiles_cap: int, tested=None):
     """Plain version of K2a: ``pairs_nbrs_plain`` at a fixed radius with
     one block that keeps every survivor as its orig."""
     counts, nbrs = pairs_nbrs_plain(desc, q_t, recs_t, n_win, tiles_cap,
-                                    (None,), (0,), (k8,), r2=r2)
+                                    (None,), (0,), (k8,), r2=r2,
+                                    tested=tested)
     return counts[0], nbrs[0]
+
+
+def _check_tested(tested, device) -> None:
+    """``tested``, the K2 kernels' optional counter: None, or a (1,)
+    int64 tensor on the kernel's device that the call adds to."""
+    if tested is not None and (tested.dtype != torch.int64
+                               or tuple(tested.shape) != (1,)
+                               or tested.device != device):
+        raise ValueError(f"tested must be a (1,) int64 tensor on {device}")
 
 
 def pairs_nbrs_fixed(desc: torch.Tensor, q_t: torch.Tensor,
                      recs_t: torch.Tensor, r2: float, n_win: int, k8: int,
-                     tiles_cap: int):
+                     tiles_cap: int, tested=None):
     """K2a: exact per-query counts (tiles_cap * 128,) int32 and padded
     neighbor rows (tiles_cap, k8, 128) int32 in tile layout.
 
     Rows of dead tiles are undefined on the card (the kernel returns at
-    once); consumers gather live slots only, through ``qpos``.
+    once); consumers gather live slots only, through ``qpos``.  With
+    ``tested`` (``_check_tested``), adds to it the candidates the kernel's
+    warps tested after their cull (on the CPU, ``warp_cull``'s count).
     """
     _check_desc(desc, tiles_cap)
     n_rec = _check_recs(recs_t, desc.device)
     _require(q_t, "q_t", (N_FIELDS, tiles_cap * TILE), desc.device)
     _check_n_win(n_win)
     _check_k8(k8)
+    _check_tested(tested, desc.device)
     if desc.device.type == "cpu":
         return pairs_nbrs_fixed_plain(desc, q_t, recs_t, r2, n_win, k8,
-                                      tiles_cap)
+                                      tiles_cap, tested)
     lib = _cuda_lib(desc)
     counts = torch.empty(tiles_cap * TILE, dtype=torch.int32,
                          device=desc.device)
@@ -559,7 +626,8 @@ def pairs_nbrs_fixed(desc: torch.Tensor, q_t: torch.Tensor,
     err = lib.tns_pairs_nbrs_fixed(
         desc.data_ptr(), q_t.data_ptr(), recs_t.data_ptr(), n_rec,
         tiles_cap, n_win, k8, float(r2), counts.data_ptr(),
-        nbrs.data_ptr(), stream)
+        nbrs.data_ptr(), None if tested is None else tested.data_ptr(),
+        stream)
     if err != 0:
         raise RuntimeError(f"pairs_nbrs_fixed launch failed: CUDA error "
                            f"{err}")
@@ -581,7 +649,7 @@ def _check_k8(k8: int) -> None:
 
 
 def _pairs_nbrs(wrapper, desc, q_t, recs_t, n_win, tiles_cap, cand_sets,
-                cand_offsets, k8s, r2, symmetric):
+                cand_offsets, k8s, r2, symmetric, tested):
     """The K2b/K2c route: checks, then the plain version for CPU tensors
     or one launch of ``pairs_nbrs_kernel`` for CUDA tensors."""
     _check_desc(desc, tiles_cap)
@@ -589,16 +657,18 @@ def _pairs_nbrs(wrapper, desc, q_t, recs_t, n_win, tiles_cap, cand_sets,
     _require(q_t, "q_t", (N_FIELDS, tiles_cap * TILE), desc.device)
     _check_n_win(n_win)
     blocks = _check_blocks(cand_sets, cand_offsets, k8s)
+    _check_tested(tested, desc.device)
     if desc.device.type == "cpu":
         return pairs_nbrs_plain(desc, q_t, recs_t, n_win, tiles_cap, *blocks,
-                                r2=r2, symmetric=symmetric)
+                                r2=r2, symmetric=symmetric, tested=tested)
     lib = _cuda_lib(desc)
     counts, nbrs, args = _block_outputs(blocks, tiles_cap, desc.device)
     stream = torch.cuda.current_stream(desc.device).cuda_stream
     err = lib.tns_pairs_nbrs(
         desc.data_ptr(), q_t.data_ptr(), recs_t.data_ptr(), n_rec, tiles_cap,
         n_win, float(r2 if r2 is not None else 0.0), int(r2 is None),
-        int(symmetric), *args, stream)
+        int(symmetric), *args,
+        None if tested is None else tested.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{err}")
@@ -644,14 +714,16 @@ def _block_outputs(blocks: tuple, tiles_cap: int, dev) -> tuple:
 
 def pairs_nbrs_sets(desc: torch.Tensor, q_t: torch.Tensor,
                     recs_t: torch.Tensor, r2: float, n_win: int,
-                    tiles_cap: int, cand_sets, cand_offsets, k8s):
+                    tiles_cap: int, cand_sets, cand_offsets, k8s,
+                    tested=None):
     """K2b: fixed radius, one output block per candidate set.  Returns
     counts (n_blocks, tiles_cap * 128) int32 and, per block b, rows
     (tiles_cap, k8s[b], 128) int32 of set-local indices ``orig -
     cand_offsets[b]`` of the survivors in set ``cand_sets[b]``.  Rows of
-    dead tiles are undefined on the card, as with K2a."""
+    dead tiles are undefined on the card, as with K2a; ``tested`` as
+    with K2a."""
     return _pairs_nbrs(pairs_nbrs_sets, desc, q_t, recs_t, n_win, tiles_cap,
-                       cand_sets, cand_offsets, k8s, r2, False)
+                       cand_sets, cand_offsets, k8s, r2, False, tested)
 
 
 pairs_nbrs_sets.launches = 0
@@ -659,12 +731,14 @@ pairs_nbrs_sets.launches = 0
 
 def pairs_nbrs_variable(desc: torch.Tensor, q_t: torch.Tensor,
                         recs_t: torch.Tensor, n_win: int, tiles_cap: int,
-                        cand_sets, cand_offsets, k8s, symmetric: bool):
+                        cand_sets, cand_offsets, k8s, symmetric: bool,
+                        tested=None):
     """K2c: per-point radii from the records' F_R field (d^2 <= r_i^2, or
-    also d^2 <= r_j^2 when ``symmetric``), with K2b's output blocks."""
+    also d^2 <= r_j^2 when ``symmetric``), with K2b's output blocks;
+    ``tested`` as with K2a."""
     return _pairs_nbrs(pairs_nbrs_variable, desc, q_t, recs_t, n_win,
                        tiles_cap, cand_sets, cand_offsets, k8s, None,
-                       bool(symmetric))
+                       bool(symmetric), tested)
 
 
 pairs_nbrs_variable.launches = 0
