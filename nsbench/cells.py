@@ -42,6 +42,25 @@ def active_pairs(config: dict) -> list:
     return [tuple(p) for p in config["active"]]
 
 
+def radius(config: dict) -> float:
+    """The search radius: ``radius``, or with per-point ``radii`` the
+    smallest, ``low`` times ``scale``."""
+    radii = config.get("radii")
+    if radii is None:
+        return float(config["radius"])
+    return float(radii["low"]) * float(radii["scale"])
+
+
+def check_config(config: dict) -> None:
+    """Refuses a configuration whose radius keys contradict each other."""
+    if "radii" in config and "radius" in config:
+        raise ValueError(f"{config.get('name')}: states both radius and "
+                         "radii; with radii the radius is low times scale")
+    if config.get("symmetric") and "radii" not in config:
+        raise ValueError(f"{config.get('name')}: symmetric search needs "
+                         "per-point radii")
+
+
 class Cell:
     """One entry of ``workloads`` with its configuration and traffic."""
 
@@ -58,6 +77,7 @@ class Cell:
         configs = {c["name"]: c for c in self.bench["configs"]}
         self.config = load_json(self.root / configs[self.entry["config"]]
                                 ["file"])
+        check_config(self.config)
         here = self.root / "nsbench"
         self.traffic = load_json(here / "traffic"
                                  / f"{self.entry['traffic']}.json")
@@ -67,7 +87,7 @@ class Cell:
             module = load_module(here / "traffic"
                                  / f"{self.entry['traffic']}.py",
                                  f"nsbench_traffic_{self.entry['traffic']}")
-            self.callback = module.callback(self.config["radius"])
+            self.callback = module.callback(radius(self.config))
 
     def end_to_end(self) -> list:
         return [m for m in self.bench["end_to_end"]

@@ -3,11 +3,15 @@
 One general generator for every configuration and traffic mix: the sets'
 points uniform in the unit cube (one draw for all sets), and, as the mix
 asks, each point's velocity (uniform in ``[-move, move]`` per coordinate,
-the distance it travels per step; uniform in [0, 1) where a z-sort
-carries it and the points stay still), its mass (uniform in [0.5, 1.5), the
-payload of a reduce step) and the user arrays the z-sort carries (an id,
-then one array per entry of ``extra_arrays``).  The same seed gives the
-same inputs; every seed gives the same sizes.
+the distance it travels per step, 0 in a set that states ``static``;
+uniform in [0, 1) where a z-sort carries it and the points stay still),
+its mass (uniform in [0.5, 1.5), the payload of a reduce step) and the
+user arrays the z-sort carries (an id,
+then one array per entry of ``extra_arrays``).  A configuration with
+``radii`` gives each point its own radius, uniform in ``[low, high)`` times
+``scale`` in float32, drawn after every other input, so that the inputs of
+a configuration without radii do not depend on it.  The same seed gives
+the same inputs; every seed gives the same sizes.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ class Inputs:
         move = float(traffic.get("move", 0.0))
         self.velocity = (torch.rand((n, 3), generator=gen, device=device)
                          * 2 - 1) * move if move else None
+        for i, s in enumerate(config["sets"]):
+            if s.get("static") and self.velocity is not None:
+                self.of_set(self.velocity, i).zero_()
         self.payload = None
         if traffic.get("reduce"):
             cols = int(traffic["reduce"]["payload_columns"])
@@ -48,6 +55,15 @@ class Inputs:
                 shape = (n,) if width == 1 else (n, width)
                 self.user.append(torch.rand(shape, generator=gen,
                                             device=device))
+        self.radii = None
+        radii = config.get("radii")
+        if radii:
+            if zsort:
+                raise ValueError("per-point radii under a z-sorting mix: the "
+                                 "radii would have to ride the z-sort")
+            low, high = float(radii["low"]), float(radii["high"])
+            self.radii = (torch.rand(n, generator=gen, device=device)
+                          * (high - low) + low) * float(radii["scale"])
 
     def of_set(self, flat: torch.Tensor, i: int) -> torch.Tensor:
         return flat[self.offsets[i]:self.offsets[i + 1]]
@@ -60,4 +76,5 @@ class Inputs:
         return {"points": self.points.clone(),
                 "velocity": None if self.velocity is None
                 else self.velocity.clone(),
+                "radii": None if self.radii is None else self.radii.clone(),
                 "user": [u.clone() for u in self.user]}

@@ -33,7 +33,7 @@ import torch
 
 from . import judge, trace
 from .capture import Captured
-from .cells import active_pairs
+from .cells import active_pairs, radius
 from .generate import Inputs
 
 AHEAD = 3            # steps the host may enqueue ahead of the device
@@ -50,15 +50,19 @@ BASELINE_PAIRS_PER_S = 1.03e8   # the C++ reference, one AVX2 core, 1M
 FORBIDDEN = {"jax", "jaxlib", "flax", "treensearch_tpu"}
 
 
-def make_engine(config: dict, sets: list):
+def make_engine(config: dict, sets: list, radii: list = None):
     """``TreeNSearch`` on the sets' device, set up as the configuration
-    states."""
+    states; with ``radii``, each set's per-point radii, in variable-radius
+    mode, searching symmetrically where the configuration says so."""
     from treensearch_tpu_torch import TreeNSearch
     eng = TreeNSearch(device=sets[0].device)
-    for p in sets:
-        eng.add_point_set(p)
-    eng.set_search_radius(config["radius"])
-    eng.set_cell_size(config["cell_factor"] * config["radius"])
+    for k, p in enumerate(sets):
+        eng.add_point_set(p, None if radii is None else radii[k])
+    if radii is None:
+        eng.set_search_radius(radius(config))
+    else:
+        eng.set_symmetric_search(bool(config.get("symmetric")))
+    eng.set_cell_size(config["cell_factor"] * radius(config))
     for i, j in active_pairs(config):
         eng.set_active_search(i, j, True)
     caps = config.get("neighbor_caps") or []
@@ -85,7 +89,9 @@ class Loop:
         self.zsort_moves = None  # moves before the last z-sort
         self.zsorts = 0
         sets = inputs.set_views(inputs.points)
-        eng = make_engine(cell.config, sets)
+        rad = inputs.radii
+        eng = make_engine(cell.config, sets,
+                          None if rad is None else inputs.set_views(rad))
         reduce = traffic.get("reduce")
         kwargs = dict(traffic.get("step", {}))
         if reduce:
@@ -103,8 +109,8 @@ class Loop:
 
         def search():
             if pay is None:
-                return step(state, pts)[0]
-            return step(state, pts, payload=pay)[0]
+                return step(state, pts, radii=rad)[0]
+            return step(state, pts, radii=rad, payload=pay)[0]
 
         self.search = Captured(search, device)
         if self.search.out is None:      # eager: one call gives the shape
@@ -237,6 +243,36 @@ def window(loop: Loop, seconds: float) -> dict:
             "host_ms": host * 1e3 / steps}
 
 
+def warm_up(loop: Loop, traffic: dict) -> str:
+    """The mix's warm-up, counted as set-up: ``warm_seconds`` of steps.
+    With ``warm_drop``, in 1 s stretches that go on past ``warm_seconds``
+    until one stretch's time per step has been that share below the
+    slowest stretch before it, for at most twice ``warm_seconds``: a
+    process's first seconds of steps run slower (PERF.md section 5), and
+    this keeps that stretch out of the window where it lasts longer.
+    Returns what it did, for the log."""
+    seconds = float(traffic.get("warm_seconds", 0))
+    drop = traffic.get("warm_drop")
+    if not drop:
+        window(loop, seconds)
+        return f"{seconds} s of warm-up steps"
+    t0 = time.perf_counter()
+    slowest, dropped_at = 0.0, None
+    while True:
+        win = window(loop, 1.0)
+        ms = win["seconds"] * 1e3 / win["steps"]
+        elapsed = time.perf_counter() - t0
+        if dropped_at is None and ms <= (1 - float(drop)) * slowest:
+            dropped_at = elapsed
+        slowest = max(slowest, ms)
+        if (dropped_at is not None and elapsed >= seconds) or \
+                elapsed >= 2 * seconds:
+            return (f"warm-up in 1 s stretches: slowest {slowest:.6f} ms "
+                    f"per step, last {ms:.6f} ms, the drop by "
+                    f"{float(drop):g} seen at "
+                    f"{'no time' if dropped_at is None else f'{dropped_at:.3f} s'}")
+
+
 def p95(values: list) -> float:
     """The 95th percentile by the nearest rank."""
     ordered = sorted(values)
@@ -286,16 +322,16 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     if device.type == "cuda":
         torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
-    # a process's first seconds of steps run up to 5% slower on the card
+    # a process's first seconds of steps run up to 7% slower on the card
     # (PERF.md section 5), so the loop runs that long before it is measured
-    window(loop, float(cell.traffic.get("warm_seconds", 0)))
+    warmed = warm_up(loop, cell.traffic)
     if device.type == "cuda":
         torch.cuda.synchronize()
     loop.reset_counters()
     setup_s = time.perf_counter() - t0
     log(f"set-up: {program_s:.6f} s to the captured loop (imports, CUDA, "
         f"inputs, engine, settling runs, captures), then "
-        f"{setup_s - program_s:.6f} s of warm-up steps")
+        f"{setup_s - program_s:.6f} s of warm-up steps ({warmed})")
 
     if trace_on:
         record = traced(loop, int(cell.traffic["trace_steps"]))

@@ -13,7 +13,10 @@ again from the inputs that the benchmark made from the seed:
 - ``zsort_disorder``: rows of a set whose Morton key, at the positions of
   the last z-sort, is below the row before's (limit 0);
 - ``nbr_mismatch``: queries whose count differs plus neighbor pairs found
-  on one side only, every active pair, every query (limit 0);
+  on one side only, every active pair, every query, and every pair the
+  program found for a pair that is not active (limit 0), under the
+  configuration's rule: each point's own radius from ``radii`` (with
+  ``symmetric``, either point's), or every point at its one radius;
 - ``sum_rel_err``: the largest gap between a query's sum and the float64
   reference, over the sum of the terms' magnitudes (limit in the mix);
 - ``ref_pairs``: the pairs the reference found, at least 1.
@@ -28,7 +31,7 @@ import torch
 
 from . import reference as ref
 from . import roofline
-from .cells import active_pairs
+from .cells import active_pairs, radius
 
 CONTROL_DTYPE = torch.bfloat16
 
@@ -113,6 +116,19 @@ def _state(inputs, start, outputs, moves, zsort_moves) -> tuple:
     return mismatch, disorder, x_ref
 
 
+def _radii(cell, inputs, start) -> list:
+    """Each set's per-point radii: as drawn from the seed, or every point
+    at the configuration's one radius."""
+    if start["radii"] is not None:
+        return inputs.set_views(start["radii"])
+    return list(ref.uniform(radius(cell.config),
+                            *inputs.set_views(start["points"])))
+
+
+def _symmetric(cell) -> bool:
+    return bool(cell.config.get("symmetric"))
+
+
 def _pairs_mismatch(got: tuple, want: tuple) -> int:
     (c_got, k_got), (c_want, k_want) = got, want
     bad = int((c_got != c_want).sum())
@@ -122,19 +138,21 @@ def _pairs_mismatch(got: tuple, want: tuple) -> int:
     return bad
 
 
-def reference_sums(cell, inputs, x_ref, dtype=torch.float64,
+def reference_sums(cell, inputs, start, x_ref, dtype=torch.float64,
                    rule_dtype=torch.float32) -> tuple:
     """(per query set ``(sums, magnitudes)``, neighbor pairs) of the mix's
     callback over every active pair."""
     n_out = int(cell.traffic["reduce"]["n_out"])
+    radii = _radii(cell, inputs, start)
     out = {}
     hits = 0
     for i, j in active_pairs(cell.config):
         pi = inputs.of_set(inputs.payload, i)
         pj = inputs.of_set(inputs.payload, j)
         s, m, h = ref.pair_sums(cell.callback, n_out, x_ref[i], x_ref[j],
-                                cell.config["radius"], i == j, pi, pj,
-                                dtype=dtype, rule_dtype=rule_dtype)
+                                (radii[i], radii[j]), i == j, pi, pj,
+                                dtype=dtype, rule_dtype=rule_dtype,
+                                symmetric=_symmetric(cell))
         out[i] = (out[i][0] + s, out[i][1] + m) if i in out else (s, m)
         hits += h
     return out, hits
@@ -146,7 +164,7 @@ def _check(value, limit, rule: str = "<=") -> dict:
 
 def judge(cell, inputs, start, outputs, moves: int, zsort_moves) -> dict:
     """The checks of one run and whether all of them hold."""
-    radius = cell.config["radius"]
+    radii = _radii(cell, inputs, start)
     mismatch, disorder, x_ref = _state(inputs, start, outputs, moves,
                                        zsort_moves)
     checks = {"rows_mismatch": _check(mismatch, 0)}
@@ -154,7 +172,7 @@ def judge(cell, inputs, start, outputs, moves: int, zsort_moves) -> dict:
         checks["zsort_disorder"] = _check(disorder, 0)
     ref_pairs = 0
     if cell.traffic.get("reduce"):
-        want, ref_pairs = reference_sums(cell, inputs, x_ref)
+        want, ref_pairs = reference_sums(cell, inputs, start, x_ref)
         worst = 0.0
         for i, n in enumerate(inputs.sizes):
             got = outputs["reduce"][f"s{i}"].double()
@@ -169,24 +187,29 @@ def judge(cell, inputs, start, outputs, moves: int, zsort_moves) -> dict:
     else:
         bad = 0
         for i, j in active_pairs(cell.config):
-            want = ref.neighbor_keys(x_ref[i], x_ref[j], radius, i == j)
+            want = ref.neighbor_keys(x_ref[i], x_ref[j],
+                                     (radii[i], radii[j]), i == j,
+                                     symmetric=_symmetric(cell))
             ref_pairs += int(want[1].shape[0])
             got = outputs["pairs"].get(f"{i}-{j}")
             bad += _pairs_mismatch(got, want) if got is not None \
                 else int(want[1].shape[0]) + inputs.sizes[i]
+        active = {f"{i}-{j}" for i, j in active_pairs(cell.config)}
+        bad += sum(int(keys.shape[0]) for name, (_, keys)
+                   in outputs["pairs"].items() if name not in active)
         checks["nbr_mismatch"] = _check(bad, 0)
     checks["ref_pairs"] = _check(ref_pairs, 1, ">=")
     correct = all(c["value"] <= c["limit"] if c["rule"] == "<="
                   else c["value"] >= c["limit"] for c in checks.values())
     return {"correct": correct, "checks": checks, "ref_pairs": ref_pairs,
-            "x_ref": x_ref}
+            "x_ref": x_ref, "radii": radii}
 
 
 def control_outputs(cell, inputs, start, moves: int, zsort_moves) -> dict:
     """The reference in bfloat16 in the program's place: the last z-sort's
     order by bfloat16 Morton keys, and the neighbor sets or sums of the
     last step under the bfloat16 rule."""
-    radius = cell.config["radius"]
+    radii = _radii(cell, inputs, start)
     outputs = {"points": inputs.points.clone(),
                "user": [u.clone() for u in inputs.user],
                "pairs": {}, "reduce": {}}
@@ -206,7 +229,7 @@ def control_outputs(cell, inputs, start, moves: int, zsort_moves) -> dict:
                 inputs.of_set(flat, i).copy_(
                     inputs.of_set(flat0, i)[perms[i][order]])
     if cell.traffic.get("reduce"):
-        sums, _ = reference_sums(cell, inputs, x_ref, CONTROL_DTYPE,
+        sums, _ = reference_sums(cell, inputs, start, x_ref, CONTROL_DTYPE,
                                  CONTROL_DTYPE)
         for i, n in enumerate(inputs.sizes):
             outputs["reduce"][f"s{i}"] = sums[i][0].float() if i in sums \
@@ -215,7 +238,8 @@ def control_outputs(cell, inputs, start, moves: int, zsort_moves) -> dict:
     else:
         for i, j in active_pairs(cell.config):
             outputs["pairs"][f"{i}-{j}"] = ref.neighbor_keys(
-                x_ref[i], x_ref[j], radius, i == j, CONTROL_DTYPE)
+                x_ref[i], x_ref[j], (radii[i], radii[j]), i == j,
+                CONTROL_DTYPE, symmetric=_symmetric(cell))
     return outputs
 
 
@@ -223,8 +247,10 @@ def least_time(cell, verdict: dict) -> dict:
     """``roofline.least_time`` of the last step's inputs."""
     x_ref = verdict["x_ref"]
     act = active_pairs(cell.config)
+    symmetric = _symmetric(cell)
     tests = roofline.stencil_tests(x_ref, act, cell.config["cell_factor"]
-                                   * cell.config["radius"])
+                                   * radius(cell.config), verdict["radii"],
+                                   symmetric)
     used = sorted({i for i, _ in act} | {j for _, j in act})
     n_points = sum(x_ref[i].shape[0] for i in used)
     reduce = cell.traffic.get("reduce")
@@ -233,7 +259,7 @@ def least_time(cell, verdict: dict) -> dict:
         return roofline.least_time(tests, verdict["ref_pairs"], n_points,
                                    n_queries, int(reduce["ops_per_hit"]),
                                    int(reduce["payload_columns"]),
-                                   int(reduce["n_out"]))
+                                   int(reduce["n_out"]), symmetric)
     n_queries = sum(x_ref[i].shape[0] for i, _ in act)
     return roofline.least_time(tests, verdict["ref_pairs"], n_points,
-                               n_queries)
+                               n_queries, symmetric=symmetric)

@@ -1,10 +1,13 @@
 """Plain PyTorch reference of what the benchmark judges.
 
-- ``neighbor_keys``: the exact fixed-radius neighbor sets, by a cell-list
-  grid search over the 27 cells around each query, in blocks of
-  candidates, under the float32 rule ``(dx*dx + dy*dy) + dz*dz <= r*r``
-  (each product and sum rounded on its own, ``r*r`` the float32 square of
-  the float32 radius), self excluded within one set;
+- ``neighbor_keys``: the exact neighbor sets, by a cell-list grid search
+  over the 27 cells around each query, in blocks of candidates, under the
+  port's float32 rule ``(dx*dx + dy*dy) + dz*dz <= r_i*r_i`` (each product
+  and sum rounded on its own, ``r_i*r_i`` the float32 square of the
+  query's float32 radius; with symmetric search also a hit where
+  ``d2 <= r_j*r_j``), self excluded within one set, on a grid sized by the
+  largest radius; a fixed radius is every point at that radius
+  (``uniform``);
 - ``pair_sums``: a per-query sum of a callback over those pairs, in
   float64;
 - ``morton_keys``: the Morton (Z-curve) key of each point at 2**20 cells
@@ -27,10 +30,25 @@ STENCIL = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
 MORTON_BITS = 20
 
 
-def r2_of(radius: float, dtype=torch.float32) -> torch.Tensor:
-    """The square of the radius, rounded to ``dtype`` after each step."""
-    r = torch.tensor(radius, dtype=torch.float64).to(dtype)
+def uniform(radius: float, *sets: torch.Tensor) -> tuple:
+    """Each set's per-point radii at one radius (float64, so that every
+    rule dtype rounds the radius once)."""
+    return tuple(torch.full((p.shape[0],), radius, dtype=torch.float64,
+                            device=p.device) for p in sets)
+
+
+def squares(radii: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Each per-point radius squared, rounded to ``dtype`` after each
+    step."""
+    r = radii.to(dtype)
     return r * r
+
+
+def reach(radii: tuple, symmetric: bool) -> float:
+    """The largest radius a pair's rule can use: the queries' ``r_i``, and
+    with ``symmetric`` the candidates' ``r_j`` too (0 with no point)."""
+    used = radii if symmetric else radii[:1]
+    return max((float(r.max()) for r in used if r.numel()), default=0.0)
 
 
 def advance(x: torch.Tensor, v: torch.Tensor, steps: int) -> torch.Tensor:
@@ -117,28 +135,36 @@ def _d2(q: torch.Tensor, c: torch.Tensor, qi, cj, dtype) -> torch.Tensor:
     return (dx * dx + dy * dy) + dz * dz
 
 
-def hit_blocks(q: torch.Tensor, c: torch.Tensor, radius: float,
+def hit_blocks(q: torch.Tensor, c: torch.Tensor, radii: tuple,
                same_set: bool, dtype=torch.float32,
-               max_candidates: int = MAX_CANDIDATES):
-    """Yields ``(qi, cj)`` blocks of the pairs within the radius under the
-    rule in ``dtype``; with ``same_set`` a point is not its own
-    neighbor."""
-    r2 = r2_of(radius, dtype).to(q.device)
-    for qi, cj in candidate_blocks(q, c, radius, max_candidates):
-        hit = _d2(q, c, qi, cj, dtype) <= r2
+               max_candidates: int = MAX_CANDIDATES, symmetric: bool = False):
+    """Yields ``(qi, cj)`` blocks of the pairs within ``r_i`` (with
+    ``symmetric`` or within ``r_j``) under the rule in ``dtype``, ``radii``
+    the queries' and the candidates' per-point radii; with ``same_set`` a
+    point is not its own neighbor."""
+    rq2, rc2 = (squares(r, dtype).to(q.device) for r in radii)
+    for qi, cj in candidate_blocks(q, c, reach(radii, symmetric),
+                                   max_candidates):
+        d2 = _d2(q, c, qi, cj, dtype)
+        hit = d2 <= rq2[qi]
+        if symmetric:
+            hit |= d2 <= rc2[cj]
         if same_set:
             hit &= qi != cj
         yield qi[hit], cj[hit]
 
 
-def neighbor_keys(q: torch.Tensor, c: torch.Tensor, radius: float,
+def neighbor_keys(q: torch.Tensor, c: torch.Tensor, radii: tuple,
                   same_set: bool, dtype=torch.float32,
-                  max_candidates: int = MAX_CANDIDATES) -> tuple:
+                  max_candidates: int = MAX_CANDIDATES,
+                  symmetric: bool = False) -> tuple:
     """``(counts, keys)``: the number of neighbors of each query (int64)
-    and the sorted int64 keys ``query << 32 | neighbor`` of every pair."""
+    and the sorted int64 keys ``query << 32 | neighbor`` of every pair;
+    ``radii`` and ``symmetric`` as ``hit_blocks`` takes them."""
     counts = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
     keys = []
-    for qi, cj in hit_blocks(q, c, radius, same_set, dtype, max_candidates):
+    for qi, cj in hit_blocks(q, c, radii, same_set, dtype, max_candidates,
+                             symmetric):
         counts += torch.bincount(qi, minlength=q.shape[0])
         keys.append(torch.sort((qi << 32) | cj).values)
     keys = torch.cat(keys) if keys else \
@@ -147,22 +173,25 @@ def neighbor_keys(q: torch.Tensor, c: torch.Tensor, radius: float,
 
 
 def pair_sums(fn, n_out: int, q: torch.Tensor, c: torch.Tensor,
-              radius: float, same_set: bool, payload_q: torch.Tensor,
+              radii: tuple, same_set: bool, payload_q: torch.Tensor,
               payload_c: torch.Tensor, dtype=torch.float64,
               rule_dtype=torch.float32,
-              max_candidates: int = MAX_CANDIDATES) -> tuple:
+              max_candidates: int = MAX_CANDIDATES,
+              symmetric: bool = False) -> tuple:
     """``(sums, magnitudes, pairs)``: ``fn(env)`` summed over each query's
     neighbors in ``dtype`` and the sum of the terms' absolute values, each
     (n_out, n_q), and the number of neighbor pairs.  The neighbors are
-    decided under the rule in ``rule_dtype``; ``env`` holds ``dx dy dz`` (candidate minus query), ``d2`` and the
-    payloads ``p0_i p1_i p0_j p1_j`` in ``dtype``."""
+    decided under the rule in ``rule_dtype`` (``radii`` and ``symmetric``
+    as ``hit_blocks`` takes them); ``env`` holds ``dx dy dz`` (candidate
+    minus query), ``d2`` and the payloads ``p0_i p1_i p0_j p1_j`` in
+    ``dtype``."""
     sums = torch.zeros((n_out, q.shape[0]), dtype=dtype, device=q.device)
     mags = torch.zeros_like(sums)
     qd, cd = q.to(dtype), c.to(dtype)
     pq, pc = payload_q.to(dtype), payload_c.to(dtype)
     pairs = 0
-    for qi, cj in hit_blocks(q, c, radius, same_set, rule_dtype,
-                             max_candidates):
+    for qi, cj in hit_blocks(q, c, radii, same_set, rule_dtype,
+                             max_candidates, symmetric):
         dx = cd[cj, 0] - qd[qi, 0]
         dy = cd[cj, 1] - qd[qi, 1]
         dz = cd[cj, 2] - qd[qi, 2]
@@ -209,15 +238,18 @@ def box_of(sets: list) -> tuple:
     return lo, hi
 
 
-def brute_force_keys(q: np.ndarray, c: np.ndarray, radius: float,
-                     same_set: bool) -> tuple:
+def brute_force_keys(q: np.ndarray, c: np.ndarray, radii: tuple,
+                     same_set: bool, symmetric: bool = False) -> tuple:
     """``neighbor_keys`` by testing every pair, in numpy, for tests on
-    small clouds."""
+    small clouds; ``radii`` (numpy) and ``symmetric`` as ``hit_blocks``
+    takes them."""
     q, c = q.astype(np.float32), c.astype(np.float32)
     d = c[None, :, :] - q[:, None, :]
     d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-    r = np.float32(radius)
-    hit = d2 <= r * r
+    rq, rc = (np.asarray(r, dtype=np.float32) for r in radii)
+    hit = d2 <= (rq * rq)[:, None]
+    if symmetric:
+        hit |= d2 <= (rc * rc)[None, :]
     if same_set:
         np.fill_diagonal(hit, False)
     qi, cj = np.nonzero(hit)

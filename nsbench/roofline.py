@@ -2,11 +2,18 @@
 worked out from the benchmark's inputs alone.
 
 Operations: the distance tests the inputs need, 9 float32 operations each
-(three differences, three products, two sums, one compare): each query
-against the candidates of the sets it searches in the 27 cells around its
-own cell, on a grid of the configuration's cell size whose origin is the
-smallest coordinate of all points, itself left out; a reduce step adds
-the traffic's operations per neighbor pair found.
+(three differences, three products, two sums, one compare; symmetric
+search compares against ``r_j*r_j`` too, 10): each query against the
+candidates of the sets it searches in the box of cells its reach covers
+around its own cell (its radius, with symmetric search the larger of it
+and the candidate set's largest radius; 27 cells where the cell is at
+least that), on a grid of the configuration's cell size whose origin is
+the smallest coordinate of all points, itself left out; a reduce step
+adds the traffic's operations per neighbor pair found.  The count
+follows the configuration's cell size: a cell wider than the radius
+counts candidates that no radius reaches, so where the operations bound
+the least time, the kernel's share of it reads higher than the tests the
+rule needs would make it.
 
 Bytes: every point's coordinates read once; a list step writes each
 active pair's counts (4 B per query) and 4 B per neighbor pair found; a
@@ -36,23 +43,34 @@ def _histogram(p: torch.Tensor, lo: torch.Tensor, cell: float,
         *dims.tolist())
 
 
-def _box27(h: torch.Tensor) -> torch.Tensor:
-    """Each cell's sum over the 27 cells around it (outside counts 0)."""
-    a, b, c = h.shape
-    pad = torch.zeros((a + 2, b + 2, c + 2), dtype=h.dtype, device=h.device)
-    pad[1:-1, 1:-1, 1:-1] = h
-    out = torch.zeros_like(h)
-    for i in range(3):
-        for j in range(3):
-            for k in range(3):
-                out += pad[i:i + a, j:j + b, k:k + c]
+def _box(h: torch.Tensor, w: int) -> torch.Tensor:
+    """Each cell's sum over the cells within ``w`` of it along every axis
+    (outside counts 0)."""
+    out = h
+    for axis in range(3):
+        n = out.shape[axis]
+        shape = list(out.shape)
+        shape[axis] = 1
+        ends = torch.cat([torch.zeros(shape, dtype=h.dtype, device=h.device),
+                          torch.cumsum(out, axis)], axis)
+        at = torch.arange(n, device=h.device)
+        out = ends.index_select(axis, torch.clamp(at + w + 1, max=n)) \
+            - ends.index_select(axis, torch.clamp(at - w, min=0))
     return out
 
 
-def stencil_tests(sets: list, active: list, cell: float) -> int:
+def _reach_cells(reach: torch.Tensor, cell: float) -> torch.Tensor:
+    """The least ``w >= 1`` with ``w * cell >= reach``, per point."""
+    return torch.clamp(torch.ceil(reach.double() / cell), min=1).long()
+
+
+def stencil_tests(sets: list, active: list, cell: float, radii: list,
+                  symmetric: bool = False) -> int:
     """Distance tests of the active ``(i, j)`` pairs of point sets
-    ``sets``: each point of set i against the points of set j in the 27
-    cells around its own, itself left out."""
+    ``sets`` with per-point ``radii``: each point of set i against the
+    points of set j in the box of ``_reach_cells`` cells around its own,
+    its reach ``r_i`` or, with ``symmetric``, the larger of ``r_i`` and
+    set j's largest radius; itself left out."""
     live = [p for p in sets if p.shape[0]]
     if not live:
         return 0
@@ -60,12 +78,15 @@ def stencil_tests(sets: list, active: list, cell: float) -> int:
     hi = torch.stack([p.double().amax(dim=0) for p in live]).amax(dim=0)
     dims = torch.floor((hi - lo) / cell).long() + 1
     hist = [_histogram(p, lo, cell, dims) for p in sets]
-    boxed = {}
     tests = 0
     for i, j in active:
-        if j not in boxed:
-            boxed[j] = _box27(hist[j])
-        tests += int((hist[i] * boxed[j]).sum())
+        reach = radii[i]
+        if symmetric and radii[j].numel():
+            reach = torch.clamp(reach, min=float(radii[j].max()))
+        w = _reach_cells(reach, cell)
+        for wk in torch.unique(w).tolist():
+            h = _histogram(sets[i][w == wk], lo, cell, dims)
+            tests += int((h * _box(hist[j], wk)).sum())
         if i == j:
             tests -= sets[i].shape[0]
     return tests
@@ -73,13 +94,14 @@ def stencil_tests(sets: list, active: list, cell: float) -> int:
 
 def least_time(tests: int, hits: int, n_points: int, n_queries: int,
                ops_per_hit: int = 0, payload_columns: int = 0,
-               n_out: int = 0) -> dict:
+               n_out: int = 0, symmetric: bool = False) -> dict:
     """The bound of one step: ``tests`` distance tests and ``hits``
     neighbor pairs found over all active pairs, ``n_points`` points read
     and ``n_queries`` query rows written (one per query and active pair);
     ``n_out`` > 0 makes it a reduce step, which reads ``payload_columns``
-    float32 values per point and writes ``n_out`` sums per query row."""
-    ops = tests * OPS_PER_TEST + hits * ops_per_hit
+    float32 values per point and writes ``n_out`` sums per query row;
+    ``symmetric`` adds the second compare to each test."""
+    ops = tests * (OPS_PER_TEST + symmetric) + hits * ops_per_hit
     moved = 12 * n_points
     if n_out:
         moved += 4 * payload_columns * n_points + 4 * n_out * n_queries

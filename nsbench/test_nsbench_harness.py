@@ -153,3 +153,50 @@ def test_trace_charges_device_work_to_spans():
     assert rec["window_ms"] == pytest.approx(0.115)
     assert dict(rec["idle_gaps"]) == pytest.approx(
         {"zsort": 20e-6, "step": 10e-6, "none": 20e-6})
+
+
+@pytest.mark.parametrize("keys", [
+    {"radius": 0.02, "radii": {"low": 0.8, "high": 1.25, "scale": 0.025}},
+    {"radius": 0.02, "symmetric": True}])
+def test_contradicting_radius_keys_are_refused(keys):
+    """With per-point radii the radius is their smallest, so a
+    configuration may not state it too, nor search symmetrically without
+    them."""
+    config = dict(json.loads((HERE / "configs" / "cfg1_1m_uniform.json")
+                             .read_text()), **keys)
+    if "radii" in keys:
+        assert cells.radius({"radii": keys["radii"]}) == 0.8 * 0.025
+    with pytest.raises(ValueError):
+        cells.check_config(config)
+
+
+def paced_loop(slow_s: float):
+    """A stand-in for ``harness.Loop`` on the CPU whose steps take 2 ms
+    for their first ``slow_s`` seconds and 1 ms after."""
+    t0 = []
+
+    def run_step():
+        import time
+        if not t0:
+            t0.append(time.perf_counter())
+        time.sleep(0.002 if time.perf_counter() - t0[0] < slow_s else 0.001)
+
+    return SimpleNamespace(device=torch.device("cpu"), every=0,
+                           run_step=run_step)
+
+
+@pytest.mark.parametrize("slow_s,least,most", [(0.5, 3.0, 4.5),
+                                               (4.2, 5.0, 6.5),
+                                               (60.0, 6.0, 7.5)])
+def test_the_warm_up_goes_on_until_the_steps_have_sped_up(slow_s, least,
+                                                          most):
+    """At least ``warm_seconds``, then until a 1 s stretch is ``warm_drop``
+    faster than the slowest before it, never past twice
+    ``warm_seconds``."""
+    import time
+    traffic = {"warm_seconds": 3, "warm_drop": 0.2}
+    t0 = time.perf_counter()
+    said = harness.warm_up(paced_loop(slow_s), traffic)
+    took = time.perf_counter() - t0
+    assert least <= took <= most, (took, said)
+    assert ("no time" in said) == (slow_s > 6)
