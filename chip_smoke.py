@@ -32,8 +32,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 5. BASELINE config 4 (``bench_configs.py:143-152``): 250,000 points with
    radii uniform in [0.8, 1.25] x 0.032, all searches, symmetric: K2c
    and K4's ``<true, true>`` instance against their plain versions, with
-   their times and bounds, K2c over the same grid with every tile dead,
-   6 runs, a cKDTree sample;
+   their times (each K2's without and with ``tested``) and bounds, K2c
+   over the same grid with every tile dead, 6 runs, a cKDTree sample;
 6. two small sets with variable radii, symmetric search off, against
    the port's brute-force oracle (K2c with two candidate-set blocks);
 7. ``run_reduce`` at config 1 (``benchmarks/bench_reduce_1m.py``'s
@@ -153,7 +153,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    step capped below its rows flagging ``mask_overflow`` with exact
    counts, the split step (K4 then K5), config 3's two-set step (K2b) and
    config 4's variable symmetric step (K2c; a radius change at static
-   positions rebuilds), each replayed against eager steps, bit for bit.
+   positions rebuilds; radii past its W flag ``reach_overflow``, within
+   it not), each replayed against eager steps, bit for bit.
    Then the steps off the fused route, each captured once and replayed at
    static and 2 jittered positions against eager steps (every pair's
    counts, ``max_count`` and rows slot for slot, every flag), 3 replays
@@ -696,8 +697,28 @@ def check_pairs(eng, carry, a, time_plain: bool = True) -> dict:
     print(f"{kernel.__name__}: {rec['ms']:.4f} ms against a bound of "
           f"{rec['bound_ms']:.4f} ms, skip share {rec['skip_share']:.4f}",
           flush=True)
+    timed_counter(rec, a, q, dev)
     rec["library_ms"] = None   # no single PyTorch call computes it
     return rec
+
+
+def timed_counter(rec: dict, a, q, dev) -> None:
+    """The pairs kernel without and with its ``tested`` counter (one
+    atomicAdd per warp and tile, as a variable-radius step passes it), in
+    turns without, with, with, without; the lower of each pair goes into
+    ``rec`` as ``ms_uncounted``/``ms_counted``."""
+    import torch
+    from treensearch_tpu_torch.ops import fastpath as fp
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    times = [median_ms(lambda t=t: fp.run_pairs(a, q, tested=t), dev,
+                       per=KERNEL_BATCH) for t in (None, tested, tested,
+                                                   None)]
+    rec["ms_uncounted"] = min(times[0], times[3])
+    rec["ms_counted"] = min(times[1], times[2])
+    print(f"{rec['name']}: without the tested counter {times[0]:.4f} / "
+          f"{times[3]:.4f} ms, with it {times[1]:.4f} / {times[2]:.4f} ms "
+          f"(median of {REPS} runs of {KERNEL_BATCH} calls each): "
+          f"{rec['ms_counted'] / rec['ms_uncounted'] - 1:+.2%}", flush=True)
 
 
 def check_kernels(pts_t, radius) -> list:
@@ -1966,7 +1987,9 @@ def graph_vs_eager(label: str, make, args: tuple, kw: dict, path: tuple,
     ``rebuilt``).  Returns the graph, its static solution, its launches
     and memory (``capture_step``), host ms per replay over ``replays``
     replays at the last inputs, the median host ms of the eager steps
-    beside the replays, and each moved replay's ``rebuilt``."""
+    beside the replays, each moved replay's ``rebuilt`` and the graph's
+    state (the carry and grid its replays write: hold it while the graph
+    is replayed, or its memory may serve other tensors)."""
     import torch
     step, state = make()
     graph, sol, state, launches, memory = capture_step(step, state, args,
@@ -2013,7 +2036,8 @@ def graph_vs_eager(label: str, make, args: tuple, kw: dict, path: tuple,
           flush=True)
     return {"graph": graph, "sol": sol, "launches": launches,
             "memory": memory, "ms": ms,
-            "eager_ms": statistics.median(eager_ms), "rebuilt": rebuilt}
+            "eager_ms": statistics.median(eager_ms), "rebuilt": rebuilt,
+            "state": state}
 
 
 def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
@@ -2151,12 +2175,53 @@ def run_step_graphs(pts_t, mass_t, card: str, data3: tuple, data4: tuple,
     if g["rebuilt"][0] != 1:
         raise AssertionError("config 4 step graph: a radius change at "
                              "static positions did not rebuild (r_chk)")
-    out["config 4"] = {"ms": g["ms"]}
+    out["config 4"] = {"ms": g["ms"], "reach": check_reach_graph(
+        g, eng, static4, radii4, pts4, rad4, card)}
     del g, eng
     torch.cuda.empty_cache()
     out.update(run_fallback_graphs(pts_t, card, data3, data4, zsort_ms))
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# phase 17: radii scales replayed in config 4's step graph, each with the
+# reach_overflow it must read: W = 2 cells of 1.5 r_min reach 0.0768, and
+# the largest radius is just below 0.04
+REACH_SCALES = ((1.0, 0), (1.9, 0), (2.0, 1), (2.5, 1), (0.5, 0), (1.0, 0))
+
+
+def check_reach_graph(g: dict, eng, static, radii, pts, rad,
+                      card: str) -> list:
+    """Config 4's captured step (``graph_vs_eager``'s ``g`` on the inputs
+    ``static``, ``radii``) replayed at the radii of REACH_SCALES, each
+    against an eager step of a fresh ``make_step_fn(reuse=True)``: its
+    ``reach_overflow`` as REACH_SCALES says, its ``tested`` and pairs
+    equal to the eager step's.  Returns the flags read."""
+    import torch
+    static.copy_(pts)
+    estep, estate = eng.make_step_fn(reuse=True)
+    flags = []
+    for scale, want in REACH_SCALES:
+        radii.copy_(rad * np.float32(scale))
+        g["graph"].replay()
+        sol = g["sol"]
+        eager, estate = estep(estate, pts, radii=radii.clone())
+        flags.append(int(sol["reach_overflow"]))
+        if flags[-1] != want or int(eager["reach_overflow"]) != want:
+            raise AssertionError(f"config 4 step graph: radii x {scale} "
+                                 f"read reach_overflow {flags[-1]} (eager "
+                                 f"{int(eager['reach_overflow'])}), not "
+                                 f"{want}")
+        if not torch.equal(sol["tested"], eager["tested"]):
+            raise AssertionError(f"config 4 step graph: radii x {scale}: "
+                                 f"tested {int(sol['tested'])} against the "
+                                 f"eager step's {int(eager['tested'])}")
+        _same_pairs(sol["pairs"], eager["pairs"], f"config 4 x {scale}")
+    print(f"config 4 step graph: reach_overflow {flags} at radii x "
+          f"{[s for s, _ in REACH_SCALES]} (W = 2 cells of "
+          f"{float(eng._last_stats['cell_size']):.6g}), each replay's tested "
+          f"and pairs equal to an eager step's ({card})", flush=True)
+    return flags
 
 
 N_SLOW_REPLAYS = 3     # phase 17: timed and profiled replays of the

@@ -837,8 +837,18 @@ class TreeNSearch:
         ``run_reduce``/``run_mask`` for those steps) once first to settle
         them.  The step does not regrow: the overflow flags
         (``dense_overflow``, ``rows_overflow``, ``tile_overflow``,
-        ``error``) and each pair's ``max_count`` are in the solution for
-        the caller to read.  The pairs' solutions feed
+        ``error``, and in variable mode on the fast routes
+        ``reach_overflow``) and each pair's ``max_count`` are in the
+        solution for the caller to read.  The stencil width W and the
+        cell size are fixed when the step is made; ``reach_overflow`` is
+        1 when a step's largest radius needs more than W cells (by
+        ``_stencil_w``'s test), and its neighbor sets then lack pairs:
+        make the step again after a ``run()`` on the new radii.  A
+        variable-radius step that runs K2c (the fused route's neighbor
+        lists without split staging) also returns ``solution["tested"]``,
+        a (1,) int64 count of the candidates K2c's warps tested after
+        their cull (on the CPU, ``ops.pairs.warp_cull``'s).  The pairs'
+        solutions feed
         ``ops.fastpath.materialize_nbrs`` and ``NeighborSolution`` as
         ``run()``'s do.
 
@@ -940,6 +950,15 @@ class TreeNSearch:
         if fast and not carried:
             _require_descriptor_stencil(w)
         consts = self._step_consts(cfg, knobs, cell, sr)
+        # K2c's post-cull test count, in variable steps that launch it
+        count_tests = cfg.variable and fast and reduce is None \
+            and not mask_output and not knobs.split_stage \
+            and applicable(cfg, knobs)
+
+        def tested():
+            return torch.zeros(1, dtype=torch.int64, device=dev) \
+                if count_tests else None
+
         # K4 runs in mask steps and in split staging on the fused route
         rows_cap = self._step_rows_cap(cfg, knobs, consts) if fast and n > 0 \
             and (mask_output or (reduce is None and knobs.split_stage
@@ -981,14 +1000,16 @@ class TreeNSearch:
                 grid, carry = state
                 sol, grid, carry = build_and_search_fast_carry(
                     points, sr, grid, carry, cfg, knobs, radii=radii,
-                    mask=mask_output, consts=consts, rows_cap=rows_cap)
+                    mask=mask_output, consts=consts, rows_cap=rows_cap,
+                    tested=tested())
                 return sol, (grid, carry)
         elif fast:
             def step(state, points, radii=None):
                 check(points, radii)
                 return build_and_search_fast(points, sr, state, cfg, knobs,
                                              radii=radii, consts=consts,
-                                             rows_cap=rows_cap)
+                                             rows_cap=rows_cap,
+                                             tested=tested())
 
             return step, fresh_state(dev)
         else:

@@ -66,15 +66,20 @@ def carry_from_numpy(d, device="cpu") -> FastCarry:
 
     desc = i32("desc")
     desc[:, FAT_COL] = torch.where(desc[:, FAT_COL] == 2, 2, 0)
+    r_chk = _t(d["r_chk"], torch.float32, device)
     return FastCarry(
         valid=_t(d["valid"], torch.bool, device),
         lin_s=i32("lin_s"), lin_chk=i32("lin_chk"),
-        r_chk=_t(d["r_chk"], torch.float32, device), idx_s=i32("idx_s"),
+        r_chk=r_chk, idx_s=i32("idx_s"),
         inv_perm=i32("inv_perm"), pp=i32("pp"), qpos=i32("qpos"),
         desc=desc, dense_overflow=i32("dense_overflow"),
         tile_overflow=i32("tile_overflow"),
         rows_overflow=i32("rows_overflow"), win_max=i32("win_max"),
-        n_cells_stat=i32("n_cells_stat"))
+        n_cells_stat=i32("n_cells_stat"),
+        # the JAX carry has no reach flag: 0 in variable mode (r_chk holds
+        # the radii), (0,) at a fixed radius
+        reach_overflow=torch.zeros(() if r_chk.numel() else (0,),
+                                   dtype=torch.int32, device=device))
 
 
 def sorted_structure_from_numpy(d, device="cpu") -> SortedStructure:

@@ -107,6 +107,9 @@ class FastCarry(NamedTuple):
     rows_overflow: torch.Tensor
     win_max: torch.Tensor      # () widest window
     n_cells_stat: torch.Tensor  # () occupied cells
+    reach_overflow: torch.Tensor  # () 1 when the largest radius needs
+    #                               more than the static W ((0,) at a
+    #                               fixed radius)
 
 
 def default_tiles_cap(n: int) -> int:
@@ -132,6 +135,8 @@ class StepConsts(NamedTuple):
     cell_size: torch.Tensor   # () float32
     di: torch.Tensor          # (n_win,) int32: each window's row offsets
     dj: torch.Tensor          # (the stencil offsets of every route)
+    ring: torch.Tensor        # (n_win,) int32 max(|di|, |dj|): the cells
+    #                           a window lies out (the variable prep's)
     r2: torch.Tensor          # () float32 square of the float32 radius
     #                           (the tile path and the pipeline)
     set_off: torch.Tensor     # (n_sets + 1,) int32 first index of each set
@@ -154,6 +159,7 @@ def step_constants(cfg: SearchConfig, knobs: FastKnobs, cell_size: float,
     return StepConsts(
         torch.tensor(cell_size, dtype=torch.float32, device=device),
         offs[:, 0].contiguous(), offs[:, 1].contiguous(),
+        offs.abs().amax(dim=1),
         torch.tensor(r * r, dtype=torch.float32, device=device),
         torch.tensor(cfg.set_offsets, dtype=torch.int32, device=device),
         set_ids_of(cfg, device) if cfg.n_sets > 1 else None,
@@ -238,9 +244,12 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     window's k-run lies in one grid row, so it stays contiguous and keeps
     its length.  In variable mode (``cfg.variable``, ``radii`` (n,)
     float32) each window reaches only as far as the larger of the tile's
-    and the neighbor row's largest radius.  Requires ``cfg.n_points >
-    0``.  ``_prep.calls`` counts its calls.  ``consts`` are the search's
-    ``step_constants``, so the prep copies nothing from the host.
+    and the neighbor row's largest radius, at most the static W cells;
+    ``reach_overflow`` is 1 when the largest radius needs more (the
+    windows then miss neighbors), by ``api._stencil_w``'s float32 test.
+    Requires ``cfg.n_points > 0``.  ``_prep.calls`` counts its calls.
+    ``consts`` are the search's ``step_constants``, so the prep copies
+    nothing from the host.
 
     The sharded search's parameters (``fastpath.py:499-515, 699-705,
     733-736`` of the JAX package): ``valid`` ((n,) bool) parks the rows
@@ -340,15 +349,23 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
     base = torch.clamp(rp * dz, max=dense_cap)
     if cfg.variable:
         # smallest whole number of cells that covers the reach, by the
-        # same float32 test as the host's stencil width (no epsilon)
+        # same float32 test as the host's stencil width (no epsilon); a
+        # reach is >= 0, so the cast floors
         reach = torch.maximum(tile_rmax[:, None],
                               row_rmax[torch.clamp(rp, max=rows_cap - 1)])
-        w0 = torch.floor(reach * inv_cell).to(torch.int32)
-        wk = torch.clamp(torch.where(w0.to(torch.float32) * state.cell_size
-                                     >= reach, w0, w0 + 1), 1, w)
-        ok = torch.maximum(di.abs(), dj.abs())[None, :] <= wk
+        w0 = (reach * inv_cell).to(torch.int32)
+        wn = w0 + (w0.to(torch.float32) * state.cell_size < reach)
+        wk = torch.clamp(wn, 1, w)
+        ok = consts.ring[None, :] <= wk
+        # no reach exceeds the largest radius, and the tile holding it
+        # reaches by it in its own row (the centre window): the centre
+        # column's widest need is the largest radius's
+        reach_overflow = torch.gt(
+            wn[:, len(st["offs_2d"]) // 2].amax(), w,
+            out=torch.empty((), dtype=torch.int32, device=dev))
     else:
         wk, ok = w, True
+        reach_overflow = torch.zeros(0, dtype=torch.int32, device=dev)
     s = table[torch.clamp(base + k0[:, None] - wk, 0, dense_cap).long()]
     e = table[torch.clamp(base + k1[:, None] + wk + 1, 0, dense_cap).long()]
     lens = torch.clamp(e - s, min=0) * (has[:, None] & ok)
@@ -383,7 +400,8 @@ def _prep(points: torch.Tensor, state: GridState, cfg: SearchConfig,
         pp=pp,
         qpos=qpos, desc=desc, dense_overflow=dense_overflow,
         tile_overflow=tile_overflow, rows_overflow=rows_overflow,
-        win_max=_i32(lens.max()), n_cells_stat=n_cells_stat)
+        win_max=_i32(lens.max()), n_cells_stat=n_cells_stat,
+        reach_overflow=reach_overflow)
 
 
 _prep.calls = 0
@@ -418,7 +436,8 @@ def make_fast_carry0(cfg: SearchConfig, knobs: FastKnobs,
                           device=device),
         idx_s=z(n), inv_perm=z(n), pp=z(n), qpos=z(n),
         desc=z(st["nt8"], DESC_W), dense_overflow=z(), tile_overflow=z(),
-        rows_overflow=z(), win_max=z(), n_cells_stat=z())
+        rows_overflow=z(), win_max=z(), n_cells_stat=z(),
+        reach_overflow=z() if cfg.variable else z(0))
 
 
 def sorted_records(points: torch.Tensor, idx_s: torch.Tensor,
@@ -580,13 +599,17 @@ _FLAGS = ("n_cells", "error", "dense_overflow", "tile_overflow",
 
 def _flags(state: GridState, carry: FastCarry, tiles_cap: int) -> dict:
     """The regrow flags and statistics every search returns, copied out of
-    the state and carry in one stack (a step rewrites those in place)."""
+    the state and carry in one stack (a step rewrites those in place);
+    in variable mode ``reach_overflow`` too."""
     # dead tiles (FAT_COL = 2) are a suffix of the layout
     used = _i32((carry.desc[:tiles_cap, FAT_COL] != 2).sum())
-    flags = dict(zip(_FLAGS, torch.stack([
+    names, values = _FLAGS, [
         carry.n_cells_stat, state.error, carry.dense_overflow,
-        carry.tile_overflow, carry.rows_overflow, used,
-        carry.win_max]).unbind()))
+        carry.tile_overflow, carry.rows_overflow, used, carry.win_max]
+    if carry.reach_overflow.dim() == 0:
+        names, values = names + ("reach_overflow",), \
+            values + [carry.reach_overflow]
+    flags = dict(zip(names, torch.stack(values).unbind()))
     # no window is cut on the fused route
     flags["cand_max"] = torch.zeros_like(carry.win_max)
     return flags
@@ -648,11 +671,13 @@ def _search(points: torch.Tensor, radii: torch.Tensor | None,
             search_radius: float, state: GridState, carry: FastCarry,
             cfg: SearchConfig, knobs: FastKnobs,
             allow: torch.Tensor | None = None, set_ids=None,
-            rows_cap: int | None = None) -> dict:
+            rows_cap: int | None = None, tested=None) -> dict:
     """Record build, K1, the pairs kernel and the counts epilogue
     (``_pallas_search``, neighbor-list branch, ``fastpath.py:1465-1589``);
     with ``allow`` (split staging), K4 (its rows capped at ``rows_cap``,
-    with ``_mask_flags``) and K5 in the pairs kernel's place.
+    with ``_mask_flags``) and K5 in the pairs kernel's place.  Without
+    ``allow``, ``tested`` (a (1,) int64 counter) goes to the pairs
+    kernel (``run_pairs``) and into the solution as ``tested``.
 
     One output block per distinct candidate set: pairs (si, sj) that share
     sj share its tile-layout rows, each through its own slice of ``qpos``
@@ -663,7 +688,9 @@ def _search(points: torch.Tensor, radii: torch.Tensor | None,
     q_t = expand_query_tiles(a.desc, a.recs_t, a.tiles_cap, cfg.n_points)
     extra = {}
     if allow is None:
-        counts_t, nbrs_t = run_pairs(a, q_t)
+        counts_t, nbrs_t = run_pairs(a, q_t, tested=tested)
+        if tested is not None:
+            extra["tested"] = tested
     else:
         counts_t, nbrs_t, cand_base = split_pairs(a, q_t, allow,
                                                   rows_cap=rows_cap)
@@ -700,10 +727,13 @@ def _empty_solution(cfg: SearchConfig, state: GridState) -> dict:
             "nbrs": torch.full((n_i, round_up(cfg.cap_of(sj), 8)), -1,
                                dtype=torch.int32, device=dev),
             "max_count": zero}
-    return {"pairs": pairs, "n_cells": zero, "error": state.error.clone(),
-            "dense_overflow": zero, "tile_overflow": zero,
-            "rows_overflow": zero, "tiles_used": zero, "win_max": zero,
-            "cand_max": zero}
+    sol = {"pairs": pairs, "n_cells": zero, "error": state.error.clone(),
+           "dense_overflow": zero, "tile_overflow": zero,
+           "rows_overflow": zero, "tiles_used": zero, "win_max": zero,
+           "cand_max": zero}
+    if cfg.variable:
+        sol["reach_overflow"] = zero
+    return sol
 
 
 def applicable(cfg: SearchConfig, knobs: FastKnobs) -> bool:
@@ -732,7 +762,7 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
                           payload: torch.Tensor | None = None,
                           mask: bool = False, *, consts: StepConsts,
                           rows_cap: int | None = None,
-                          snug_tiles: bool = False
+                          snug_tiles: bool = False, tested=None
                           ) -> tuple[dict, GridState]:
     """One full search, rebuilt on every call: grid update, prep,
     records, K1, the pairs kernel, counts; where ``applicable`` refuses,
@@ -746,7 +776,8 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
     full window cap (``_xla_tile_search``'s static sizes); with
     ``snug_tiles`` it reads the live tile count and the widest window
     back first (one host read) and tests only as far as they reach,
-    with the same result.
+    with the same result.  ``tested`` as ``_search`` takes it (on the
+    fused route's pairs kernel only).
 
     The new grid is written into ``state``'s tensors, which are returned.
     ``consts`` are ``step_constants(cfg, knobs, cell_size, device,
@@ -765,7 +796,7 @@ def build_and_search_fast(points: torch.Tensor, search_radius: float,
         carry = _prep(points, state, cfg, knobs, radii, consts=consts)
         return _search_any(points, radii, payload, search_radius, state,
                            carry, cfg, knobs, reduce, mask, consts,
-                           rows_cap), state
+                           rows_cap, tested), state
     carry = _prep(points, state, cfg, knobs, radii, padded=True,
                   consts=consts)
     st = _statics(cfg, knobs)
@@ -894,7 +925,7 @@ def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
                                 payload: torch.Tensor | None = None,
                                 mask: bool = False, *,
                                 consts: StepConsts,
-                                rows_cap: int | None = None
+                                rows_cap: int | None = None, tested=None
                                 ) -> tuple[dict, GridState, FastCarry]:
     """One step of ``build_and_search_fast`` that reuses the carried cell
     structure when no point changed cells (``fastpath.py:1609-1655`` of
@@ -915,8 +946,8 @@ def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
     conditional node, so a replay runs it only when it must).  The
     solution shares no tensor with them.  ``carry`` must come from
     ``make_fast_carry0`` or an earlier step with the same ``cfg`` and
-    ``knobs``; ``consts`` and ``rows_cap`` as in ``build_and_search_fast``.
-    Needs ``cfg.n_points > 0``."""
+    ``knobs``; ``consts``, ``rows_cap`` and ``tested`` as in
+    ``build_and_search_fast``.  Needs ``cfg.n_points > 0``."""
     if cfg.n_points == 0:
         raise ValueError("the carried step needs at least one point")
     if not contracts_applicable(cfg, knobs):
@@ -946,13 +977,14 @@ def build_and_search_fast_carry(points: torch.Tensor, search_radius: float,
         sol = _empty_solution(cfg, state)
     else:
         sol = _search_any(points, radii, payload, search_radius, state,
-                          view, cfg, knobs, reduce, mask, consts, rows_cap)
+                          view, cfg, knobs, reduce, mask, consts, rows_cap,
+                          tested)
     sol["rebuilt"] = rebuild.to(torch.int32)
     return sol, state, carry
 
 
 def _search_any(points, radii, payload, search_radius, state, carry, cfg,
-                knobs, reduce, mask, consts, rows_cap) -> dict:
+                knobs, reduce, mask, consts, rows_cap, tested=None) -> dict:
     """The search on a prep's structures: the fused reduce, the mask or
     the neighbor lists (with split staging under ``knobs.split_stage``)."""
     if reduce is not None:
@@ -964,7 +996,7 @@ def _search_any(points, radii, payload, search_radius, state, carry, cfg,
                             knobs, consts.allow, consts.set_ids, rows_cap)
     return _search(points, radii, search_radius, state, carry, cfg, knobs,
                    consts.allow if knobs.split_stage else None,
-                   consts.set_ids, rows_cap)
+                   consts.set_ids, rows_cap, tested)
 
 
 def materialize_nbrs(pair: dict) -> torch.Tensor:
